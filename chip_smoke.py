@@ -6,8 +6,9 @@
 Phases (a failure raises and the script exits non-zero):
 
 1. Environment: torch / CUDA versions, the card's name and power limit, and
-   the nvcc build of the ``sgmv_fused`` kernel from
-   ``src/repro_torch/kernels/quant_matmul/csrc/`` (timed).
+   the nvcc build of every kernel in
+   ``src/repro_torch/kernels/quant_matmul/csrc/`` (timed; ptxas registers
+   and spills per kernel).
 2. Kernel vs plain: ``sgmv_fused`` against ``sgmv_fused_ref`` (TF32 off) at
    the four (K, M) shapes of llama3.2-3b's LoRA linears, Rp = 16, group 128,
    8 adapters with mixed split h (one with h == r), bits_hi 2/3/4, decode
@@ -25,6 +26,27 @@ Phases (a failure raises and the script exits non-zero):
    uses adapter r mod the count): their logits must move by far more than
    the tolerance, which shows the parity check would catch a wrong adapter
    per row, a wrong seg map or a lost LoRA update.
+5. Single-adapter kernels vs plain: ``fused_lora``, ``matmul_rhs`` and
+   ``matmul_out`` against their plain versions (TF32 off) at the same four
+   shapes, rank 16, group 128, bits_hi 2/3/4, one adapter with a low side
+   (rho 0.9) and one with h == r (rho 1.0), decode (16 rows) and prefill
+   (512 rows) with x bf16, plus (K, M) = (256, 200) in fp32 (3-bit padding,
+   and an M that is not a multiple of B's group).
+6. The two-pass route: ``lora_apply_quantized(fused=False)`` and
+   ``vmem_budget=1`` at every full-width shape (2 ``matmul_rhs`` + 2
+   ``matmul_out`` each), and the reference's large-M guard shape (M 32768,
+   K 256, r 8, rho 1.0: 1 + 1 and no ``fused_lora``), each held against
+   the fused kernel and the plain version.
+7. Single-adapter serve: llama3.2-3b full width in bf16, ONE adapter whose
+   every LoRA linear is a layer-stacked ``QuantizedLoRA`` (``2@0.9``, one
+   split h for all 28 layers), 16 requests, prompt 32, 8 new greedy tokens
+   through ``Model.prefill`` / ``Model.decode_step``; ``fused_lora`` must
+   have launched exactly 1568 times and no other kernel.
+8. Three-way parity in fp32: the same codes served as ``QuantizedLoRA``
+   leaves (``fused_lora``), as a one-adapter ``PackedLoRABatch``
+   (``sgmv_fused``) and as materialized fp factors: identical greedy tokens
+   and every step's logits within ``LOGIT_RTOL``; an adapter from another
+   seed must move every request's logits by ``CONTROL_MARGIN`` tolerances.
 
 The last three lines are the card (nvidia-smi), a ``{"kernels": [...]}``
 summary and ``{"ok": true, "device": {...}}``.
@@ -246,6 +268,461 @@ def check_outputs(done, vocab: int):
     return {r.request_id: r.output.tolist() for r in done}
 
 
+# --------------------------------------------------------------------------
+# single-adapter apply (fused_lora, matmul_rhs, matmul_out)
+# --------------------------------------------------------------------------
+
+SINGLE_PHASES = {"decode": N_REQ, "prefill": N_REQ * PROMPT}     # rows
+GUARD = (32768, 256, 8, 128)          # M, K, rank, rows: the large-M guard
+
+
+def decayed_pairs(n, m, k, r, seed, scale=1.0):
+    """``n`` adapters ``b (n, m, r)``, ``a (n, r, k)`` with orthonormal
+    factors and one fixed singular spectrum ``scale·exp(-0.4 i)`` (the
+    reference benchmark's ``_decayed_pair``), so ``select_h`` gives every
+    one the same split h."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    u = torch.linalg.qr(torch.randn(n, m, r, generator=gen,
+                                    device="cuda"))[0]
+    v = torch.linalg.qr(torch.randn(n, k, r, generator=gen,
+                                    device="cuda"))[0]
+    s = scale * torch.exp(-0.4 * torch.arange(r, device="cuda"))
+    return u * s.sqrt(), s.sqrt()[:, None] * v.mT
+
+
+def single_qlora(k, m, bits, rho, seed, r=16):
+    from repro_torch.core import LoRAQuantConfig, quantize_lora
+
+    b, a = decayed_pairs(1, m, k, r, seed)
+    return quantize_lora(b[0], a[0], LoRAQuantConfig(
+        rho=rho, bits_high=bits, group_size=128, refine="none"))
+
+
+def side_layout(q):
+    from repro_torch.kernels.quant_matmul.ops import _kernel_layout
+
+    return _kernel_layout(q)[:3]
+
+
+def side_bytes(side, binary):
+    codes, scale, zero = side
+    return codes.nbytes + scale.nbytes + (0 if binary else zero.nbytes)
+
+
+def fused_args(q):
+    """``(sides, kwargs)`` of ``fused_lora`` (or its plain version) for one
+    adapter, laid out once so that a timed call times the wrapper and its
+    kernel only."""
+    kw = dict(m=q.b_high.orig_shape[0], bits_hi=q.a_high.bits,
+              binary_hi=False, group_ah=q.a_high.group_size,
+              group_bh=q.b_high.group_size)
+    lo = (None, None)
+    if q.a_low is not None:
+        lo = (side_layout(q.a_low), side_layout(q.b_low))
+        kw.update(group_al=q.a_low.group_size, group_bl=q.b_low.group_size)
+    return (side_layout(q.a_high), side_layout(q.b_high), *lo), kw
+
+
+def single_bounds(q, x, m):
+    """``{kernel: (t_bytes, t_ops)}`` in ms for one call of each kernel on
+    this adapter and x: the bytes it must move (x or h, the packed sides it
+    reads — a binary side's zeros are never read —, its fp32 output) over
+    the HBM peak, and its fp32 operations over the fp32 peak. ``matmul_*``
+    count the high side, as they are timed."""
+    t, k = x.shape
+    sides = [(q.a_high, q.b_high)] + ([(q.a_low, q.b_low)]
+                                      if q.a_low is not None else [])
+    rows = [side_layout(a)[0].shape[0] for a, _ in sides]
+    fused_bytes = (x.nbytes + t * m * 4 + sum(
+        side_bytes(side_layout(a), a.mode == "binary")
+        + side_bytes(side_layout(b), b.mode == "binary") for a, b in sides))
+    rh = rows[0]
+    mp = side_layout(q.b_high)[1].shape[1] * q.b_high.group_size
+    rhs_bytes = x.nbytes + side_bytes(side_layout(q.a_high), False) + t * rh * 4
+    out_bytes = t * rh * 4 + side_bytes(side_layout(q.b_high), False) + t * mp * 4
+    ms = 1e3
+    return {
+        "fused_lora": (fused_bytes / HBM_BYTES_PER_S * ms,
+                       2 * t * sum(rows) * (k + m) / FP32_FLOPS_PER_S * ms),
+        "matmul_rhs": (rhs_bytes / HBM_BYTES_PER_S * ms,
+                       2 * t * rh * k / FP32_FLOPS_PER_S * ms),
+        "matmul_out": (out_bytes / HBM_BYTES_PER_S * ms,
+                       2 * t * rh * mp / FP32_FLOPS_PER_S * ms),
+    }
+
+
+def check_close(name, got, want):
+    """Kernel output against its plain version within RTOL · max |y|;
+    returns the max abs error."""
+    import torch
+
+    if got.shape != want.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: bad kernel output {tuple(got.shape)}"
+                             f" (want {tuple(want.shape)})")
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    if err > RTOL * scale:
+        raise AssertionError(f"{name}: max |err| {err:.3e} > {RTOL:g} x "
+                             f"{scale:.3e}")
+    return err
+
+
+def phase_single_kernels():
+    """fused_lora / matmul_rhs / matmul_out against their plain versions;
+    returns ``{(kernel, (k, m), bits, rho, phase): (ms, plain_ms, t_bytes,
+    t_ops)}`` and the max error per kernel."""
+    import torch
+    from repro_torch.kernels.quant_matmul import (
+        fused_lora, fused_lora_ref, matmul_out, matmul_out_ref, matmul_rhs,
+        matmul_rhs_ref)
+
+    cases = [((k, m), bits, rho, phase, torch.bfloat16)
+             for (k, m) in SHAPES for bits in (2, 3, 4) for rho in (0.9, 1.0)
+             for phase in SINGLE_PHASES]
+    cases += [((256, 200), bits, rho, phase, torch.float32)
+              for bits in (2, 3, 4) for rho in (0.9, 1.0)
+              for phase in SINGLE_PHASES]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4321)
+    timings, max_err = {}, {"fused_lora": 0.0, "matmul_rhs": 0.0,
+                            "matmul_out": 0.0}
+    adapters = {}
+    for (k, m), bits, rho, phase, xdtype in cases:
+        if ((k, m), bits, rho) not in adapters:
+            adapters[(k, m), bits, rho] = single_qlora(k, m, bits, rho,
+                                                       seed=k + m + bits)
+        q = adapters[(k, m), bits, rho]
+        if (q.a_low is None) != (rho == 1.0):
+            raise AssertionError(f"rho {rho} gave h = {q.h} of {q.rank}")
+        rows = SINGLE_PHASES[phase]
+        x = torch.randn(rows, k, generator=gen, device="cuda").to(xdtype)
+        tag = f"K={k:5d} M={m:5d} bits={bits} rho={rho} {phase:7s} T={rows:3d}"
+        sides, fkw = fused_args(q)
+        got = fused_lora(x, *sides, **fkw)
+        torch.cuda.synchronize()
+        errs = {"fused_lora": check_close(f"fused_lora {tag}", got,
+                                          fused_lora_ref(x, *sides, **fkw))}
+        # both sides of the two-pass path; the high side is timed
+        pairs = [(q.a_high, q.b_high)] + ([(q.a_low, q.b_low)]
+                                          if q.a_low is not None else [])
+        for qa, qb in pairs:
+            kw = dict(bits=qa.bits, binary=qa.mode == "binary")
+            a, b = side_layout(qa), side_layout(qb)
+            h = matmul_rhs(x, *a, group=qa.group_size, **kw)
+            y = matmul_out(h, *b, group=qb.group_size, **kw)
+            torch.cuda.synchronize()
+            for name, g, w in (
+                    ("matmul_rhs", h, matmul_rhs_ref(x, *a, group=qa.group_size,
+                                                     **kw)),
+                    ("matmul_out", y, matmul_out_ref(h, *b,
+                                                     group=qb.group_size,
+                                                     **kw))):
+                errs[name] = max(errs.get(name, 0.0),
+                                 check_close(f"{name} {tag}", g, w))
+        for name, e in errs.items():
+            max_err[name] = max(max_err[name], e)
+        a, b = side_layout(q.a_high), side_layout(q.b_high)
+        kw = dict(bits=bits, binary=False)
+        h = matmul_rhs(x, *a, group=q.a_high.group_size, **kw)
+        runs = {
+            "fused_lora": (lambda: fused_lora(x, *sides, **fkw),
+                           lambda: fused_lora_ref(x, *sides, **fkw)),
+            "matmul_rhs": (
+                lambda: matmul_rhs(x, *a, group=q.a_high.group_size, **kw),
+                lambda: matmul_rhs_ref(x, *a, group=q.a_high.group_size,
+                                       **kw)),
+            "matmul_out": (
+                lambda: matmul_out(h, *b, group=q.b_high.group_size, **kw),
+                lambda: matmul_out_ref(h, *b, group=q.b_high.group_size,
+                                       **kw)),
+        }
+        bounds = single_bounds(q, x, m)
+        for name, (kern, plain) in runs.items():
+            ms = time_ms(kern, iters=10)
+            plain_ms = time_ms(plain, iters=3)
+            t_bytes, t_ops = bounds[name]
+            timings[name, (k, m), bits, rho, phase] = (ms, plain_ms, t_bytes,
+                                                       t_ops)
+            log(f"{name:10s} {tag} x={str(xdtype)[6:]:8s} max|err|="
+                f"{errs[name]:.2e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} "
+                f"ms  bound {max(t_bytes, t_ops):.5f} ms (bytes "
+                f"{t_bytes:.5f}, ops {t_ops:.5f})")
+    return timings, max_err
+
+
+def single_mix(timings, name):
+    """Mean per launch of ``name`` over the single-adapter serve's mix
+    (bits 2, rho 0.9; each of the 7 LoRA linears once at prefill and once
+    per decode step), as :func:`main_path_mix` does for ``sgmv_fused``."""
+    sub = {((k, m), 2, phase): timings[name, (k, m), 2, 0.9, phase]
+           for (k, m) in SHAPES for phase in SINGLE_PHASES}
+    return main_path_mix(sub)
+
+
+def phase_two_pass():
+    """The two-pass route of ``lora_apply_quantized`` on the card: launch
+    counts per call and outputs against the fused kernel and the plain
+    version. Returns the launch counts of the whole phase."""
+    import torch
+    from repro_torch.kernels.quant_matmul import (
+        LAUNCH_COUNTS, fused_lora, fused_lora_ref, lora_apply_quantized,
+        reset_launch_counts)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(99)
+    total = {}
+
+    def run(want_counts, **kw):
+        reset_launch_counts()
+        y = lora_apply_quantized(x, q, scaling=2.0, **kw)
+        torch.cuda.synchronize()
+        if dict(LAUNCH_COUNTS) != want_counts:
+            raise AssertionError(f"lora_apply_quantized({kw}) launched "
+                                 f"{dict(LAUNCH_COUNTS)}, want {want_counts}")
+        for n, c in LAUNCH_COUNTS.items():
+            total[n] = total.get(n, 0) + c
+        return y
+
+    two = {"matmul_rhs": 2, "matmul_out": 2}
+    for k, m in SHAPES:
+        q = single_qlora(k, m, 2, 0.9, seed=k * 3 + m)
+        x = torch.randn(SINGLE_PHASES["decode"], k, generator=gen,
+                        device="cuda")
+        want = run({"fused_lora": 1})
+        for kw in (dict(fused=False), dict(vmem_budget=1)):
+            check_close(f"two-pass {kw} K={k} M={m}", run(two, **kw), want)
+        sides, fkw = fused_args(q)
+        check_close(f"fused K={k} M={m} vs plain", want,
+                    2.0 * fused_lora_ref(x, *sides, **fkw))
+    m, k, r, rows = GUARD
+    q = single_qlora(k, m, 2, 1.0, seed=13, r=r)
+    x = torch.randn(rows, k, generator=gen, device="cuda")
+    got = run({"matmul_rhs": 1, "matmul_out": 1})
+    sides, fkw = fused_args(q)
+    check_close("large-M guard vs plain", got,
+                2.0 * fused_lora_ref(x, *sides, **fkw))
+    check_close("large-M guard vs fused_lora", got,
+                2.0 * fused_lora(x, *sides, **fkw))
+    total.pop("fused_lora", None)     # the comparisons' fused calls
+    log(f"two-pass route: {len(SHAPES)} shapes x (fused=False, vmem_budget=1)"
+        f" launched 2 + 2 each; the large-M guard (M={m}, K={k}, r={r}, "
+        f"T={rows}) 1 + 1 and no fused_lora; all within {RTOL:g} x max|y| "
+        f"of the fused kernel and the plain version")
+    return total
+
+
+def stack_layers(qls):
+    """Per-layer ``QuantizedLoRA`` entries of one split h → one
+    layer-stacked ``QuantizedLoRA`` (every array with a leading ``(L,)``)."""
+    import dataclasses
+
+    import torch
+
+    if len({q.h for q in qls}) != 1:
+        raise AssertionError(f"layers split at different h: "
+                             f"{sorted({q.h for q in qls})}")
+
+    def stack(ts):
+        return dataclasses.replace(ts[0], **{
+            f: torch.stack([getattr(t, f) for t in ts])
+            for f in ("codes", "scale", "zero")})
+
+    q0 = qls[0]
+    low = q0.a_low is not None
+    return dataclasses.replace(
+        q0, b_high=stack([q.b_high for q in qls]),
+        a_high=stack([q.a_high for q in qls]),
+        b_low=stack([q.b_low for q in qls]) if low else None,
+        a_low=stack([q.a_low for q in qls]) if low else None)
+
+
+def single_adapter(template, seed):
+    """One adapter over every LoRA linear of ``template`` (an fp lora
+    tree), quantized ``2@0.9`` by the port's pipeline: per path the list of
+    per-layer ``QuantizedLoRA`` entries."""
+    from repro_torch.core import LoRAQuantConfig, quantize_lora_stack
+    from repro_torch.serving.engine import iter_lora_linears
+
+    entries = {}
+    for i, (path, leaf) in enumerate(iter_lora_linears(template)):
+        n, r, k = leaf["a"].shape
+        b, a = decayed_pairs(n, leaf["b"].shape[1], k, r, seed=seed * 100 + i)
+        entries[path] = quantize_lora_stack(
+            b, a, LoRAQuantConfig(rho=0.9, bits_high=2))
+    return entries
+
+
+def lora_tree(template, entries, form):
+    """The adapter's lora tree in one of three forms: ``qlora`` (stacked
+    ``QuantizedLoRA`` leaves), ``packed`` (a one-adapter
+    ``PackedLoRABatch`` per leaf, prefill tiles of 8 rows) or ``fp``
+    (materialized fp32 factors)."""
+    import torch
+    from repro_torch.kernels.quant_matmul import (pack_adapter_layers,
+                                                   stack_packed_adapters)
+
+    def leaf(path):
+        qls = entries[path]
+        if form == "qlora":
+            return stack_layers(qls)
+        if form == "packed":
+            return stack_packed_adapters([pack_adapter_layers(qls)], tile_t=8)
+        bs, as_ = zip(*(q.materialize() for q in qls))
+        return {"a": torch.stack(as_), "b": torch.stack(bs)}
+
+    def rebuild(node, path):
+        if isinstance(node, dict) and set(node) == {"a", "b"}:
+            return leaf(path)
+        if isinstance(node, dict):
+            return {k: rebuild(v, f"{path}/{k}") for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return type(node)(rebuild(v, f"{path}/{i}")
+                              for i, v in enumerate(node))
+        return node
+
+    return rebuild(template, "")
+
+
+def greedy(model, base, lora_pre, lora_dec, prompts):
+    """Prefill the prompts, then decode greedily to MAX_NEW tokens through
+    the model's public API. Returns tokens ``(B, MAX_NEW)`` and every
+    step's last-position logits ``(B, MAX_NEW, V)`` fp32, on the card."""
+    import torch
+
+    b = prompts.shape[0]
+    logits, caches = model.prefill({"base": base, "lora": lora_pre},
+                                   {"tokens": prompts}, PROMPT + MAX_NEW)
+    last = logits[:, -1].argmax(-1)
+    outs, kept = [last], [logits[:, -1].float()]
+    del logits
+    for k in range(MAX_NEW - 1):
+        pos = torch.full((b,), PROMPT + k, dtype=torch.int64, device="cuda")
+        logits, caches = model.decode_step(
+            {"base": base, "lora": lora_dec}, last[:, None], caches, pos)
+        last = logits[:, -1].argmax(-1)
+        outs.append(last)
+        kept.append(logits[:, -1].float())
+    return torch.stack(outs, 1), torch.stack(kept, 1)
+
+
+def phase_single_serve():
+    """Phases 7 and 8; returns the bf16 run's launch counts and numbers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.quant_matmul import (LAUNCH_COUNTS,
+                                                   reset_launch_counts,
+                                                   retile_packed)
+    from repro_torch.models import build_model
+
+    cfg = get_config("llama3.2-3b", "full")
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(N_REQ, PROMPT)), device="cuda")
+    res = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        model = build_model(dataclasses.replace(cfg, dtype=dtype))
+        params = model.init(seed=0, device="cuda")
+        base, template = params["base"], params["lora"]
+        t0 = time.perf_counter()
+        entries = single_adapter(template, seed=1)
+        torch.cuda.synchronize()
+        t_quant = time.perf_counter() - t0
+        hs = {p: qls[0].h for p, qls in entries.items()}
+        qtree = lora_tree(template, entries, "qlora")
+        if dtype == torch.bfloat16:
+            # ---- 7. single-adapter serve, bf16 ----------------------------
+            greedy(model, base, qtree, qtree, prompts)        # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            toks, _ = greedy(model, base, qtree, qtree, prompts)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = dict(LAUNCH_COUNTS)
+            want = {"fused_lora": LAYERS * len(LINEARS) * MAX_NEW}
+            if counts != want:
+                raise AssertionError(f"single-adapter serve launched "
+                                     f"{counts}, want {want}")
+            if not ((0 <= toks) & (toks < cfg.vocab)).all():
+                raise AssertionError(f"tokens out of range: {toks}")
+            res.update(tokens_per_s=N_REQ * MAX_NEW / dt, seconds=dt,
+                       peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                       launches=counts["fused_lora"], quantize_s=t_quant)
+            log(f"single-adapter serve bf16: adapter quantized 2@0.9 in "
+                f"{t_quant:.2f}s (split h per path {hs}); "
+                f"{N_REQ * MAX_NEW} tokens in {dt:.3f}s "
+                f"({res['tokens_per_s']:.1f} tokens/s), peak device memory "
+                f"{res['peak_gib']:.2f} GiB; launches {counts}")
+        else:
+            # ---- 8. three-way parity in fp32 -------------------------------
+            packed = lora_tree(template, entries, "packed")
+            seg = torch.zeros(N_REQ, dtype=torch.int32, device="cuda")
+            pre = {"groups": packed["groups"],
+                   "seg": seg.repeat_interleave(PROMPT)}
+            dec = {"groups": retile_packed(packed, 1)["groups"], "seg": seg}
+            fp = lora_tree(template, entries, "fp")
+            runs = {}
+            for name, lp, ld, kern in (("fused_lora", qtree, qtree,
+                                        "fused_lora"),
+                                       ("sgmv_fused", pre, dec, "sgmv_fused"),
+                                       ("materialize", fp, fp, None)):
+                reset_launch_counts()
+                runs[name] = greedy(model, base, lp, ld, prompts)
+                torch.cuda.synchronize()
+                want = ({kern: LAYERS * len(LINEARS) * MAX_NEW} if kern
+                        else {})
+                if dict(LAUNCH_COUNTS) != want:
+                    raise AssertionError(f"fp32 {name} run launched "
+                                         f"{dict(LAUNCH_COUNTS)}, want {want}")
+            del packed, pre, dec, fp
+            other = lora_tree(template, single_adapter(template, seed=2),
+                              "qlora")
+            runs["control"] = greedy(model, base, other, other, prompts)
+            ref_toks, ref_logits = runs["fused_lora"]
+            scale = ref_logits.abs().max().item()
+            tol = LOGIT_RTOL * scale
+            gaps = {}
+            for name in ("sgmv_fused", "materialize"):
+                toks, logits = runs[name]
+                if not torch.equal(toks, ref_toks):
+                    bad = (toks != ref_toks).any(1).nonzero().flatten()
+                    raise AssertionError(f"fp32 greedy tokens of fused_lora "
+                                         f"and {name} differ for requests "
+                                         f"{bad.tolist()}")
+                gaps[name] = (logits - ref_logits).abs().max().item()
+                if gaps[name] > tol:
+                    raise AssertionError(f"fp32 logits of fused_lora and "
+                                         f"{name} differ by {gaps[name]:.3e}"
+                                         f" > {LOGIT_RTOL:g} x {scale:.3e}")
+            moved = (runs["control"][1] - ref_logits).abs().amax(
+                dim=(1, 2))
+            if moved.min().item() < CONTROL_MARGIN * tol:
+                raise AssertionError(f"another adapter moves the logits by "
+                                     f"only {moved.tolist()}, under "
+                                     f"{CONTROL_MARGIN} x {tol:.3e}: the "
+                                     f"parity check is blind")
+            res.update(parity_gaps=gaps, parity_tol=tol, logit_scale=scale,
+                       control_min=moved.min().item(),
+                       control_max=moved.max().item())
+            log(f"three-way fp32 parity: identical greedy tokens for all "
+                f"{N_REQ} requests ({N_REQ * MAX_NEW} tokens) across "
+                f"fused_lora, sgmv_fused and materialize; logits max |diff| "
+                f"vs fused_lora: sgmv_fused {gaps['sgmv_fused']:.3e}, "
+                f"materialize {gaps['materialize']:.3e} <= {tol:.3e} "
+                f"({LOGIT_RTOL:g} x max|logit| {scale:.3e}); an adapter from "
+                f"another seed moves every request by "
+                f"{res['control_min']:.3e} to {res['control_max']:.3e}")
+        del model, params, base, template, entries, qtree
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -278,9 +755,8 @@ def main() -> int:
             f"{time.perf_counter() - t0:.2f}s")
     else:
         log(f"{lib_path.name} cached from an earlier build of this source")
-    for line in build.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    for line in build.ptxas_report(build.BUILD_LOG):
+        log(f"  ptxas: {line}")
 
     # ---- 2. kernel vs plain ----------------------------------------------
     t0 = time.perf_counter()
@@ -346,23 +822,49 @@ def main() -> int:
         f"({LOGIT_RTOL:g} x max|logit| {scale:.3e}); another adapter moves "
         f"requests {sorted(moved)} by {min(moved.values()):.3e} to "
         f"{max(moved.values()):.3e}")
+    del runs
+    torch.cuda.empty_cache()
+
+    # ---- 5. single-adapter kernels vs plain -------------------------------
+    t0 = time.perf_counter()
+    single_timings, single_err = phase_single_kernels()
+    mixes = {name: single_mix(single_timings, name)
+             for name in ("fused_lora", "matmul_rhs", "matmul_out")}
+    log(f"single-adapter kernel phase {time.perf_counter() - t0:.1f}s; "
+        + "; ".join(f"{n} mix per launch: kernel {x['ms']:.4f} ms, plain "
+                    f"{x['plain_ms']:.4f} ms, bound {x['bound_ms']:.5f} ms "
+                    f"({x['bound_by']})" for n, x in mixes.items()))
+
+    # ---- 6. the two-pass route ----------------------------------------------
+    two_pass = phase_two_pass()
+
+    # ---- 7-8. single-adapter serve (bf16) and three-way parity (fp32) -------
+    t0 = time.perf_counter()
+    single = phase_single_serve()
+    log(f"single-adapter phases {time.perf_counter() - t0:.1f}s")
     log(f"total {time.perf_counter() - t_start:.1f}s")
 
-    # ---- 5. summary --------------------------------------------------------
+    # ---- summary -------------------------------------------------------------
+    def entry(name, replaces, launches, err, x):
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/quant_matmul/csrc/"
+                          f"{name}.cu",
+                "replaces": f"src/repro/kernels/quant_matmul/kernel.py:"
+                            f"{replaces}",
+                "launches": launches, "max_abs_err": err, "ms": x["ms"],
+                "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"],
+                "bound_by": x["bound_by"], "library_ms": None}
+
     print(smi)
-    print(json.dumps({"kernels": [{
-        "name": "sgmv_fused",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/quant_matmul/csrc/sgmv_fused.cu",
-        "replaces": "src/repro/kernels/quant_matmul/kernel.py:481",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": mix["ms"],
-        "plain_ms": mix["plain_ms"],
-        "bound_ms": mix["bound_ms"],
-        "bound_by": mix["bound_by"],
-        "library_ms": None,
-    }]}))
+    print(json.dumps({"kernels": [
+        entry("sgmv_fused", 481, launches, max_err, mix),
+        entry("fused_lora", 348, single["launches"], single_err["fused_lora"],
+              mixes["fused_lora"]),
+        entry("matmul_rhs", 157, two_pass["matmul_rhs"],
+              single_err["matmul_rhs"], mixes["matmul_rhs"]),
+        entry("matmul_out", 204, two_pass["matmul_out"],
+              single_err["matmul_out"], mixes["matmul_out"]),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -7,8 +7,10 @@ imports neither JAX nor ``repro``; the tests hand it JAX objects (or their
 ``np.asarray`` views) and compare the port against them.
 
 Covered: nested-dict parameter trees with stacked ``(L, ...)`` leaves
-(``repro/models/model.py``), ``QuantizedTensor``, ``QuantizedLoRA`` and the
-serving engine's ``QuantizedAdapter``.
+(``repro/models/model.py``), ``QuantizedTensor``, ``QuantizedLoRA`` (one
+layer's, or layer-stacked with a leading ``(L,)`` on every array, which
+the arrays keep), trees whose leaves are ``QuantizedLoRA``, and the serving
+engine's ``QuantizedAdapter``.
 
 Like every entry point of the port, each function places its tensors on the
 card unless the caller passes ``device="cpu"``, and raises when CUDA is asked
@@ -52,7 +54,8 @@ def _torch_dtype(np_dtype) -> torch.dtype:
 
 def to_torch(tree, device="cuda"):
     """Nested dicts / lists / tuples of arrays → the same structure of
-    tensors on ``device`` (dtypes kept; bf16 included)."""
+    tensors on ``device`` (dtypes kept; bf16 included). ``QuantizedLoRA``
+    leaves become the port's (see :func:`quantized_lora`)."""
     dev = resolve_device(device)
 
     def conv(node):
@@ -60,6 +63,8 @@ def to_torch(tree, device="cuda"):
             return {k: conv(v) for k, v in node.items()}
         if isinstance(node, (list, tuple)):
             return type(node)(conv(v) for v in node)
+        if hasattr(node, "a_high") and hasattr(node, "b_high"):
+            return quantized_lora(node, dev)
         return _tensor(node, dev)
 
     return conv(tree)
@@ -87,6 +92,9 @@ def recipe(cfg) -> LoRAQuantConfig:
 
 
 def quantized_lora(q, device="cuda") -> QuantizedLoRA:
+    """A JAX ``QuantizedLoRA`` → the port's; a layer-stacked one (every
+    array with a leading ``(L,)``) stays stacked, and the model slices
+    it per layer."""
     device = resolve_device(device)
     low = q.b_low is not None
     return QuantizedLoRA(

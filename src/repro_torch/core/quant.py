@@ -8,7 +8,9 @@ scales), ``*_dequantize`` and ``*_fake_quant`` (straight-through estimator,
 
 The operation order of ``_to_groups`` / ``_rtn_params`` follows the JAX
 package step by step so that codes, scales and zero-points come out
-bit-exact. Unlike the JAX functions, which take one 2-D factor and are
+bit-exact, and ``_abs_mean`` sums each binary group in the order XLA's
+CPU backend does, so binary scales are bit-exact too. Unlike the JAX
+functions, which take one 2-D factor and are
 ``vmap``-ed, these accept leading batch dims ``(..., rows, cols)``; ``axis``
 then names one of the last two dims.
 
@@ -212,11 +214,38 @@ def rtn_fake_quant(w: torch.Tensor, bits: int,
 # binary / sign quantization (paper Eq. 8)
 # --------------------------------------------------------------------------
 
+XLA_REDUCE_WINDOW = 32
+
+
+def _xla_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim in XLA's CPU order: a row longer than 32 is
+    zero-padded evenly on both ends to whole windows of 32, each window is
+    summed left to right, and the window sums are reduced the same way."""
+    n = v.shape[-1]
+    if n > XLA_REDUCE_WINDOW:
+        pad = -n % XLA_REDUCE_WINDOW
+        v = torch.nn.functional.pad(v, (pad // 2, pad - pad // 2))
+        v = _xla_sum(v.reshape(v.shape[:-1] + (-1, XLA_REDUCE_WINDOW)))
+        return _xla_sum(v)
+    acc = v[..., 0]
+    for i in range(1, n):
+        acc = acc + v[..., i]
+    return acc
+
+
+def _abs_mean(groups: torch.Tensor) -> torch.Tensor:
+    """``mean(|groups|)`` over the last dim, bit-exact against ``jnp.mean``
+    on the CPU: the XLA-ordered sum times the fp32 constant ``1/n``."""
+    n = groups.shape[-1]
+    recip = torch.tensor(1.0, dtype=torch.float32) / n
+    return _xla_sum(groups.abs().to(torch.float32)) * recip.to(groups.device)
+
+
 def binary_quantize(w: torch.Tensor, group_size: int = GROUP_SIZE_DEFAULT,
                     axis: int = 1) -> QuantizedTensor:
     """Sign binarization with the Frobenius-optimal scale ``mean(|w|)``."""
     groups, _, _, _ = _to_groups(w.to(torch.float32), group_size, axis)
-    scale = groups.abs().mean(dim=-1).to(torch.float32)
+    scale = _abs_mean(groups)
     bit = (groups >= 0).to(torch.int32)       # sign(x): 1 if x >= 0 else -1
     return QuantizedTensor(
         codes=pack_codes(bit, 1),
@@ -240,7 +269,7 @@ def binary_dequantize(q: QuantizedTensor) -> torch.Tensor:
 def binary_fake_quant(w: torch.Tensor, group_size: int = GROUP_SIZE_DEFAULT,
                       axis: int = 1) -> torch.Tensor:
     groups, _, orig_len, _ = _to_groups(w, group_size, axis)
-    scale = groups.detach().abs().mean(dim=-1)
+    scale = _abs_mean(groups.detach()).to(groups.dtype)
     sign = torch.where(groups >= 0, 1.0, -1.0)
     deq = scale[..., None] * sign
     fq = _from_groups(deq, orig_len, axis)

@@ -3,7 +3,8 @@
 //
 // Replaces the Pallas TPU kernel `sgmv_fused`
 // (src/repro/kernels/quant_matmul/kernel.py:481), including its in-kernel
-// unpack `_unpack_dequant_grouped` (kernel.py:110).
+// unpack `_unpack_dequant_grouped` (kernel.py:110), whose device code
+// (`code_at`) it shares with the other kernels through unpack.cuh.
 //
 // What it computes, per token tile of `kt` rows that all use adapter
 // a = seg_map[tile]:
@@ -47,6 +48,8 @@
 
 #include <type_traits>
 
+#include "unpack.cuh"
+
 namespace {
 
 constexpr int kMaxTileRows = 8;   // token rows per block (kt <= 8)
@@ -73,25 +76,8 @@ struct Params {
   int chunk;  // K columns staged per step: a whole number of A groups
 };
 
-// Code j of one quant group whose words start at `words`.
-template <int BITS>
-__device__ __forceinline__ int code_at(const void* words, int j) {
-  if constexpr (BITS == 3) {
-    const int32_t* w = static_cast<const int32_t*>(words);
-    return (w[j / 10] >> ((j % 10) * 3)) & 7;
-  } else {
-    constexpr int kPer = 8 / BITS;
-    const uint8_t* w = static_cast<const uint8_t*>(words);
-    return (w[j / kPer] >> ((j % kPer) * BITS)) & ((1 << BITS) - 1);
-  }
-}
-
-__device__ __forceinline__ float load_x(const float* x, size_t i) {
-  return x[i];
-}
-__device__ __forceinline__ float load_x(const __nv_bfloat16* x, size_t i) {
-  return __bfloat162float(x[i]);
-}
+using loraquant::code_at;
+using loraquant::load_x;
 
 template <int BITS, typename XT>
 __global__ void __launch_bounds__(kMaxThreads)
@@ -275,7 +261,8 @@ int sgmv_fused_launch(const void* x, int x_is_bf16,
   return cudaGetLastError();
 }
 
-const char* sgmv_fused_error_string(int code) {
+// The message of a CUDA error code returned by any launch of this library.
+const char* quant_matmul_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -1,15 +1,18 @@
-"""Packed-adapter layouts and the apply wrapper of the serving path (port
+"""Packed-adapter layouts and the apply wrappers of the serving path (port
 of ``repro/kernels/quant_matmul/ops.py``).
 
-:class:`PackedLoRABatch` stacks many adapters' LoRAQuant codes for one
-LoRA-linear path in the kernel layout; :func:`sgmv_apply_packed` applies a
-heterogeneous batch of them straight from the codes through the
-``sgmv_fused`` kernel.
+* :func:`lora_apply_quantized` applies one :class:`QuantizedLoRA` (one
+  adapter for the whole batch) straight from its packed codes: one
+  ``fused_lora`` launch, or the two-pass ``matmul_rhs`` + ``matmul_out``
+  per sub-LoRA when ``fused=False`` or the fused kernel's estimated
+  footprint exceeds the budget. :func:`quant_matmul_rhs` is the first pass
+  alone.
+* :class:`PackedLoRABatch` stacks many adapters' codes for one LoRA-linear
+  path; :func:`sgmv_apply_packed` applies a heterogeneous batch of them
+  through the ``sgmv_fused`` kernel.
 
-Not ported yet: ``lora_apply_quantized`` / ``fused_lora`` and the two-pass
-wrappers (ROADMAP B3-B5), ``PackedLoRABuckets`` for mixed recipes (A4). The
-JAX package's TPU VMEM guard has no counterpart here: the CUDA wrapper
-checks its own shared-memory limit.
+Not ported yet: ``sgmv_apply`` and the two-pass SGMV kernels (ROADMAP B4),
+``PackedLoRABuckets`` for mixed recipes (A4).
 """
 
 from __future__ import annotations
@@ -22,10 +25,17 @@ import torch
 from repro_torch.core.loraquant import QuantizedLoRA
 from repro_torch.core.quant import QuantizedTensor
 
-from .kernel import sgmv_fused
+from .kernel import fused_lora, matmul_out, matmul_rhs, sgmv_fused
 
 SUBLANE = 8              # rank rows are padded to a multiple of this
 TILE_CAP = 2048          # max feature tile considered by _pick_tile
+
+# The JAX API's rule for choosing the fused kernel or the two-pass path:
+# the fused TPU kernel's per-step VMEM footprint (_fused_vmem_estimate)
+# against a 12 MiB budget. The port keeps the estimate and the budget as
+# they are, so that it picks the same kernels as the reference for the same
+# inputs; the CUDA kernels check their own shared-memory limits and raise.
+FUSED_VMEM_BUDGET = 12 << 20
 
 
 def _pick_tile(n: int, group: int, cap: int = TILE_CAP) -> int:
@@ -57,6 +67,115 @@ def _kernel_layout(q: QuantizedTensor, pad_r: Optional[int] = None):
     rp = pad_r or (-(-r // SUBLANE) * SUBLANE)
     codes = _pad_rows(q.codes.reshape(r, -1), rp)
     return codes, _pad_rows(q.scale, rp), _pad_rows(q.zero, rp), r
+
+
+def _fused_vmem_estimate(qlora: QuantizedLoRA, tile_t: int,
+                         tile_k: int) -> int:
+    """Bytes the fused TPU kernel keeps VMEM-resident in one grid step: the
+    x and A-side K tiles, the full packed B factors plus their fp32
+    dequantized forms, the ``(tile_t, M)`` output tile and the fp32 h
+    scratch (the reference's estimate, unchanged)."""
+    k = qlora.a_high.orig_shape[1]
+    m = qlora.b_high.orig_shape[0]
+    a_sides = [qlora.a_high] + ([qlora.a_low] if qlora.a_low is not None
+                                else [])
+    b_sides = [qlora.b_high] + ([qlora.b_low] if qlora.b_low is not None
+                                else [])
+
+    def packed_bytes(q):
+        return (q.codes.numel() * q.codes.element_size()
+                + q.scale.numel() * 4 + q.zero.numel() * 4)
+
+    est = tile_t * tile_k * 4 + tile_t * m * 4        # x tile + output tile
+    for q in a_sides:
+        est += packed_bytes(q) * tile_k // max(k, 1)  # A-side K tile
+        est += tile_t * q.scale.shape[0] * 4          # h scratch row
+    for q in b_sides:
+        est += packed_bytes(q)                        # full packed B
+        est += q.scale.shape[0] * m * 4               # dequantized B (fp32)
+    return est
+
+
+def _pad_tokens(x: torch.Tensor, tile_t: int):
+    """Zero rows up to a multiple of ``tile_t``; returns ``(x, T)``."""
+    t = x.shape[0]
+    return _pad_rows(x, -(-t // tile_t) * tile_t), t
+
+
+def quant_matmul_rhs(x: torch.Tensor, codes: torch.Tensor,
+                     scale: torch.Tensor, zero: torch.Tensor, *, bits: int,
+                     binary: bool) -> torch.Tensor:
+    """``x @ dequant(A)ᵀ`` from one packed factor in the kernel layout (the
+    group size follows from the dense uint8 layout)."""
+    return matmul_rhs(x, codes, scale, zero, bits=bits, binary=binary)
+
+
+def _side(x: torch.Tensor, q: QuantizedTensor) -> torch.Tensor:
+    codes, scale, zero, _ = _kernel_layout(q)
+    return matmul_rhs(x, codes, scale, zero, bits=q.bits,
+                      binary=q.mode == "binary", group=q.group_size)
+
+
+def _quant_m(q: QuantizedTensor) -> int:
+    """Logical output width of a B factor, whether stored column-grouped
+    ``(M, R)`` (axis=0) or as the transposed row-grouped ``(R, M)`` view."""
+    return q.orig_shape[0] if q.axis == 0 else q.orig_shape[1]
+
+
+def _out_side(h: torch.Tensor, q: QuantizedTensor) -> torch.Tensor:
+    codes, scale, zero, _ = _kernel_layout(q)
+    if h.shape[1] != codes.shape[0]:
+        h = torch.nn.functional.pad(h, (0, codes.shape[0] - h.shape[1]))
+    y = matmul_out(h, codes, scale, zero, bits=q.bits,
+                   binary=q.mode == "binary", group=q.group_size)
+    return y[:, : _quant_m(q)]
+
+
+def _fused_apply(x: torch.Tensor, qlora: QuantizedLoRA) -> torch.Tensor:
+    """One ``fused_lora`` launch for both sub-LoRAs."""
+    ah, bh = qlora.a_high, qlora.b_high
+    kwargs = dict(m=bh.orig_shape[0],        # B is (M, R) column-grouped
+                  bits_hi=ah.bits, binary_hi=ah.mode == "binary",
+                  group_ah=ah.group_size, group_bh=bh.group_size)
+    a_lo = b_lo = None
+    if qlora.a_low is not None:
+        al, bl = qlora.a_low, qlora.b_low
+        a_lo, b_lo = _kernel_layout(al)[:3], _kernel_layout(bl)[:3]
+        kwargs.update(bits_lo=al.bits, binary_lo=al.mode == "binary",
+                      group_al=al.group_size, group_bl=bl.group_size)
+    return fused_lora(x, _kernel_layout(ah)[:3], _kernel_layout(bh)[:3],
+                      a_lo, b_lo, **kwargs)
+
+
+def lora_apply_quantized(x: torch.Tensor, qlora: QuantizedLoRA, *,
+                         scaling: float = 1.0, tile_t: int = 128,
+                         fused: bool = True,
+                         vmem_budget: Optional[int] = None) -> torch.Tensor:
+    """Packed-LoRA application of one adapter: high (RTN) + low (binary)
+    sub-LoRAs, ``≈ scaling · x @ qlora.delta_w().T`` in ``x``'s dtype.
+
+    ``fused=True`` issues one ``fused_lora`` launch, unless
+    :func:`_fused_vmem_estimate` at ``tile_t`` crosses ``vmem_budget``
+    (default :data:`FUSED_VMEM_BUDGET`): then, as with ``fused=False``, the
+    two-pass path runs ``matmul_rhs`` + ``matmul_out`` per sub-LoRA, ``h``
+    passing through device memory. ``tile_t`` is the reference's token tile:
+    x is zero-padded to a multiple of it.
+    """
+    xp, t = _pad_tokens(x, min(tile_t, max(x.shape[0], 1)))
+    tt = min(tile_t, xp.shape[0])
+    if fused:
+        budget = FUSED_VMEM_BUDGET if vmem_budget is None else vmem_budget
+        tk = _pick_tile(x.shape[1], qlora.a_high.group_size)
+        if _fused_vmem_estimate(qlora, tt, tk) > budget:
+            fused = False                 # large-M guard: two-pass fallback
+    xp = xp.contiguous()
+    if fused:
+        y = _fused_apply(xp, qlora)
+    else:
+        y = _out_side(_side(xp, qlora.a_high), qlora.b_high)
+        if qlora.a_low is not None:
+            y = y + _out_side(_side(xp, qlora.a_low), qlora.b_low)
+    return (scaling * y[:t]).to(x.dtype)
 
 
 @dataclasses.dataclass(frozen=True)

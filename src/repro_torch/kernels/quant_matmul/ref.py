@@ -6,11 +6,13 @@ version of the ``sgmv_fused`` CUDA kernel.
   ``(R, K)`` factor (the A side, or Bᵀ).
 * ``ref_lora_apply(x, qa, qbt)`` = ``(x @ Aᵀ) @ Bᵀ`` from packed factors.
 * ``ref_sgmv(x, qas, qbts, seg_ids)`` = per-row adapter selection.
-* ``sgmv_fused_ref`` computes, from the kernel layout, exactly what the
-  kernel computes: per token tile, the tile's adapter's
-  ``y = (x·A_hiᵀ)·B_hi + (x·A_loᵀ)·B_lo`` in fp32. The wrapper in
-  ``kernel.py`` takes it for CPU tensors; ``chip_smoke.py`` holds the kernel
-  against it on the card.
+* ``matmul_rhs_ref``, ``matmul_out_ref``, ``fused_lora_ref`` and
+  ``sgmv_fused_ref`` compute, from the kernel layout, exactly what their
+  CUDA kernels compute, in fp32: ``h = x·dequant(A)ᵀ``,
+  ``y = h·dequant(Bᵀ)`` over the group-padded width, one adapter's
+  ``y = (x·A_hiᵀ)·B_hi + (x·A_loᵀ)·B_lo``, and the same per token tile with
+  the tile's adapter. The wrappers in ``kernel.py`` take them for CPU
+  tensors; ``chip_smoke.py`` holds the kernels against them on the card.
 
 The B factor ``(M, R)`` is quantized column-wise, which is row-wise
 quantization of ``Bᵀ (R, M)``: both sides share one ``(R, ·)`` layout.
@@ -63,7 +65,7 @@ def ref_sgmv(x: torch.Tensor, qas: Sequence[QuantizedTensor],
 
 
 # --------------------------------------------------------------------------
-# plain version of the sgmv_fused kernel
+# plain versions of the CUDA kernels
 # --------------------------------------------------------------------------
 
 def unpack_dequant_grouped(codes: torch.Tensor, scale: torch.Tensor,
@@ -89,6 +91,42 @@ def unpack_dequant_grouped(codes: torch.Tensor, scale: torch.Tensor,
     else:
         deq = scale[..., None] * (q - zero.to(torch.float32)[..., None])
     return deq.reshape(*lead, r, ng * group)
+
+
+def matmul_rhs_ref(x, codes, scale, zero, *, bits: int, binary: bool,
+                   group: int) -> torch.Tensor:
+    """``x (T, K) @ dequant(codes (R, NG·Wg))ᵀ`` → ``(T, R)`` fp32; columns
+    of A past K (the last group's padding) are dropped."""
+    w = unpack_dequant_grouped(codes, scale, None if binary else zero, bits,
+                               group)
+    return x.to(torch.float32) @ w[:, :x.shape[1]].T
+
+
+def matmul_out_ref(h, codes, scale, zero, *, bits: int, binary: bool,
+                   group: int) -> torch.Tensor:
+    """``h (T, R) @ dequant(codes (R, NG·Wg))`` → ``(T, Mp)`` fp32 with
+    ``Mp = NG·group``; callers slice ``[:, :m]``."""
+    w = unpack_dequant_grouped(codes, scale, None if binary else zero, bits,
+                               group)
+    return h.to(torch.float32) @ w
+
+
+def fused_lora_ref(x, a_hi, b_hi, a_lo=None, b_lo=None, *, m: int,
+                   bits_hi: int, binary_hi: bool, bits_lo: int = 1,
+                   binary_lo: bool = True, group_ah: int, group_bh: int,
+                   group_al: int = 0, group_bl: int = 0) -> torch.Tensor:
+    """One adapter's ``(x·A_hiᵀ)·B_hi (+ (x·A_loᵀ)·B_lo)`` → ``(T, m)`` fp32.
+    Each side is a ``(codes, scale, zero)`` triple in the kernel layout; the
+    output has exactly ``m`` columns whatever B's group padding."""
+    def side(a, b, bits, binary, ga, gb):
+        h = matmul_rhs_ref(x, *a, bits=bits, binary=binary, group=ga)
+        return matmul_out_ref(h, *b, bits=bits, binary=binary,
+                              group=gb)[:, :m]
+
+    y = side(a_hi, b_hi, bits_hi, binary_hi, group_ah, group_bh)
+    if a_lo is not None:
+        y = y + side(a_lo, b_lo, bits_lo, binary_lo, group_al, group_bl)
+    return y
 
 
 def sgmv_fused_ref(x, a_codes, a_scale, a_zero, b_codes, b_scale, b_zero,

@@ -91,27 +91,39 @@ def init_lora(gen: torch.Generator, d_in: int, d_out: int, rank: int,
 
 def linear(x: torch.Tensor, base: Params, lora=None,
            scaling: float = 2.0) -> torch.Tensor:
-    """``x @ W (+ LoRA)``. ``lora`` is an fp ``{'a', 'b'}`` dict (rank-r
-    bottleneck in the LoRA dtype) or a
-    :class:`~repro_torch.kernels.PackedLoRABatch` (heterogeneous adapters
-    applied straight from packed codes by the ``sgmv_fused`` kernel). The
-    base product runs in the base dtype; the update is cast to it."""
+    """``x @ W (+ LoRA)``. ``lora`` is one of:
+
+    * an fp ``{'a', 'b'}`` dict (rank-r bottleneck in the LoRA dtype);
+    * a :class:`~repro_torch.core.QuantizedLoRA` — one adapter for the whole
+      batch, applied straight from its packed codes by
+      :func:`~repro_torch.kernels.lora_apply_quantized` (one ``fused_lora``
+      launch);
+    * a :class:`~repro_torch.kernels.PackedLoRABatch` — heterogeneous
+      adapters applied straight from packed codes by the ``sgmv_fused``
+      kernel.
+
+    The base product runs in the base dtype; the update is cast to it."""
     y = x @ base["w"]
     if lora is None:
         return y
+    from repro_torch.core.loraquant import QuantizedLoRA
     from repro_torch.kernels.quant_matmul import (PackedLoRABatch,
+                                                   lora_apply_quantized,
                                                    sgmv_apply_packed)
 
+    if isinstance(lora, QuantizedLoRA):
+        x2 = x.reshape(-1, x.shape[-1])
+        upd = lora_apply_quantized(x2, lora, scaling=scaling, fused=True)
+        return y + upd.reshape(y.shape).to(y.dtype)
     if isinstance(lora, PackedLoRABatch):
         x2 = x.reshape(-1, x.shape[-1])
         upd = sgmv_apply_packed(x2, lora, scaling=scaling)
         return y + upd.reshape(y.shape).to(y.dtype)
     if not (isinstance(lora, dict) and set(lora) == {"a", "b"}):
-        # QuantizedLoRA leaves go through fused_lora (ROADMAP B3),
-        # mixed-recipe PackedLoRABuckets through sgmv_apply_buckets (A4)
+        # mixed-recipe PackedLoRABuckets go through sgmv_apply_buckets (A4)
         raise NotImplementedError(
             f"LoRA leaf {type(lora).__name__} is not served by the port yet "
-            f"(fused_lora: ROADMAP B3; PackedLoRABuckets: ROADMAP A4)")
+            f"(PackedLoRABuckets: ROADMAP A4)")
     xl = x.to(lora["a"].dtype)
     upd = (xl @ lora["a"].T) @ lora["b"].T
     return y + (scaling * upd).to(y.dtype)

@@ -13,9 +13,12 @@ Parameter tree, as in the JAX package::
      "lora": {"groups": [{"sub_0": {"mixer": {"wq": {"a", "b"}, ...},
                                     "ffn": {"wg": {"a", "b"}, ...}}}]}}
 
-A serving engine may replace LoRA leaves by
-:class:`~repro_torch.kernels.PackedLoRABatch` stacks and put the per-row
-adapter index at ``lora["seg"]``.
+A LoRA leaf may also be applied straight from packed codes: a
+layer-stacked :class:`~repro_torch.core.QuantizedLoRA` (one adapter for the
+whole batch; every array carries the leading ``(L,)`` axis and all layers
+share one split ``h``), or a :class:`~repro_torch.kernels.PackedLoRABatch`
+stack of many adapters, whose per-row adapter index a serving engine puts
+at ``lora["seg"]``.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core.loraquant import QuantizedLoRA
 from repro_torch.kernels.quant_matmul import PackedLoRABatch
 
 from . import attention as attn_mod
@@ -41,9 +45,13 @@ def _not_ported(what: str):
 
 def _layer_slice(tree, i: int):
     """Layer ``i`` of a stacked tree: every tensor ``t[i]``, every packed
-    leaf its per-layer view (its ``seg`` stays per row)."""
+    leaf its per-layer view (its ``seg`` stays per row), every
+    ``QuantizedLoRA`` entry ``i`` of each array, its metadata kept (what
+    ``lax.scan`` hands the JAX model's layer body)."""
     if isinstance(tree, PackedLoRABatch):
         return tree.layer(i)
+    if isinstance(tree, QuantizedLoRA):
+        return tree.index(i)
     if isinstance(tree, dict):
         return {k: _layer_slice(v, i) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):

@@ -61,7 +61,8 @@ def test_repro_torch_imports_without_jax_and_refuses_missing_cuda():
 
 
 def test_no_jax_or_repro_import_in_source():
-    for path in (SRC / "repro_torch").rglob("*.py"):
+    for path in [*(SRC / "repro_torch").rglob("*.py"),
+                 SRC.parent / "chip_smoke.py"]:
         for line in path.read_text().splitlines():
             s = line.strip()
             assert not s.startswith(("import jax", "from jax",

@@ -130,9 +130,23 @@ def test_linear_branches():
     want = x @ base["w"] + (2.0 * ((x.float() @ lora["a"].T) @ lora["b"].T)
                             ).to(torch.bfloat16)
     torch.testing.assert_close(y, want)
-    fake = QuantizedLoRA(None, None, None, None, h=1, rank=2, config=None)
-    with pytest.raises(NotImplementedError, match="B3"):
-        linear(x, base, fake)
+    # one adapter straight from packed codes: one fused_lora per call, the
+    # update cast to the base dtype
+    from repro_torch.core import LoRAQuantConfig, quantize_lora
+    from repro_torch.kernels import lora_apply_quantized
+
+    q = quantize_lora(torch.randn(4, 2), torch.randn(2, 8),
+                      LoRAQuantConfig(rho=0.9, refine="none"))
+    assert isinstance(q, QuantizedLoRA)
+    x3 = x.reshape(1, 3, 8)
+    reset_launch_counts()
+    y = linear(x3, base, q, scaling=2.0)
+    assert dict(PLAIN_CALLS) == {"fused_lora": 1}
+    assert y.shape == (1, 3, 4) and y.dtype == torch.bfloat16
+    want = x @ base["w"] + lora_apply_quantized(x, q, scaling=2.0)
+    torch.testing.assert_close(y[0], want)
+    with pytest.raises(NotImplementedError, match="A4"):
+        linear(x, base, object())
 
 
 def test_cuda_entry_point_raises_without_gpu():
