@@ -47,6 +47,25 @@ Phases (a failure raises and the script exits non-zero):
    (``sgmv_fused``) and as materialized fp factors: identical greedy tokens
    and every step's logits within ``LOGIT_RTOL``; an adapter from another
    seed must move every request's logits by ``CONTROL_MARGIN`` tolerances.
+9. Multi-adapter kernels vs plain (TF32 off): ``sgmv_rhs``, ``sgmv_out``
+   and the single-side ``sgmv_fused`` at the four full-width shapes, 8
+   adapters of rank 16 quantized per side with ``rtn_quantize`` at 2/3/4
+   bits and with ``binary_quantize`` (group 128), decode (tile_t 1, 16
+   rows) and prefill (tile_t 8, 512 rows) with x bf16, plus (256, 200) in
+   fp32, and one two-sided ``sgmv_fused`` whose low side has another rank
+   (8) than the high side (16).
+10. ``sgmv_apply`` at every full-width shape, decode and prefill:
+    ``fused=True`` launches exactly one ``sgmv_fused``, ``fused=False``
+    exactly one ``sgmv_rhs`` and one ``sgmv_out``; both held against the
+    dense oracle ``ref_sgmv``.
+11. Mixed-recipe serve: llama3.2-3b at full width in bf16, 8 adapters, two
+    ``4@0.95``, two ``3@0.9`` and four ``2@0.9`` (3 layout buckets), 16
+    requests, prompt 32, 8 new tokens, ``--mode packed``: exactly 3 x 1568
+    = 4704 ``sgmv_fused`` launches and no other kernel.
+12. fp32 parity of the same mixed-recipe fleet: packed vs materialize,
+    identical greedy tokens and every step's logits within ``LOGIT_RTOL``;
+    a control in which every request meets another adapter must move every
+    request's logits by ``CONTROL_MARGIN`` tolerances.
 
 The last three lines are the card (nvidia-smi), a ``{"kernels": [...]}``
 summary and ``{"ok": true, "device": {...}}``.
@@ -162,6 +181,18 @@ def call(fn, x, pb, seg_tiles, tile_t):
               tile_t=tile_t)
 
 
+def seg_for(phase):
+    """Token tiles and their adapters as phase 2 lays them out: request r
+    uses adapter r mod 8; a prompt spans PROMPT / tile_t tiles."""
+    import torch
+
+    tile_t, rows = PHASES[phase]
+    n_tiles = rows // tile_t
+    per_req = max(1, n_tiles // N_REQ)
+    return ((torch.arange(n_tiles, device="cuda") // per_req)
+            % N_ADAPTERS).to(torch.int32)
+
+
 def phase_kernel():
     import torch
     from repro_torch.kernels.quant_matmul import sgmv_fused, sgmv_fused_ref
@@ -183,11 +214,7 @@ def phase_kernel():
                                                seed=k + m + bits)
         pb = packs[(k, m), bits]
         tile_t, rows = PHASES[phase]
-        n_tiles = rows // tile_t
-        # requests r -> adapter r % 8; a prompt spans PROMPT / tile_t tiles
-        per_req = max(1, n_tiles // N_REQ)
-        seg_tiles = ((torch.arange(n_tiles, device="cuda") // per_req)
-                     % N_ADAPTERS).to(torch.int32)
+        seg_tiles = seg_for(phase)
         x = (torch.randn(rows, k, generator=gen, device="cuda")).to(xdtype)
         got = call(sgmv_fused, x, pb, seg_tiles, tile_t)
         torch.cuda.synchronize()
@@ -235,7 +262,7 @@ def main_path_mix(timings):
 
 
 def serve(dtype: str, mode: str, adapters: int = N_ADAPTERS,
-          keep_logits: bool = False):
+          keep_logits: bool = False, recipes=()):
     from repro_torch.launch import serve as serve_mod
 
     return serve_mod.main([
@@ -243,6 +270,7 @@ def serve(dtype: str, mode: str, adapters: int = N_ADAPTERS,
         "--adapters", str(adapters), "--variant", "2@0.9",
         "--requests", str(N_REQ), "--prompt-len", str(PROMPT),
         "--max-new", str(MAX_NEW), "--mode", mode, "--seed", "0"]
+        + [a for r in recipes for a in ("--recipe", r)]
         + (["--keep-logits"] if keep_logits else []))
 
 
@@ -723,6 +751,285 @@ def phase_single_serve():
     return res
 
 
+# --------------------------------------------------------------------------
+# multi-adapter kernels (sgmv_rhs, sgmv_out, single-side sgmv_fused),
+# sgmv_apply and mixed-recipe serving
+# --------------------------------------------------------------------------
+
+SIDE_FORMATS = ("rtn2", "rtn3", "rtn4", "binary")
+# two of each premium recipe, the rest at the default 2@0.9: 3 layout buckets
+MIXED_RECIPES = ("user_0=4@0.95", "user_1=4@0.95", "user_2=3@0.9",
+                 "user_3=3@0.9")
+
+
+def sgmv_sides(k, m, fmt, seed, na=N_ADAPTERS, r=16):
+    """``na`` adapters' A ``(r, K)`` and Bᵀ-view ``(M, r)`` factors quantized
+    per side in one format (group 128): the per-adapter QuantizedTensors
+    and their ``(NA, Rp, ·)`` stacks."""
+    import torch
+    from repro_torch.core.quant import binary_quantize, rtn_quantize
+    from repro_torch.kernels.quant_matmul import stack_adapter_side
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    decay = torch.exp(-0.3 * torch.arange(r, device="cuda"))
+
+    def q(w, axis):
+        if fmt == "binary":
+            return binary_quantize(w, 128, axis=axis)
+        return rtn_quantize(w, int(fmt[3:]), 128, axis=axis)
+
+    qas = [q(torch.randn(r, k, generator=gen, device="cuda")
+             * decay[:, None], 1) for _ in range(na)]
+    qbs = [q(torch.randn(m, r, generator=gen, device="cuda") * decay, 0)
+           for _ in range(na)]
+    return qas, qbs, stack_adapter_side(qas), stack_adapter_side(qbs)
+
+
+def used_bytes(side, seg, binary):
+    """Packed bytes of the adapters the tiles use (a binary side's
+    zero-points are never read)."""
+    return len(set(seg.tolist())) * side_bytes([t[0] for t in side], binary)
+
+
+def phase_sgmv_kernels():
+    """sgmv_rhs, sgmv_out and the single-side sgmv_fused against their plain
+    versions; returns ``{(kernel, (k, m), fmt, phase): (ms, plain_ms,
+    t_bytes, t_ops)}`` and the max error per kernel."""
+    import torch
+    from repro_torch.kernels.quant_matmul import (
+        sgmv_fused, sgmv_fused_ref, sgmv_out, sgmv_out_ref, sgmv_rhs,
+        sgmv_rhs_ref)
+
+    cases = [((k, m), fmt, phase, torch.bfloat16) for (k, m) in SHAPES
+             for fmt in SIDE_FORMATS for phase in PHASES]
+    cases += [((256, 200), fmt, phase, torch.float32)
+              for fmt in SIDE_FORMATS for phase in PHASES]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2468)
+    timings = {}
+    max_err = {"sgmv_rhs": 0.0, "sgmv_out": 0.0, "sgmv_fused": 0.0}
+    sides = {}
+    for (k, m), fmt, phase, xdtype in cases:
+        if ((k, m), fmt) not in sides:
+            sides[(k, m), fmt] = sgmv_sides(k, m, fmt, seed=k + 7 * m)
+        qas, qbs, a, b = sides[(k, m), fmt]
+        binary = fmt == "binary"
+        bits = qas[0].bits
+        ga, gb = qas[0].group_size, qbs[0].group_size
+        tile_t, rows = PHASES[phase]
+        seg = seg_for(phase)
+        x = torch.randn(rows, k, generator=gen, device="cuda").to(xdtype)
+        kw = dict(bits=bits, binary=binary, group=ga, tile_t=tile_t)
+        okw = dict(kw, group=gb, m=m)
+        fkw = dict(bits_a=bits, binary_a=binary, group_a=ga, bits_b=bits,
+                   binary_b=binary, group_b=gb, m=m, tile_t=tile_t)
+        h = sgmv_rhs(x, *a, seg, **kw)
+        y = sgmv_out(h, *b, seg, **okw)
+        f = sgmv_fused(x, *a, *b, seg, **fkw)
+        torch.cuda.synchronize()
+        tag = f"K={k:5d} M={m:5d} {fmt:6s} {phase:7s} T={rows:3d}"
+        errs = {
+            "sgmv_rhs": check_close(f"sgmv_rhs {tag}", h,
+                                    sgmv_rhs_ref(x, *a, seg, **kw)),
+            "sgmv_out": check_close(f"sgmv_out {tag}", y,
+                                    sgmv_out_ref(h, *b, seg, **okw)),
+            "sgmv_fused": check_close(f"sgmv_fused 1-side {tag}", f,
+                                      sgmv_fused_ref(x, *a, *b, seg, **fkw)),
+        }
+        rp = a[0].shape[1]
+        a_bytes, b_bytes = used_bytes(a, seg, binary), used_bytes(b, seg,
+                                                                 binary)
+        h_bytes, y_bytes = rows * rp * 4, rows * m * 4
+        bounds = {
+            "sgmv_rhs": (x.nbytes + seg.nbytes + a_bytes + h_bytes,
+                         2 * rows * rp * k),
+            "sgmv_out": (h_bytes + seg.nbytes + b_bytes + y_bytes,
+                         2 * rows * rp * m),
+            "sgmv_fused": (x.nbytes + seg.nbytes + a_bytes + b_bytes
+                           + y_bytes, 2 * rows * rp * (k + m)),
+        }
+        runs = {
+            "sgmv_rhs": (lambda: sgmv_rhs(x, *a, seg, **kw),
+                         lambda: sgmv_rhs_ref(x, *a, seg, **kw)),
+            "sgmv_out": (lambda: sgmv_out(h, *b, seg, **okw),
+                         lambda: sgmv_out_ref(h, *b, seg, **okw)),
+            "sgmv_fused": (lambda: sgmv_fused(x, *a, *b, seg, **fkw),
+                           lambda: sgmv_fused_ref(x, *a, *b, seg, **fkw)),
+        }
+        for name, (kern, plain) in runs.items():
+            max_err[name] = max(max_err[name], errs[name])
+            ms = time_ms(kern, iters=10)
+            plain_ms = time_ms(plain, iters=3)
+            nbytes, ops = bounds[name]
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / FP32_FLOPS_PER_S * 1e3
+            timings[name, (k, m), fmt, phase] = (ms, plain_ms, t_bytes, t_ops)
+            log(f"{name:10s} {tag} x={str(xdtype)[6:]:8s} max|err|="
+                f"{errs[name]:.2e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} "
+                f"ms  bound {max(t_bytes, t_ops):.5f} ms (bytes "
+                f"{t_bytes:.5f}, ops {t_ops:.5f})")
+
+    # two-sided: an RTN-3 high side of rank 16 and a binary low side of
+    # rank 8, at the widest-K shape
+    k, m = 8192, 3072
+    qa, qb = sgmv_sides(k, m, "rtn3", seed=5)[2:]
+    la, lb = sgmv_sides(k, m, "binary", seed=6, r=8)[2:]
+    for phase in PHASES:
+        tile_t, rows = PHASES[phase]
+        seg = seg_for(phase)
+        x = torch.randn(rows, k, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+        fkw = dict(bits_a=3, binary_a=False, group_a=128, bits_b=3,
+                   binary_b=False, group_b=128, a_lo=la, b_lo=lb, bits_lo=1,
+                   binary_lo=True, group_al=128, group_bl=128, m=m,
+                   tile_t=tile_t)
+        got = sgmv_fused(x, *qa, *qb, seg, **fkw)
+        torch.cuda.synchronize()
+        err = check_close(f"sgmv_fused hi 16 + lo 8 {phase}", got,
+                          sgmv_fused_ref(x, *qa, *qb, seg, **fkw))
+        max_err["sgmv_fused"] = max(max_err["sgmv_fused"], err)
+        ms = time_ms(lambda: sgmv_fused(x, *qa, *qb, seg, **fkw), iters=10)
+        log(f"sgmv_fused K={k} M={m} hi rtn3 rank {qa[0].shape[1]} + lo "
+            f"binary rank {la[0].shape[1]} {phase:7s} T={rows:3d} max|err|="
+            f"{err:.2e}  kernel {ms:.4f} ms")
+    return timings, max_err
+
+
+def sgmv_mix(timings, name, fmt="rtn2"):
+    """Mean per launch of ``name`` over the serve's mix, as
+    :func:`main_path_mix` weighs ``sgmv_fused``."""
+    sub = {((k, m), 2, phase): timings[name, (k, m), fmt, phase]
+           for (k, m) in SHAPES for phase in PHASES}
+    return main_path_mix(sub)
+
+
+def phase_sgmv_apply():
+    """``sgmv_apply`` fused and two-pass at every full-width shape, decode
+    and prefill: per-call launch counts and outputs against ``ref_sgmv``.
+    Returns the launch counts of the whole phase."""
+    import torch
+    from repro_torch.kernels.quant_matmul import (LAUNCH_COUNTS, ref,
+                                                   reset_launch_counts,
+                                                   sgmv_apply)
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1357)
+    total = {}
+    for k, m in SHAPES:
+        qas, qbs = sgmv_sides(k, m, "rtn2", seed=k + m + 1)[:2]
+        for phase, (tile_t, rows) in PHASES.items():
+            seg = seg_for(phase)
+            seg_rows = seg.repeat_interleave(tile_t).tolist()
+            x = torch.randn(rows, k, generator=gen, device="cuda")
+            want = 2.0 * ref.ref_sgmv(x, qas, qbs, seg_rows)
+            for fused, counts in ((True, {"sgmv_fused": 1}),
+                                  (False, {"sgmv_rhs": 1, "sgmv_out": 1})):
+                reset_launch_counts()
+                y = sgmv_apply(x, qas, qbs, seg, scaling=2.0, tile_t=tile_t,
+                               fused=fused)
+                torch.cuda.synchronize()
+                if dict(LAUNCH_COUNTS) != counts:
+                    raise AssertionError(f"sgmv_apply(fused={fused}) K={k} "
+                                         f"M={m} {phase} launched "
+                                         f"{dict(LAUNCH_COUNTS)}, want "
+                                         f"{counts}")
+                for n, c in LAUNCH_COUNTS.items():
+                    total[n] = total.get(n, 0) + c
+                check_close(f"sgmv_apply(fused={fused}) K={k} M={m} {phase}",
+                            y, want)
+    log(f"sgmv_apply: {len(SHAPES)} shapes x (decode, prefill): fused=True "
+        f"launched 1 sgmv_fused, fused=False 1 sgmv_rhs + 1 sgmv_out, each "
+        f"call; all within {RTOL:g} x max|y| of ref_sgmv; phase counts "
+        f"{total}")
+    return total
+
+
+def phase_mixed_parity(vocab):
+    """Phase 12: the mixed-recipe fleet of phase 11 in fp32, served packed
+    and materialized by the engine, and a control in which request r meets
+    adapter r + 1 instead of r (mod 8)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import LoRAQuantConfig
+    from repro_torch.kernels.quant_matmul import (LAUNCH_COUNTS,
+                                                   reset_launch_counts)
+    from repro_torch.launch.serve import (parse_recipe_override,
+                                          random_trained_lora)
+    from repro_torch.models import build_model
+    from repro_torch.serving import AdapterStore, MultiLoRAEngine, Request
+
+    cfg = dataclasses.replace(get_config("llama3.2-3b", "full"),
+                              dtype=torch.float32)
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cuda")
+    store = AdapterStore(LoRAQuantConfig(rho=0.9, bits_high=2))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    store.register_many(
+        {f"user_{i}": random_trained_lora(params["lora"], gen)
+         for i in range(N_ADAPTERS)},
+        recipes=dict(parse_recipe_override(r) for r in MIXED_RECIPES))
+    engine = MultiLoRAEngine(model, params, store, cache_capacity=128)
+    prompts = np.random.default_rng(0).integers(
+        0, vocab, size=(N_REQ, PROMPT)).astype(np.int32)
+
+    def run(mode, shift=0):
+        for rid in range(N_REQ):
+            engine.submit(Request(
+                request_id=rid,
+                adapter_id=f"user_{(rid + shift) % N_ADAPTERS}",
+                prompt=prompts[rid], max_new_tokens=MAX_NEW,
+                keep_logits=True))
+        reset_launch_counts()
+        done = engine.run(mode)
+        torch.cuda.synchronize()
+        check_outputs(done, vocab)
+        return done, dict(LAUNCH_COUNTS)
+
+    packed, counts = run("packed")
+    want = {"sgmv_fused": 3 * LAYERS * len(LINEARS) * MAX_NEW}
+    if counts != want:
+        raise AssertionError(f"fp32 mixed packed run launched {counts}, "
+                             f"want {want}")
+    mat, counts = run("materialize")
+    if counts:
+        raise AssertionError(f"materialize launched kernels: {counts}")
+    control, _ = run("packed", shift=1)
+    diff = [r.request_id for r, q in zip(packed, mat)
+            if r.output.tolist() != q.output.tolist()]
+    if diff:
+        raise AssertionError(f"fp32 mixed-recipe packed vs materialize "
+                             f"tokens differ for requests {diff}")
+    scale = max(float(abs(r.logits).max()) for r in packed)
+    tol = LOGIT_RTOL * scale
+    gap = logit_gap(packed, mat)
+    if max(gap.values()) > tol:
+        raise AssertionError(f"fp32 mixed-recipe logits differ by {gap} > "
+                             f"{LOGIT_RTOL:g} x {scale:.3e}")
+    moved = logit_gap(packed, control)
+    if min(moved.values()) < CONTROL_MARGIN * tol:
+        raise AssertionError(f"another adapter moves the logits by only "
+                             f"{moved}, under {CONTROL_MARGIN} x {tol:.3e}: "
+                             f"the parity check is blind")
+    avg = {aid: round(st["avg_bits"], 4)
+           for aid, st in sorted(store.adapter_stats().items())}
+    log(f"mixed-recipe fp32 parity: packed == materialize for all {N_REQ} "
+        f"requests ({N_REQ * MAX_NEW} tokens, {want['sgmv_fused']} "
+        f"sgmv_fused launches in 3 buckets); logits max |diff| "
+        f"{max(gap.values()):.3e} <= {tol:.3e} ({LOGIT_RTOL:g} x max|logit| "
+        f"{scale:.3e}); every request meeting another adapter moves by "
+        f"{min(moved.values()):.3e} to {max(moved.values()):.3e}; avg_bits "
+        f"{avg}")
+    del engine, store, model, params
+    torch.cuda.empty_cache()
+    return {"gap": max(gap.values()), "tol": tol,
+            "control_min": min(moved.values())}
+
+
 def main() -> int:
     import torch
 
@@ -842,6 +1149,48 @@ def main() -> int:
     t0 = time.perf_counter()
     single = phase_single_serve()
     log(f"single-adapter phases {time.perf_counter() - t0:.1f}s")
+
+    # ---- 9. multi-adapter kernels vs plain ----------------------------------
+    t0 = time.perf_counter()
+    sgmv_timings, sgmv_err = phase_sgmv_kernels()
+    sgmv_mixes = {name: sgmv_mix(sgmv_timings, name)
+                  for name in ("sgmv_rhs", "sgmv_out", "sgmv_fused")}
+    log(f"multi-adapter kernel phase {time.perf_counter() - t0:.1f}s; "
+        + "; ".join(f"{n} mix per launch (rtn2): kernel {x['ms']:.4f} ms, "
+                    f"plain {x['plain_ms']:.4f} ms, bound {x['bound_ms']:.5f}"
+                    f" ms ({x['bound_by']})" for n, x in sgmv_mixes.items()))
+    for fmt in SIDE_FORMATS[1:]:
+        fm = sgmv_mix(sgmv_timings, "sgmv_fused", fmt)
+        log(f"single-side sgmv_fused mix per launch ({fmt}): kernel "
+            f"{fm['ms']:.4f} ms, bound {fm['bound_ms']:.5f} ms")
+
+    # ---- 10. sgmv_apply, fused and two-pass ---------------------------------
+    kernel.reset_launch_counts()
+    sgmv_apply_counts = phase_sgmv_apply()
+
+    # ---- 11. mixed-recipe serve, full width, bf16 ---------------------------
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    kernel.reset_launch_counts()
+    done = serve("bfloat16", "packed", recipes=MIXED_RECIPES)
+    mixed_counts = dict(kernel.LAUNCH_COUNTS)
+    want = {"sgmv_fused": 3 * LAYERS * len(LINEARS) * MAX_NEW}
+    if mixed_counts != want:
+        raise AssertionError(f"mixed-recipe serve launched {mixed_counts}, "
+                             f"want {want} (3 buckets x 28 layers x 7 "
+                             f"linears x 8 forwards)")
+    check_outputs(done, vocab)
+    log(f"mixed-recipe serve phase (init + register + serve) "
+        f"{time.perf_counter() - t0:.1f}s; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{mixed_counts}")
+    del done
+    torch.cuda.empty_cache()
+
+    # ---- 12. mixed-recipe parity in fp32 ------------------------------------
+    t0 = time.perf_counter()
+    phase_mixed_parity(vocab)
+    log(f"mixed-recipe parity phase {time.perf_counter() - t0:.1f}s")
     log(f"total {time.perf_counter() - t_start:.1f}s")
 
     # ---- summary -------------------------------------------------------------
@@ -857,7 +1206,12 @@ def main() -> int:
 
     print(smi)
     print(json.dumps({"kernels": [
-        entry("sgmv_fused", 481, launches, max_err, mix),
+        entry("sgmv_fused", 481, launches,
+              max(max_err, sgmv_err["sgmv_fused"]), mix),
+        entry("sgmv_rhs", 250, sgmv_apply_counts["sgmv_rhs"],
+              sgmv_err["sgmv_rhs"], sgmv_mixes["sgmv_rhs"]),
+        entry("sgmv_out", 293, sgmv_apply_counts["sgmv_out"],
+              sgmv_err["sgmv_out"], sgmv_mixes["sgmv_out"]),
         entry("fused_lora", 348, single["launches"], single_err["fused_lora"],
               mixes["fused_lora"]),
         entry("matmul_rhs", 157, two_pass["matmul_rhs"],

@@ -122,11 +122,20 @@ def load_library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.sgmv_fused_launch.argtypes = (
         [ptr, i32]                       # x, x_is_bf16
-        + [ptr] * 6                      # A_hi, B_hi codes/scale/zero
-        + [ptr] * 4                      # A_lo, B_lo codes/scale
+        + [ptr] * 12                     # A_hi B_hi A_lo B_lo codes/scale/zero
         + [ptr, ptr]                     # seg_map, out
-        + [i32] * 7                      # T K M NA Rp kt bits
-        + [i32] * 8                      # group/ng/wpg of the A and B sides
+        + [i32] * 7                      # T K M NA r_hi r_lo kt
+        + [i32] * 6                      # bits/binary of A_hi, B_hi, lo
+        + [i32] * 12                     # group/ng/wpg of A_hi B_hi A_lo B_lo
+        + [ptr])                         # stream
+    lib.sgmv_rhs_launch.argtypes = (
+        [ptr, i32]                       # x, x_is_bf16
+        + [ptr] * 5                      # codes, scale, zero, seg_map, out
+        + [i32] * 10                     # T K R NA kt bits binary group ng wpg
+        + [ptr])                         # stream
+    lib.sgmv_out_launch.argtypes = (
+        [ptr] * 6                        # h, codes, scale, zero, seg_map, out
+        + [i32] * 10                     # T R M NA kt bits binary group ng wpg
         + [ptr])                         # stream
     lib.matmul_rhs_launch.argtypes = (
         [ptr, i32]                       # x, x_is_bf16
@@ -144,7 +153,8 @@ def load_library() -> ctypes.CDLL:
         + [i32] * 9                      # T K M r_hi r_lo bits/binary hi, lo
         + [i32] * 12                     # group/ng/wpg of A_hi B_hi A_lo B_lo
         + [ptr])                         # stream
-    for fn in (lib.sgmv_fused_launch, lib.matmul_rhs_launch,
+    for fn in (lib.sgmv_fused_launch, lib.sgmv_rhs_launch,
+               lib.sgmv_out_launch, lib.matmul_rhs_launch,
                lib.matmul_out_launch, lib.fused_lora_launch):
         fn.restype = i32
     lib.quant_matmul_error_string.argtypes = [i32]

@@ -21,20 +21,6 @@
 
 namespace loraquant {
 
-// Code j of one quant group whose words start at `words` (bits fixed at
-// compile time).
-template <int BITS>
-__device__ __forceinline__ int code_at(const void* words, int j) {
-  if constexpr (BITS == 3) {
-    const int32_t* w = static_cast<const int32_t*>(words);
-    return (w[j / 10] >> ((j % 10) * 3)) & 7;
-  } else {
-    constexpr int kPer = 8 / BITS;
-    const uint8_t* w = static_cast<const uint8_t*>(words);
-    return (w[j / kPer] >> ((j % kPer) * BITS)) & ((1 << BITS) - 1);
-  }
-}
-
 __device__ __forceinline__ float load_x(const float* x, size_t i) {
   return x[i];
 }
@@ -55,22 +41,49 @@ struct QSide {
   int wpg;     // storage words per group
 };
 
-// Dequantized element (r, c) of a side, c < ng·group.
-__device__ __forceinline__ float dequant_at(const QSide& s, int r, int c) {
+// The side of adapter `a` in a stack (NA, rows, ·) of sides that share one
+// layout: every array offset by `a · rows · ng` groups. A binary side may
+// carry no zero-points (nullptr), which are then never read.
+__device__ __forceinline__ QSide adapter_side(QSide s, int rows, int a) {
+  const size_t groups = static_cast<size_t>(a) * rows * s.ng;
+  const size_t word_bytes = s.bits == 3 ? 4 : 1;
+  s.codes = static_cast<const char*>(s.codes) + groups * s.wpg * word_bytes;
+  s.scale += groups;
+  if (s.zero != nullptr) s.zero += groups;
+  return s;
+}
+
+// Dequantized element (r, c) of a side whose width is BITS, c < ng·group:
+// the codes per word are a compile-time constant, so the word and shift of
+// code j need no run-time division.
+template <int BITS>
+__device__ __forceinline__ float dequant_bits(const QSide& s, int r, int c) {
   const int g = c / s.group, j = c - g * s.group;
   const size_t gi = static_cast<size_t>(r) * s.ng + g;
   int q;
-  if (s.bits == 3) {
+  if constexpr (BITS == 3) {
     const int32_t* w = static_cast<const int32_t*>(s.codes) + gi * s.wpg;
     q = (w[j / 10] >> ((j % 10) * 3)) & 7;
   } else {
-    const int per = 8 / s.bits;
+    constexpr int kPer = 8 / BITS;
     const uint8_t* w = static_cast<const uint8_t*>(s.codes) + gi * s.wpg;
-    q = (w[j / per] >> ((j % per) * s.bits)) & ((1 << s.bits) - 1);
+    q = (w[j / kPer] >> ((j % kPer) * BITS)) & ((1 << BITS) - 1);
   }
   const float qf = static_cast<float>(q);
   return s.binary ? s.scale[gi] * (qf * 2.f - 1.f)
                   : s.scale[gi] * (qf - static_cast<float>(s.zero[gi]));
+}
+
+// Dequantized element (r, c) of a side, c < ng·group: one switch on the
+// side's run-time width (uniform across a warp) picks the compiled width.
+__device__ __forceinline__ float dequant_at(const QSide& s, int r, int c) {
+  switch (s.bits) {
+    case 1: return dequant_bits<1>(s, r, c);
+    case 2: return dequant_bits<2>(s, r, c);
+    case 3: return dequant_bits<3>(s, r, c);
+    case 4: return dequant_bits<4>(s, r, c);
+    default: return dequant_bits<8>(s, r, c);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -82,9 +95,11 @@ __device__ __forceinline__ float dequant_at(const QSide& s, int r, int c) {
 // Each step stages x[tile, chunk] and the dequantized W columns of the
 // chunk in shared memory; each warp owns kSlotsPerWarp slots × kTileRows
 // rows in registers, its lanes splitting the chunk's columns, and the lane
-// partial sums are reduced with shuffles at the end. Rows past T read 0.
-// Needs blockDim.x >= 32·ceil(slots / kSlotsPerWarp) and the shared arrays
-// xs [kTileRows·kChunk], ws [slots·kChunk], hs [slots·kTileRows].
+// partial sums are reduced with shuffles at the end. Rows past T read 0:
+// they are zeroed once and never staged, so a tile of one row (SGMV decode)
+// stages one row per chunk. Needs blockDim.x >= 32·ceil(slots /
+// kSlotsPerWarp) and the shared arrays xs [kTileRows·kChunk],
+// ws [slots·kChunk], hs [slots·kTileRows].
 // ---------------------------------------------------------------------------
 
 constexpr int kTileRows = 8;     // token rows per block
@@ -118,12 +133,13 @@ __device__ void tile_rhs(const XT* x, int T, int K, int row0,
 #pragma unroll
     for (int s = 0; s < kSlotsPerWarp; ++s) acc[t][s] = 0.f;
 
+  const int live = min(kTileRows, T - row0);  // token rows of the tile
+  for (int i = live * kChunk + tid; i < kTileRows * kChunk; i += nthreads)
+    xs[i] = 0.f;
   for (int k0 = 0; k0 < K; k0 += kChunk) {
-    for (int i = tid; i < kTileRows * kChunk; i += nthreads) {
+    for (int i = tid; i < live * kChunk; i += nthreads) {
       const int t = i / kChunk, k = k0 + (i - t * kChunk);
-      const int row = row0 + t;
-      xs[i] = (row < T && k < K)
-                  ? load_x(x, static_cast<size_t>(row) * K + k) : 0.f;
+      xs[i] = k < K ? load_x(x, static_cast<size_t>(row0 + t) * K + k) : 0.f;
     }
     for (int i = tid; i < slots * kChunk; i += nthreads) {
       const int s = i / kChunk, k = k0 + (i - s * kChunk);

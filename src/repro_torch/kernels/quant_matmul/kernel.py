@@ -6,8 +6,10 @@ of the Pallas kernels in ``repro/kernels/quant_matmul/kernel.py``):
   (``csrc/matmul_out.cu``);
 * ``fused_lora`` — one adapter's ``(x·A_hiᵀ)·B_hi + (x·A_loᵀ)·B_lo`` in one
   launch (``csrc/fused_lora.cu``);
-* ``sgmv_fused`` — the same per token tile with the tile's adapter
-  (``csrc/sgmv_fused.cu``).
+* ``sgmv_rhs`` / ``sgmv_out`` — the two passes per token tile with the
+  tile's adapter (``csrc/sgmv_rhs.cu``, ``csrc/sgmv_out.cu``);
+* ``sgmv_fused`` — both products per token tile with the tile's adapter,
+  optionally both sub-LoRAs (``csrc/sgmv_fused.cu``).
 
 The kernels are CUDA C++, built by ``build.py`` at first use. On a CUDA
 tensor a wrapper launches its kernel on the current stream (or raises); on a
@@ -27,16 +29,15 @@ from typing import Optional
 
 import torch
 
-from .ref import fused_lora_ref, matmul_out_ref, matmul_rhs_ref, sgmv_fused_ref
+from .ref import (fused_lora_ref, matmul_out_ref, matmul_rhs_ref,
+                  sgmv_fused_ref, sgmv_out_ref, sgmv_rhs_ref)
 
 LAUNCH_COUNTS: "collections.Counter[str]" = collections.Counter()
 PLAIN_CALLS: "collections.Counter[str]" = collections.Counter()
 
-MAX_TILE_ROWS = 8          # token rows one CUDA block holds (kMaxTileRows)
-MAX_RANK_ROWS = 32         # Rp the CUDA block supports (kMaxThreads / 16)
-MAX_SMEM_BYTES = 232448    # opt-in shared memory per block on Hopper
-MAX_SLOTS = 64             # rank rows one block of the single-adapter
-                           # kernels holds (loraquant::kMaxSlots)
+MAX_TILE_ROWS = 8          # token rows one CUDA block holds (kTileRows)
+MAX_SLOTS = 64             # rank rows one block holds, hi + lo
+                           # (loraquant::kMaxSlots)
 BITS = (1, 2, 3, 4, 8)
 
 
@@ -49,10 +50,14 @@ def _per_word(bits: int) -> int:
     return 10 if bits == 3 else 8 // bits
 
 
-def _check_side(name, codes, scale, zero, lead, bits, group, dim):
+def _check_side(name, codes, scale, zero, lead, bits, group, dim,
+                binary=False):
     """Check one packed factor in the kernel layout: codes
     ``(*lead, NG·Wg)``, scale and zero ``(*lead, NG)``, whose ``NG`` groups of
-    ``group`` cover ``dim`` features. Returns ``(NG, Wg)``."""
+    ``group`` cover ``dim`` features; only a binary side may come without
+    zero-points. Returns ``(NG, Wg)``."""
+    if zero is None and not binary:
+        raise ValueError(f"{name}: an RTN side needs its zero-points")
     want_dtype = torch.int32 if bits == 3 else torch.uint8
     nd = len(lead) + 1
     if codes.dim() != nd or tuple(codes.shape[:-1]) != tuple(lead):
@@ -250,87 +255,160 @@ def fused_lora(x, a_hi, b_hi, a_lo=None, b_lo=None, *, m: int,
     return out
 
 
+def _check_tiles(name, t: int, tile_t: int, seg_map) -> None:
+    """Token tiles of ``tile_t`` rows (one CUDA block each) and their
+    ``(T/tile_t,)`` int32 adapter map."""
+    if not 1 <= tile_t <= MAX_TILE_ROWS or t % tile_t:
+        raise ValueError(f"{name}: rows {t} must divide into tiles of "
+                         f"{tile_t} rows, 1 <= tile_t <= {MAX_TILE_ROWS}")
+    if (seg_map.dim() != 1 or seg_map.shape[0] != t // tile_t
+            or seg_map.dtype != torch.int32):
+        raise ValueError(f"{name}: seg_map must be int32 ({t // tile_t},), "
+                         f"got {seg_map.dtype} {tuple(seg_map.shape)}")
+    if not seg_map.is_contiguous():
+        raise ValueError(f"{name}: seg_map must be contiguous")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def sgmv_rhs(x, codes, scale, zero, seg_map, *, bits: int, binary: bool,
+             group: Optional[int] = None, tile_t: int = 8) -> torch.Tensor:
+    """Segment-gathered ``h = x·dequant(A[seg])ᵀ`` → ``(T, R)`` fp32, one
+    launch: x ``(T, K)`` bf16 or fp32; A a stack of packed factors (codes
+    ``(NA, R, NG·Wg)``, scale / zero ``(NA, R, NG)``); ``seg_map
+    (T/tile_t,)`` int32, the adapter of each tile of ``tile_t`` rows."""
+    _check_x("sgmv_rhs", x)
+    _check_format("sgmv_rhs", bits, binary)
+    t, k = x.shape
+    na, r = codes.shape[:2]
+    group = _infer_group(codes, scale, bits, group)
+    ng, wpg = _check_side("A", codes, scale, zero, (na, r), bits, group, k,
+                          binary)
+    _check_tiles("sgmv_rhs", t, tile_t, seg_map)
+    dev = _device_of("sgmv_rhs", [v for v in (x, codes, scale, zero, seg_map)
+                                  if v is not None])
+    if dev.type == "cpu":
+        PLAIN_CALLS["sgmv_rhs"] += 1
+        return sgmv_rhs_ref(x, codes, scale, zero, seg_map, bits=bits,
+                            binary=binary, group=group, tile_t=tile_t)
+    if r > MAX_SLOTS:
+        raise NotImplementedError(f"sgmv_rhs holds at most {MAX_SLOTS} rank "
+                                  f"rows per block, got {r}")
+    out = torch.empty((t, r), dtype=torch.float32, device=dev)
+    from .build import load_library
+
+    _launch("sgmv_rhs", dev, load_library().sgmv_rhs_launch,
+            x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(),
+            scale.data_ptr(), _ptr(zero), seg_map.data_ptr(), out.data_ptr(),
+            t, k, r, na, tile_t, bits, int(binary), group, ng, wpg)
+    return out
+
+
+def sgmv_out(h, codes, scale, zero, seg_map, *, bits: int, binary: bool,
+             group: Optional[int] = None, m: Optional[int] = None,
+             tile_t: int = 8) -> torch.Tensor:
+    """Segment-gathered ``y = h·dequant(Bᵀ[seg])[:, :m]`` → ``(T, m)``
+    fp32, one launch: h ``(T, R)`` fp32 (what :func:`sgmv_rhs` returns); Bᵀ
+    a stack of packed factors (codes ``(NA, R, NG·Wg)``); ``m`` defaults to
+    ``NG·group``. The kernel writes exactly ``m`` columns."""
+    _check_x("sgmv_out", h, (torch.float32,))
+    _check_format("sgmv_out", bits, binary)
+    t, r = h.shape
+    na = codes.shape[0]
+    group = _infer_group(codes, scale, bits, group)
+    if m is None:
+        m = scale.shape[-1] * group
+    ng, wpg = _check_side("B", codes, scale, zero, (na, r), bits, group, m,
+                          binary)
+    _check_tiles("sgmv_out", t, tile_t, seg_map)
+    dev = _device_of("sgmv_out", [v for v in (h, codes, scale, zero, seg_map)
+                                  if v is not None])
+    if dev.type == "cpu":
+        PLAIN_CALLS["sgmv_out"] += 1
+        return sgmv_out_ref(h, codes, scale, zero, seg_map, bits=bits,
+                            binary=binary, group=group, m=m, tile_t=tile_t)
+    if r > MAX_SLOTS:
+        raise NotImplementedError(f"sgmv_out holds at most {MAX_SLOTS} rank "
+                                  f"rows per block, got {r}")
+    out = torch.empty((t, m), dtype=torch.float32, device=dev)
+    from .build import load_library
+
+    _launch("sgmv_out", dev, load_library().sgmv_out_launch,
+            h.data_ptr(), codes.data_ptr(), scale.data_ptr(), _ptr(zero),
+            seg_map.data_ptr(), out.data_ptr(), t, r, m, na, tile_t, bits,
+            int(binary), group, ng, wpg)
+    return out
+
+
 def sgmv_fused(x, a_codes, a_scale, a_zero, b_codes, b_scale, b_zero,
                seg_map, *, bits_a: int, binary_a: bool, group_a: int,
                bits_b: int, binary_b: bool, group_b: int,
                a_lo=None, b_lo=None, bits_lo: int = 1, binary_lo: bool = True,
                group_al: int = 0, group_bl: int = 0,
                m: Optional[int] = None, tile_t: int = 8) -> torch.Tensor:
-    """Heterogeneous multi-adapter apply of both LoRAQuant sub-LoRAs from
-    packed codes, one launch per call.
+    """Heterogeneous multi-adapter apply of LoRAQuant sub-LoRAs from packed
+    codes, one launch per call:
+    ``(x·A_hiᵀ)·B_hi (+ (x·A_loᵀ)·B_lo)`` → ``(T, m)`` fp32.
 
-    x ``(T, K)`` bf16 or fp32; ``a_*`` / ``b_*`` the RTN high side
-    ``(NA, Rp, ·)``; ``a_lo`` / ``b_lo`` the binary low side as
-    ``(codes, scale, zero)`` triples; ``seg_map (T/tile_t,)`` int32 adapter
-    id per token tile; ``m`` the output width (slices B's last-group
-    padding). Returns ``(T, m)`` fp32.
+    x ``(T, K)`` bf16 or fp32; ``a_*`` / ``b_*`` the high side
+    ``(NA, R, ·)``, A and B each with its own bit width, format (RTN or
+    binary; a binary side's zero is never read and may be None) and group;
+    ``a_lo`` / ``b_lo`` the optional low side as ``(codes, scale, zero)``
+    triples ``(NA, R_lo, ·)`` with ``bits_lo`` / ``binary_lo`` and its own
+    groups; ``seg_map (T/tile_t,)`` int32 adapter id per token tile; ``m``
+    the output width (default ``NG·group_b``; slices B's last-group
+    padding).
     """
-    t, k = x.shape
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"x must be bf16 or fp32, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("x must be contiguous")
-    if binary_a or binary_b or bits_a != bits_b or bits_a not in (2, 3, 4, 8):
-        raise NotImplementedError(
-            "sgmv_fused serves an RTN high side of one width in {2, 3, 4, 8} "
-            f"on both factors; got bits {bits_a}/{bits_b}, binary "
-            f"{binary_a}/{binary_b}")
-    if a_lo is None or b_lo is None or bits_lo != 1 or not binary_lo:
-        raise NotImplementedError(
-            "sgmv_fused needs the binary 1-bit low side (all-zero scales "
-            "when an adapter has none); the single-side SGMV is ROADMAP B4")
-    if group_al != group_a or group_bl != group_b:
-        raise NotImplementedError("hi and lo sides must share quant groups")
-    na, rp = a_codes.shape[:2]
+    _check_x("sgmv_fused", x)
+    t, k = x.shape
+    na, r_hi = a_codes.shape[:2]
     if m is None:
         m = b_scale.shape[-1] * group_b
-    ng_a, wpg_ah = _check_side("A_hi", a_codes, a_scale, a_zero, (na, rp),
-                               bits_a, group_a, k)
-    ng_b, wpg_bh = _check_side("B_hi", b_codes, b_scale, b_zero, (na, rp),
-                               bits_b, group_b, m)
-    _, wpg_al = _check_side("A_lo", a_lo[0], a_lo[1], None, (na, rp), 1,
-                            group_a, k)
-    _, wpg_bl = _check_side("B_lo", b_lo[0], b_lo[1], None, (na, rp), 1,
-                            group_b, m)
-    if a_lo[1].shape[-1] != ng_a or b_lo[1].shape[-1] != ng_b:
-        raise ValueError("hi and lo sides must have the same group counts")
-    if rp > MAX_RANK_ROWS:
-        raise NotImplementedError(f"padded rank {rp} > {MAX_RANK_ROWS}")
-    if not 1 <= tile_t <= MAX_TILE_ROWS or t % tile_t:
-        raise ValueError(f"rows {t} must divide into tiles of {tile_t} rows, "
-                         f"1 <= tile_t <= {MAX_TILE_ROWS}")
-    if (seg_map.dim() != 1 or seg_map.shape[0] != t // tile_t
-            or seg_map.dtype != torch.int32):
-        raise ValueError(f"seg_map must be int32 ({t // tile_t},), got "
-                         f"{seg_map.dtype} {tuple(seg_map.shape)}")
-    dev = _device_of("sgmv_fused", (x, a_codes, a_scale, a_zero, b_codes,
-                                    b_scale, b_zero, a_lo[0], a_lo[1],
-                                    b_lo[0], b_lo[1], seg_map))
+    if (a_lo is None) != (b_lo is None):
+        raise ValueError("sgmv_fused: pass both low-side factors or neither")
+    sides = [("A_hi", (a_codes, a_scale, a_zero), bits_a, binary_a, group_a,
+              k, r_hi),
+             ("B_hi", (b_codes, b_scale, b_zero), bits_b, binary_b, group_b,
+              m, r_hi)]
+    r_lo = 0
+    if a_lo is not None:
+        r_lo = a_lo[0].shape[1]
+        sides += [("A_lo", a_lo, bits_lo, binary_lo, group_al, k, r_lo),
+                  ("B_lo", b_lo, bits_lo, binary_lo, group_bl, m, r_lo)]
+    dims = []
+    for tag, side, bits, binary, group, dim, rows in sides:
+        _check_format(f"sgmv_fused {tag}", bits, binary)
+        dims += [group, *_check_side(tag, *side, (na, rows), bits, group,
+                                     dim, binary)]
+    _check_tiles("sgmv_fused", t, tile_t, seg_map)
+    tensors = [x, seg_map] + [v for s in sides for v in s[1] if v is not None]
+    dev = _device_of("sgmv_fused", tensors)
     if dev.type == "cpu":
         PLAIN_CALLS["sgmv_fused"] += 1
         return sgmv_fused_ref(
             x, a_codes, a_scale, a_zero, b_codes, b_scale, b_zero, seg_map,
-            bits_a=bits_a, binary_a=False, group_a=group_a,
-            bits_b=bits_b, binary_b=False, group_b=group_b,
-            a_lo=a_lo, b_lo=b_lo, bits_lo=1, binary_lo=True,
+            bits_a=bits_a, binary_a=binary_a, group_a=group_a,
+            bits_b=bits_b, binary_b=binary_b, group_b=group_b,
+            a_lo=a_lo, b_lo=b_lo, bits_lo=bits_lo, binary_lo=binary_lo,
             group_al=group_al, group_bl=group_bl, m=m, tile_t=tile_t)
-    chunk = group_a * (1 if group_a >= 256 else 256 // group_a)
-    smem = 4 * (tile_t * chunk + 2 * rp * chunk + 2 * rp * tile_t)
-    if smem > MAX_SMEM_BYTES:
+    if r_hi + r_lo > MAX_SLOTS:
         raise NotImplementedError(
-            f"quant group {group_a} needs {smem} B of shared memory per "
-            f"block (> {MAX_SMEM_BYTES})")
+            f"sgmv_fused stages at most {MAX_SLOTS} rank rows (high + low) "
+            f"per block, 4 per warp of at most 16, in 39 KB of shared "
+            f"memory; got {r_hi} + {r_lo}")
+    dims += [0] * (12 - len(dims))        # no low side: groups never read
+    ptrs = [_ptr(v) for _, side, *_ in sides for v in side]
+    ptrs += [None] * (12 - len(ptrs))
     out = torch.empty((t, m), dtype=torch.float32, device=dev)
     from .build import load_library
 
     _launch("sgmv_fused", dev, load_library().sgmv_fused_launch,
-            x.data_ptr(), int(x.dtype == torch.bfloat16),
-            a_codes.data_ptr(), a_scale.data_ptr(), a_zero.data_ptr(),
-            b_codes.data_ptr(), b_scale.data_ptr(), b_zero.data_ptr(),
-            a_lo[0].data_ptr(), a_lo[1].data_ptr(),
-            b_lo[0].data_ptr(), b_lo[1].data_ptr(),
-            seg_map.data_ptr(), out.data_ptr(),
-            t, k, m, na, rp, tile_t, bits_a,
-            group_a, ng_a, wpg_ah, wpg_al,
-            group_b, ng_b, wpg_bh, wpg_bl)
+            x.data_ptr(), int(x.dtype == torch.bfloat16), *ptrs,
+            seg_map.data_ptr(), out.data_ptr(), t, k, m, na, r_hi, r_lo,
+            tile_t, bits_a, int(binary_a), bits_b, int(binary_b), bits_lo,
+            int(binary_lo), *dims)
     return out

@@ -7,12 +7,14 @@ of ``repro/kernels/quant_matmul/ops.py``).
   per sub-LoRA when ``fused=False`` or the fused kernel's estimated
   footprint exceeds the budget. :func:`quant_matmul_rhs` is the first pass
   alone.
+* :func:`sgmv_apply` applies a heterogeneous batch of per-adapter factors
+  (one token tile, one adapter): one ``sgmv_fused`` launch, or
+  ``sgmv_rhs`` + ``sgmv_out`` when ``fused=False``.
 * :class:`PackedLoRABatch` stacks many adapters' codes for one LoRA-linear
   path; :func:`sgmv_apply_packed` applies a heterogeneous batch of them
-  through the ``sgmv_fused`` kernel.
-
-Not ported yet: ``sgmv_apply`` and the two-pass SGMV kernels (ROADMAP B4),
-``PackedLoRABuckets`` for mixed recipes (A4).
+  through the ``sgmv_fused`` kernel. :class:`PackedLoRABuckets` holds one
+  such stack per packed-layout signature (mixed recipes);
+  :func:`sgmv_apply_buckets` runs one ``sgmv_fused`` per bucket.
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ import torch
 from repro_torch.core.loraquant import QuantizedLoRA
 from repro_torch.core.quant import QuantizedTensor
 
-from .kernel import fused_lora, matmul_out, matmul_rhs, sgmv_fused
+from .kernel import (fused_lora, matmul_out, matmul_rhs, sgmv_fused,
+                     sgmv_out, sgmv_rhs)
 
 SUBLANE = 8              # rank rows are padded to a multiple of this
 TILE_CAP = 2048          # max feature tile considered by _pick_tile
@@ -178,6 +181,52 @@ def lora_apply_quantized(x: torch.Tensor, qlora: QuantizedLoRA, *,
     return (scaling * y[:t]).to(x.dtype)
 
 
+def stack_adapter_side(qs: Sequence[QuantizedTensor]):
+    """Stack per-adapter QuantizedTensors (one shape and quant config) into
+    the ``(NA, Rp, ·)`` kernel layout, rank rows padded to a multiple of 8."""
+    parts = [_kernel_layout(q) for q in qs]
+    return tuple(torch.stack([p[i] for p in parts]) for i in range(3))
+
+
+def sgmv_apply(x: torch.Tensor, qas: Sequence[QuantizedTensor],
+               qbts: Sequence[QuantizedTensor], seg_map: torch.Tensor, *,
+               scaling: float = 1.0, tile_t: int = 8,
+               fused: bool = True) -> torch.Tensor:
+    """Heterogeneous multi-LoRA apply from per-adapter packed factors: A
+    ``(R, K)`` row-grouped and Bᵀ ``(R, M)`` (or the column-grouped B);
+    ``seg_map (T/tile_t,)`` int32 is the adapter of each tile of ``tile_t``
+    rows (the caller pads segments to whole tiles). Returns
+    ``scaling · y`` ``(T, M)`` in x's dtype.
+
+    ``fused=True`` is one ``sgmv_fused`` launch for both products;
+    ``fused=False`` the two-pass reference, ``sgmv_rhs`` then ``sgmv_out``,
+    with ``h`` passing through device memory. Both give exactly M columns.
+    (The reference's fused call leaves ``m`` unset and so returns B's
+    group-padded width when M is not a multiple of the group, ROADMAP C6.)
+    """
+    a_codes, a_scale, a_zero = stack_adapter_side(qas)
+    b_codes, b_scale, b_zero = stack_adapter_side(qbts)
+    qa, qb = qas[0], qbts[0]
+    x = x.contiguous()
+    seg_map = seg_map.to(torch.int32).contiguous()
+    m = _quant_m(qb)
+    if fused:
+        y = sgmv_fused(
+            x, a_codes, a_scale, a_zero, b_codes, b_scale, b_zero, seg_map,
+            bits_a=qa.bits, binary_a=qa.mode == "binary",
+            group_a=qa.group_size, bits_b=qb.bits,
+            binary_b=qb.mode == "binary", group_b=qb.group_size, m=m,
+            tile_t=tile_t)
+    else:
+        h = sgmv_rhs(x, a_codes, a_scale, a_zero, seg_map, bits=qa.bits,
+                     binary=qa.mode == "binary", group=qa.group_size,
+                     tile_t=tile_t)
+        y = sgmv_out(h, b_codes, b_scale, b_zero, seg_map, bits=qb.bits,
+                     binary=qb.mode == "binary", group=qb.group_size, m=m,
+                     tile_t=tile_t)
+    return (scaling * y).to(x.dtype)
+
+
 @dataclasses.dataclass(frozen=True)
 class PackedLoRABatch:
     """One LoRA-linear path, packed for heterogeneous multi-adapter serving.
@@ -323,11 +372,76 @@ def retile_packed(tree, tile_t: int):
     replaced (prefill tiles whole padded prompts, decode one row each)."""
     if isinstance(tree, PackedLoRABatch):
         return dataclasses.replace(tree, tile_t=tile_t)
+    if isinstance(tree, PackedLoRABuckets):
+        return dataclasses.replace(tree, buckets=tuple(
+            dataclasses.replace(b, tile_t=tile_t) for b in tree.buckets))
     if isinstance(tree, dict):
         return {k: retile_packed(v, tile_t) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(retile_packed(v, tile_t) for v in tree)
     return tree
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedLoRABuckets:
+    """A mixed-recipe multi-adapter batch for one LoRA-linear path: one
+    :class:`PackedLoRABatch` per packed-layout signature (``bits_high``,
+    group size, low width; ``LoRAQuantConfig.layout_signature``) and, per
+    bucket, an int32 lookup from the batch-global adapter index to the
+    bucket's local index (``-1``: the adapter is in another bucket).
+
+    Token rows carry one global ``seg`` space; :func:`sgmv_apply_buckets`
+    runs one ``sgmv_fused`` per bucket over all rows and masks the rows of
+    other buckets out of the sum, which is exact because LoRA is linear. A
+    uniform-recipe batch never builds this container. The buckets' arrays
+    and the ``(L, NA_total)`` lookups carry the leading layer axis;
+    :meth:`layer` slices them together.
+    """
+
+    buckets: tuple                  # of PackedLoRABatch (seg=None inside)
+    lookups: tuple                  # of (L?, NA_total) int32, -1 = absent
+    seg: Optional[torch.Tensor] = None
+
+    @property
+    def fold(self) -> int:
+        return self.buckets[0].fold
+
+    @property
+    def tile_t(self) -> int:
+        return self.buckets[0].tile_t
+
+    def layer(self, i: int) -> "PackedLoRABuckets":
+        """The per-layer view of stacked layer ``i``."""
+        return dataclasses.replace(
+            self, buckets=tuple(b.layer(i) for b in self.buckets),
+            lookups=tuple(lut[i] for lut in self.lookups))
+
+    def nbytes(self) -> int:
+        return (sum(b.nbytes() for b in self.buckets)
+                + sum(lut.nbytes for lut in self.lookups))
+
+
+def sgmv_apply_buckets(x: torch.Tensor, pbs: PackedLoRABuckets, *,
+                       scaling: float = 1.0) -> torch.Tensor:
+    """Mixed-recipe heterogeneous LoRA apply: one ``sgmv_fused`` launch per
+    layout bucket over all rows, each bucket's rows picked by its lookup of
+    the per-row global ``pbs.seg`` (non-members gather local index 0 and
+    are masked to zero), the bucket outputs summed in x's dtype. Every
+    bucket launches, members or not, as in the reference."""
+    if pbs.seg is None:
+        raise ValueError("PackedLoRABuckets has no segment ids attached; "
+                         "serve through MultiLoRAEngine (or set lora['seg'])")
+    seg = pbs.seg.to(torch.int64)
+    y = None
+    for pb, lut in zip(pbs.buckets, pbs.lookups):
+        local = lut[seg]
+        member = local >= 0
+        yb = sgmv_apply_packed(
+            x, dataclasses.replace(pb, seg=local.clamp(min=0)),
+            scaling=scaling)
+        yb = torch.where(member[:, None], yb, torch.zeros_like(yb))
+        y = yb if y is None else y + yb
+    return y.to(x.dtype)
 
 
 def sgmv_apply_packed(x: torch.Tensor, pb: PackedLoRABatch, *,

@@ -1,18 +1,19 @@
 """Plain PyTorch oracle for the packed-LoRA kernels (port of
-``repro/kernels/quant_matmul/ref.py``) and ``sgmv_fused_ref``, the plain
-version of the ``sgmv_fused`` CUDA kernel.
+``repro/kernels/quant_matmul/ref.py``) and the plain versions of the CUDA
+kernels.
 
 * ``ref_quant_matmul_rhs(x, q)`` = ``x @ dequant(q).T`` for a row-grouped
   ``(R, K)`` factor (the A side, or Bᵀ).
 * ``ref_lora_apply(x, qa, qbt)`` = ``(x @ Aᵀ) @ Bᵀ`` from packed factors.
 * ``ref_sgmv(x, qas, qbts, seg_ids)`` = per-row adapter selection.
-* ``matmul_rhs_ref``, ``matmul_out_ref``, ``fused_lora_ref`` and
-  ``sgmv_fused_ref`` compute, from the kernel layout, exactly what their
-  CUDA kernels compute, in fp32: ``h = x·dequant(A)ᵀ``,
-  ``y = h·dequant(Bᵀ)`` over the group-padded width, one adapter's
-  ``y = (x·A_hiᵀ)·B_hi + (x·A_loᵀ)·B_lo``, and the same per token tile with
-  the tile's adapter. The wrappers in ``kernel.py`` take them for CPU
-  tensors; ``chip_smoke.py`` holds the kernels against them on the card.
+* ``matmul_rhs_ref``, ``matmul_out_ref``, ``fused_lora_ref``,
+  ``sgmv_rhs_ref``, ``sgmv_out_ref`` and ``sgmv_fused_ref`` compute, from
+  the kernel layout, exactly what their CUDA kernels compute, in fp32:
+  ``h = x·dequant(A)ᵀ``, ``y = h·dequant(Bᵀ)`` over the group-padded width,
+  one adapter's ``y = (x·A_hiᵀ)·B_hi + (x·A_loᵀ)·B_lo``, and the same
+  three per token tile with the tile's adapter. The wrappers in
+  ``kernel.py`` take them for CPU tensors; ``chip_smoke.py`` holds the
+  kernels against them on the card.
 
 The B factor ``(M, R)`` is quantized column-wise, which is row-wise
 quantization of ``Bᵀ (R, M)``: both sides share one ``(R, ·)`` layout.
@@ -129,6 +130,53 @@ def fused_lora_ref(x, a_hi, b_hi, a_lo=None, b_lo=None, *, m: int,
     return y
 
 
+def _adapter_rows(seg_map, na: int, tile_t: int):
+    """``(adapter, row indices)`` for every adapter the token tiles use;
+    tile ``i`` (rows ``[i·tile_t, (i+1)·tile_t)``) uses adapter
+    ``seg_map[i]`` clamped to ``[0, NA)`` like the kernels."""
+    seg_rows = seg_map.to(torch.int64).clamp(0, na - 1).repeat_interleave(
+        tile_t)
+    return [(a, torch.nonzero(seg_rows == a).flatten())
+            for a in torch.unique(seg_rows).tolist()]
+
+
+def _deq(codes, scale, zero, a: int, bits: int, binary: bool, group: int):
+    """Adapter ``a`` of a stacked side, dequantized: fp32 ``(R, NG·group)``."""
+    return unpack_dequant_grouped(codes[a], scale[a],
+                                  None if binary else zero[a], bits, group)
+
+
+def sgmv_rhs_ref(x, codes, scale, zero, seg_map, *, bits: int, binary: bool,
+                 group: int, tile_t: int = 8) -> torch.Tensor:
+    """Segment-gathered ``h = x·dequant(A[seg])ᵀ`` → ``(T, R)`` fp32: x
+    ``(T, K)``, codes ``(NA, R, NG·Wg)``, ``seg_map (T/tile_t,)`` int32.
+    Columns of A past K are dropped."""
+    t, k = x.shape
+    xf = x.to(torch.float32)
+    out = torch.empty((t, codes.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for a, rows in _adapter_rows(seg_map, codes.shape[0], tile_t):
+        w = _deq(codes, scale, zero, a, bits, binary, group)
+        out[rows] = xf[rows] @ w[:, :k].T
+    return out
+
+
+def sgmv_out_ref(h, codes, scale, zero, seg_map, *, bits: int, binary: bool,
+                 group: int, m: Optional[int] = None,
+                 tile_t: int = 8) -> torch.Tensor:
+    """Segment-gathered ``y = h·dequant(Bᵀ[seg])[:, :m]`` → ``(T, m)``
+    fp32: h ``(T, R)``, codes ``(NA, R, NG·Wg)``; ``m`` defaults to
+    ``NG·group``."""
+    if m is None:
+        m = scale.shape[-1] * group
+    hf = h.to(torch.float32)
+    out = torch.empty((h.shape[0], m), dtype=torch.float32, device=h.device)
+    for a, rows in _adapter_rows(seg_map, codes.shape[0], tile_t):
+        w = _deq(codes, scale, zero, a, bits, binary, group)
+        out[rows] = hf[rows] @ w[:, :m]
+    return out
+
+
 def sgmv_fused_ref(x, a_codes, a_scale, a_zero, b_codes, b_scale, b_zero,
                    seg_map, *, bits_a: int, binary_a: bool, group_a: int,
                    bits_b: int, binary_b: bool, group_b: int,
@@ -136,40 +184,30 @@ def sgmv_fused_ref(x, a_codes, a_scale, a_zero, b_codes, b_scale, b_zero,
                    binary_lo: bool = True, group_al: int = 0,
                    group_bl: int = 0, m: Optional[int] = None,
                    tile_t: int = 8) -> torch.Tensor:
-    """Heterogeneous multi-adapter apply, one adapter per ``tile_t`` rows.
+    """Heterogeneous multi-adapter apply, one adapter per ``tile_t`` rows:
+    ``(x·A_hiᵀ)·B_hi (+ (x·A_loᵀ)·B_lo)`` → ``(T, m)`` fp32.
 
-    x ``(T, K)``; codes/scale/zero ``(NA, R, ·)``; ``seg_map (T/tile_t,)``
-    int32 adapter id per token tile (clamped to ``[0, NA)`` like the
-    kernel). Rows whose zero-scale padding dequantizes to 0 contribute
-    nothing. ``m`` slices B's last-group padding. Returns ``(T, m)`` fp32.
+    x ``(T, K)``; the high side codes/scale/zero ``(NA, R, ·)``, A and B
+    each with its own bits, format and group; the optional low side
+    ``a_lo`` / ``b_lo`` ``(codes, scale, zero)`` triples ``(NA, R_lo, ·)``
+    with ``bits_lo`` / ``binary_lo`` and its own groups. ``seg_map
+    (T/tile_t,)`` int32 adapter id per token tile (clamped to ``[0, NA)``
+    like the kernel). Rows whose zero-scale padding dequantizes to 0
+    contribute nothing. ``m`` slices B's last-group padding.
     """
     t, k = x.shape
-    na = a_codes.shape[0]
     if m is None:
         m = b_scale.shape[-1] * group_b
     xf = x.to(torch.float32)
-    seg_rows = seg_map.to(torch.int64).clamp(0, na - 1).repeat_interleave(
-        tile_t)
     out = torch.empty((t, m), dtype=torch.float32, device=x.device)
-    for a in torch.unique(seg_rows).tolist():
-        rows = torch.nonzero(seg_rows == a).flatten()
+    for a, rows in _adapter_rows(seg_map, a_codes.shape[0], tile_t):
         xa = xf[rows]
-        wa = unpack_dequant_grouped(a_codes[a], a_scale[a],
-                                    None if binary_a else a_zero[a],
-                                    bits_a, group_a)
-        wb = unpack_dequant_grouped(b_codes[a], b_scale[a],
-                                    None if binary_b else b_zero[a],
-                                    bits_b, group_b)
+        wa = _deq(a_codes, a_scale, a_zero, a, bits_a, binary_a, group_a)
+        wb = _deq(b_codes, b_scale, b_zero, a, bits_b, binary_b, group_b)
         acc = (xa @ wa[:, :k].T) @ wb[:, :m]
         if a_lo is not None:
-            alc, als, alz = a_lo
-            blc, bls, blz = b_lo
-            wal = unpack_dequant_grouped(alc[a], als[a],
-                                         None if binary_lo else alz[a],
-                                         bits_lo, group_al)
-            wbl = unpack_dequant_grouped(blc[a], bls[a],
-                                         None if binary_lo else blz[a],
-                                         bits_lo, group_bl)
+            wal = _deq(*a_lo, a, bits_lo, binary_lo, group_al)
+            wbl = _deq(*b_lo, a, bits_lo, binary_lo, group_bl)
             acc = acc + (xa @ wal[:, :k].T) @ wbl[:, :m]
         out[rows] = acc
     return out

@@ -3,7 +3,12 @@ register N LoRAQuant-quantized adapters, serve a heterogeneous batch of
 requests through the static engine, report throughput and memory.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
-        --preset full --adapters 8 --requests 16 --variant 2@0.9
+        --preset full --adapters 8 --requests 16 --variant 2@0.9 \\
+        --recipe user_0=4@0.95 --recipe user_1=3@0.9
+
+``--recipe id=bits@rho`` (repeatable) quantizes one upload under its own
+recipe, so a batch may mix packed layouts; ``--target-bits`` fits the
+default recipe to an average-bits budget on the first upload.
 
 Runs on the card (``--device cuda``, the default) unless asked for the CPU.
 ``main(argv)`` returns the finished requests.
@@ -34,6 +39,14 @@ def parse_variant(s: str) -> LoRAQuantConfig:
     if not m:
         raise ValueError(f"variant must look like 2@0.9, got {s!r}")
     return LoRAQuantConfig(bits_high=int(m.group(1)), rho=float(m.group(2)))
+
+
+def parse_recipe_override(s: str):
+    """``id=2@0.9`` → (id, recipe): a per-upload recipe override."""
+    if "=" not in s:
+        raise ValueError(f"--recipe must look like user_0=4@0.95, got {s!r}")
+    adapter_id, variant = s.split("=", 1)
+    return adapter_id, parse_variant(variant)
 
 
 def random_trained_lora(template, gen: torch.Generator, scale: float = 0.02,
@@ -68,7 +81,15 @@ def main(argv=None):
     p.add_argument("--prompt-len", type=int, default=32)
     p.add_argument("--max-new", type=int, default=8)
     p.add_argument("--variant", default="2@0.9",
-                   help="recipe (bits_high@rho) every upload quantizes under")
+                   help="default recipe (bits_high@rho) uploads quantize "
+                        "under")
+    p.add_argument("--recipe", action="append", default=[],
+                   metavar="ID=BITS@RHO",
+                   help="per-upload recipe override, e.g. user_0=4@0.95 "
+                        "(repeatable)")
+    p.add_argument("--target-bits", type=float, default=None,
+                   help="fit the default recipe to this average-bits budget "
+                        "on the first upload (overrides --variant)")
     p.add_argument("--mode", default="packed",
                    choices=("packed", "materialize"),
                    help="packed: one heterogeneous batch straight from "
@@ -94,15 +115,29 @@ def main(argv=None):
 
     qcfg = parse_variant(args.variant)
     store = AdapterStore(qcfg)
+    recipes = dict(parse_recipe_override(r) for r in args.recipe)
+    unknown = sorted(set(recipes) - {f"user_{i}"
+                                     for i in range(args.adapters)})
+    if unknown:
+        raise ValueError(f"--recipe overrides for unknown uploads: {unknown} "
+                         f"(uploads are user_0..user_{args.adapters - 1})")
     print(f"[serve] registering {args.adapters} adapters "
-          f"(LoRAQuant {qcfg.bits_high}@{qcfg.rho:g}) on {dev}...")
+          f"(default LoRAQuant {qcfg.bits_high}@{qcfg.rho:g}, "
+          f"{len(recipes)} per-upload overrides) on {dev}...")
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed + 1)
     uploads = {f"user_{i}": random_trained_lora(params["lora"], gen)
                for i in range(args.adapters)}
     _sync(dev)
     t0 = time.perf_counter()
-    store.register_many(uploads)
+    if args.target_bits is not None:
+        qcfg = LoRAQuantConfig.for_budget(
+            next(iter(uploads.values())), args.target_bits,
+            ste_steps=qcfg.ste_steps, refine=qcfg.refine)
+        store.default_recipe = qcfg
+        print(f"[serve] fitted default recipe for {args.target_bits} avg "
+              f"bits: {qcfg.variant_name}")
+    store.register_many(uploads, recipes=recipes)
     _sync(dev)
     t_reg = time.perf_counter() - t0
     print(f"[serve] quantized in {t_reg:.2f}s; store stats: {store.stats()}")

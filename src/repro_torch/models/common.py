@@ -100,7 +100,9 @@ def linear(x: torch.Tensor, base: Params, lora=None,
       launch);
     * a :class:`~repro_torch.kernels.PackedLoRABatch` — heterogeneous
       adapters applied straight from packed codes by the ``sgmv_fused``
-      kernel.
+      kernel;
+    * a :class:`~repro_torch.kernels.PackedLoRABuckets` — a mixed-recipe
+      batch, one ``sgmv_fused`` launch per layout bucket.
 
     The base product runs in the base dtype; the update is cast to it."""
     y = x @ base["w"]
@@ -108,7 +110,9 @@ def linear(x: torch.Tensor, base: Params, lora=None,
         return y
     from repro_torch.core.loraquant import QuantizedLoRA
     from repro_torch.kernels.quant_matmul import (PackedLoRABatch,
+                                                   PackedLoRABuckets,
                                                    lora_apply_quantized,
+                                                   sgmv_apply_buckets,
                                                    sgmv_apply_packed)
 
     if isinstance(lora, QuantizedLoRA):
@@ -119,11 +123,12 @@ def linear(x: torch.Tensor, base: Params, lora=None,
         x2 = x.reshape(-1, x.shape[-1])
         upd = sgmv_apply_packed(x2, lora, scaling=scaling)
         return y + upd.reshape(y.shape).to(y.dtype)
+    if isinstance(lora, PackedLoRABuckets):
+        x2 = x.reshape(-1, x.shape[-1])
+        upd = sgmv_apply_buckets(x2, lora, scaling=scaling)
+        return y + upd.reshape(y.shape).to(y.dtype)
     if not (isinstance(lora, dict) and set(lora) == {"a", "b"}):
-        # mixed-recipe PackedLoRABuckets go through sgmv_apply_buckets (A4)
-        raise NotImplementedError(
-            f"LoRA leaf {type(lora).__name__} is not served by the port yet "
-            f"(PackedLoRABuckets: ROADMAP A4)")
+        raise TypeError(f"unsupported LoRA leaf {type(lora).__name__}")
     xl = x.to(lora["a"].dtype)
     upd = (xl @ lora["a"].T) @ lora["b"].T
     return y + (scaling * upd).to(y.dtype)

@@ -16,9 +16,10 @@ Parameter tree, as in the JAX package::
 A LoRA leaf may also be applied straight from packed codes: a
 layer-stacked :class:`~repro_torch.core.QuantizedLoRA` (one adapter for the
 whole batch; every array carries the leading ``(L,)`` axis and all layers
-share one split ``h``), or a :class:`~repro_torch.kernels.PackedLoRABatch`
-stack of many adapters, whose per-row adapter index a serving engine puts
-at ``lora["seg"]``.
+share one split ``h``), a :class:`~repro_torch.kernels.PackedLoRABatch`
+stack of many adapters, or a :class:`~repro_torch.kernels.PackedLoRABuckets`
+of such stacks, one per recipe layout; a serving engine puts the per-row
+adapter index of the last two at ``lora["seg"]``.
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.loraquant import QuantizedLoRA
-from repro_torch.kernels.quant_matmul import PackedLoRABatch
+from repro_torch.kernels.quant_matmul import (PackedLoRABatch,
+                                               PackedLoRABuckets)
 
 from . import attention as attn_mod
 from . import ffn as ffn_mod
@@ -45,10 +47,11 @@ def _not_ported(what: str):
 
 def _layer_slice(tree, i: int):
     """Layer ``i`` of a stacked tree: every tensor ``t[i]``, every packed
-    leaf its per-layer view (its ``seg`` stays per row), every
-    ``QuantizedLoRA`` entry ``i`` of each array, its metadata kept (what
-    ``lax.scan`` hands the JAX model's layer body)."""
-    if isinstance(tree, PackedLoRABatch):
+    leaf (buckets and their lookups included) its per-layer view (its
+    ``seg`` stays per row), every ``QuantizedLoRA`` entry ``i`` of each
+    array, its metadata kept (what ``lax.scan`` hands the JAX model's layer
+    body)."""
+    if isinstance(tree, (PackedLoRABatch, PackedLoRABuckets)):
         return tree.layer(i)
     if isinstance(tree, QuantizedLoRA):
         return tree.index(i)
@@ -118,7 +121,7 @@ class Model:
     def _attach_seg(group_lora, seg):
         """Put the batch-level per-row adapter index ``seg`` into every
         packed multi-adapter leaf of one layer group."""
-        if isinstance(group_lora, PackedLoRABatch):
+        if isinstance(group_lora, (PackedLoRABatch, PackedLoRABuckets)):
             return dataclasses.replace(group_lora, seg=seg)
         if isinstance(group_lora, dict):
             return {k: Model._attach_seg(v, seg) for k, v in group_lora.items()}

@@ -1,10 +1,13 @@
 """Multi-LoRA serving engine (port of ``repro/serving/engine.py``, static
 modes).
 
-* :class:`AdapterStore` holds many adapters LoRAQuant-quantized and serves
-  them in two forms: **packed** (:meth:`AdapterStore.pack_batch`, a LoRA
-  tree whose leaves are :class:`~repro_torch.kernels.PackedLoRABatch`
-  stacks read straight from the codes by the ``sgmv_fused`` kernel) and
+* :class:`AdapterStore` holds many adapters LoRAQuant-quantized, each under
+  its own recipe, and serves them in two forms: **packed**
+  (:meth:`AdapterStore.pack_batch`, a LoRA tree whose leaves are
+  :class:`~repro_torch.kernels.PackedLoRABatch` stacks — or, for a
+  mixed-recipe batch, :class:`~repro_torch.kernels.PackedLoRABuckets` of
+  one stack per layout — read straight from the codes by the ``sgmv_fused``
+  kernel) and
   **materialize** (:meth:`AdapterStore.materialize`, dequantized fp trees
   through a byte-budgeted LRU — the reference path).
 * :class:`MultiLoRAEngine` serves all pending requests as one batch:
@@ -15,8 +18,7 @@ modes).
   for token.
 
 Not ported yet: ``mode="continuous"`` with the paged adapter memory
-(ROADMAP A7); telemetry, deadlines, queue limits and quarantine (A8);
-mixed-recipe batches (``PackedLoRABuckets``, A4).
+(ROADMAP A7); telemetry, deadlines, queue limits and quarantine (A8).
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from repro_torch.core import (
 )
 from repro_torch.kernels import (
     PackedLoRABatch,
+    PackedLoRABuckets,
     pack_adapter_layers,
     retile_packed,
     stack_packed_adapters,
@@ -191,7 +194,7 @@ def _leaf_folds(template) -> Dict[str, int]:
 def _tree_bytes(tree) -> int:
     if isinstance(tree, torch.Tensor):
         return tree.nbytes
-    if isinstance(tree, PackedLoRABatch):
+    if isinstance(tree, (PackedLoRABatch, PackedLoRABuckets)):
         return tree.nbytes()
     if isinstance(tree, dict):
         return sum(_tree_bytes(v) for v in tree.values())
@@ -353,18 +356,30 @@ class AdapterStore:
                    tile_t: int = 8) -> Any:
         """A LoRA tree for a heterogeneous batch over ``adapter_ids``: every
         {'a','b'} leaf becomes a :class:`PackedLoRABatch` ``(L, NA, Rp, ·)``
-        in adapter order. Attach per-row adapter indices at ``lora["seg"]``.
-        Cached per id tuple; any re-register invalidates the cache."""
+        in adapter order — or, when the adapters' recipes span several
+        packed-layout signatures, a :class:`PackedLoRABuckets` of one stack
+        per signature (in ``sorted`` signature order) with int32 lookups
+        ``(L, NA)`` from the batch-global adapter index to each bucket's
+        local index (-1: another bucket). Attach per-row global adapter
+        indices at ``lora["seg"]``. Cached per id tuple; any re-register
+        invalidates the cache."""
         key = (tuple(adapter_ids), tile_t)
         cached = self._batch_cache.get(key)
         if cached is not None:
             return cached
-        sigs = {self.signature_of(a) for a in adapter_ids}
-        if len(sigs) > 1:
-            raise NotImplementedError(
-                f"adapters span {len(sigs)} packed layouts {sorted(sigs)}; "
-                f"mixed-recipe batches (PackedLoRABuckets) are ROADMAP A4")
         per = [self.packed_entries(a) for a in adapter_ids]
+        sigs = [self.signature_of(a) for a in adapter_ids]
+        buckets = sorted(set(sigs))
+        na = len(adapter_ids)
+        # per bucket: member positions in batch order + the global→local map
+        members = [[i for i in range(na) if sigs[i] == sig]
+                   for sig in buckets]
+        luts = []
+        for idx in members:
+            lut = np.full((na,), -1, np.int32)
+            lut[np.asarray(idx, np.int64)] = np.arange(len(idx),
+                                                       dtype=np.int32)
+            luts.append(lut)
 
         def rebuild(node, path):
             if isinstance(node, dict):
@@ -375,8 +390,22 @@ class AdapterStore:
                             f"layer leaves; {path} has 2-D shape "
                             f"{tuple(node['a'].shape)} — serve it with "
                             f"mode='materialize'")
-                    return stack_packed_adapters([p[path] for p in per],
-                                                 tile_t=tile_t)
+                    if len(buckets) == 1:       # uniform recipes: one stack
+                        return stack_packed_adapters([p[path] for p in per],
+                                                     tile_t=tile_t)
+                    stacks = [stack_packed_adapters([per[i][path]
+                                                     for i in idx],
+                                                    tile_t=tile_t)
+                              for idx in members]
+                    n_layers = stacks[0].ah_codes.shape[0]
+                    dev = stacks[0].ah_codes.device
+                    return PackedLoRABuckets(
+                        buckets=tuple(stacks),
+                        lookups=tuple(
+                            torch.as_tensor(lut, device=dev).expand(
+                                n_layers, na).contiguous()
+                            for lut in luts),
+                        seg=None)
                 return {k: rebuild(v, f"{path}/{k}") for k, v in node.items()}
             if isinstance(node, (list, tuple)):
                 return type(node)(rebuild(v, f"{path}/{i}")

@@ -1,5 +1,6 @@
 """Tests of the port that need an NVIDIA GPU: build the kernels
-(``sgmv_fused``, ``fused_lora``, ``matmul_rhs``, ``matmul_out``) with nvcc
+(``sgmv_fused``, ``sgmv_rhs``, ``sgmv_out``, ``fused_lora``, ``matmul_rhs``,
+``matmul_out``) with nvcc
 and hold each against its plain PyTorch version on the card. They skip
 on a machine without CUDA. This file imports no JAX, so it also runs where
 JAX is absent:
@@ -14,8 +15,10 @@ import pytest
 import torch
 
 from repro_torch.core import LoRAQuantConfig, quantize_lora
+from repro_torch.core.quant import binary_quantize, rtn_quantize
 from repro_torch.kernels.quant_matmul import (
     LAUNCH_COUNTS,
+    PackedLoRABuckets,
     fused_lora,
     fused_lora_ref,
     lora_apply_quantized,
@@ -24,10 +27,18 @@ from repro_torch.kernels.quant_matmul import (
     matmul_rhs,
     matmul_rhs_ref,
     pack_adapter_layers,
+    ref,
     reset_launch_counts,
+    sgmv_apply,
+    sgmv_apply_buckets,
     sgmv_apply_packed,
     sgmv_fused,
     sgmv_fused_ref,
+    sgmv_out,
+    sgmv_out_ref,
+    sgmv_rhs,
+    sgmv_rhs_ref,
+    stack_adapter_side,
     stack_packed_adapters,
 )
 from repro_torch.kernels.quant_matmul.ops import _kernel_layout
@@ -198,3 +209,163 @@ def test_lora_apply_quantized_cuda_routes(cuda):
     assert dict(LAUNCH_COUNTS) == {"matmul_rhs": 2, "matmul_out": 2}
     assert y1.dtype == y2.dtype == torch.bfloat16
     torch.testing.assert_close(y1.float(), y2.float(), rtol=1e-2, atol=1e-2)
+
+
+# --------------------------------------------------------------------------
+# the two-pass SGMV kernels, the single-side and two-sided sgmv_fused forms
+# --------------------------------------------------------------------------
+
+def _quantized(w, fmt, group, axis):
+    if fmt == "binary":
+        return binary_quantize(w, group, axis=axis)
+    return rtn_quantize(w, int(fmt[3:]), group, axis=axis)
+
+
+def _sides(k, m, fmt, r, na, device, seed, group=128):
+    """``na`` adapters' A ``(r, K)`` and Bᵀ-view ``(M, r)`` factors of one
+    format, as per-adapter QuantizedTensors."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    qas = [_quantized(torch.randn(r, k, generator=gen, device=device), fmt,
+                      group, 1) for _ in range(na)]
+    qbs = [_quantized(torch.randn(m, r, generator=gen, device=device), fmt,
+                      group, 0) for _ in range(na)]
+    return qas, qbs
+
+
+def _close(got, want):
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    err = (got - want).abs().max().item()
+    assert err <= RTOL * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("fmt", ["rtn2", "rtn3", "rtn4", "rtn8", "binary"])
+@pytest.mark.parametrize("tile_t", [1, 8])
+@pytest.mark.parametrize("k,m", [(384, 256), (256, 200), (640, 1152)])
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+def test_sgmv_two_pass_and_single_side_cuda_vs_plain(cuda, fmt, tile_t, k,
+                                                     m, xdtype):
+    """sgmv_rhs, sgmv_out (exactly m columns) and the single-side
+    sgmv_fused, one launch each, against their plain versions."""
+    na, n_tiles = 5, 6
+    qas, qbs = _sides(k, m, fmt, 16, na, cuda, seed=k + m + tile_t)
+    a, b = stack_adapter_side(qas), stack_adapter_side(qbs)
+    gen = torch.Generator(device=cuda).manual_seed(tile_t + k)
+    seg = torch.randint(0, na, (n_tiles,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    x = torch.randn(n_tiles * tile_t, k, generator=gen,
+                    device=cuda).to(xdtype)
+    kw_a = dict(bits=qas[0].bits, binary=fmt == "binary",
+                group=qas[0].group_size, tile_t=tile_t)
+    kw_b = dict(kw_a, group=qbs[0].group_size, m=m)
+    fkw = dict(bits_a=kw_a["bits"], binary_a=kw_a["binary"],
+               group_a=kw_a["group"], bits_b=kw_b["bits"],
+               binary_b=kw_b["binary"], group_b=kw_b["group"], m=m,
+               tile_t=tile_t)
+    reset_launch_counts()
+    h = sgmv_rhs(x, *a, seg, **kw_a)
+    y = sgmv_out(h, *b, seg, **kw_b)
+    f = sgmv_fused(x, *a, *b, seg, **fkw)
+    torch.cuda.synchronize()
+    assert dict(LAUNCH_COUNTS) == {"sgmv_rhs": 1, "sgmv_out": 1,
+                                   "sgmv_fused": 1}
+    assert y.shape == f.shape == (x.shape[0], m)
+    _close(h, sgmv_rhs_ref(x, *a, seg, **kw_a))
+    _close(y, sgmv_out_ref(h, *b, seg, **kw_b))
+    _close(f, sgmv_fused_ref(x, *a, *b, seg, **fkw))
+
+
+@pytest.mark.parametrize("tile_t", [1, 8])
+@pytest.mark.parametrize("case", [
+    # A_hi, B_hi widths; hi binary; lo (bits, binary); groups ah bh al bl
+    (3, 4, False, (1, True), (128, 64, 64, 128)),
+    (1, 1, True, (2, False), (64, 128, 128, 64)),
+    (8, 2, False, (1, True), (128, 128, 128, 128)),
+])
+def test_sgmv_fused_two_sided_forms_cuda_vs_plain(cuda, tile_t, case, k=640,
+                                                  m=192):
+    """Separate A/B widths, a binary high side, a low side of another rank
+    (8 against 16), format and groups; one launch."""
+    bits_a, bits_b, bin_hi, (bits_lo, bin_lo), (ga, gb, gal, gbl) = case
+    na = 4
+    gen = torch.Generator(device=cuda).manual_seed(tile_t * 31 + bits_a)
+
+    def side(rows, cols, bits, binary, group, axis):
+        qs = [(binary_quantize(w, group, axis=axis) if binary
+               else rtn_quantize(w, bits, group, axis=axis))
+              for w in (torch.randn(rows, cols, generator=gen, device=cuda)
+                        for _ in range(na))]
+        return stack_adapter_side(qs)
+
+    ah, bh = side(16, k, bits_a, bin_hi, ga, 1), side(m, 16, bits_b, bin_hi,
+                                                     gb, 0)
+    al, bl = side(8, k, bits_lo, bin_lo, gal, 1), side(m, 8, bits_lo, bin_lo,
+                                                      gbl, 0)
+    seg = torch.tensor([3, 0, 1, 3, 2], dtype=torch.int32, device=cuda)
+    x = torch.randn(5 * tile_t, k, generator=gen, device=cuda)
+    kw = dict(bits_a=bits_a, binary_a=bin_hi, group_a=ga, bits_b=bits_b,
+              binary_b=bin_hi, group_b=gb, bits_lo=bits_lo,
+              binary_lo=bin_lo, group_al=gal, group_bl=gbl, m=m,
+              tile_t=tile_t)
+    reset_launch_counts()
+    got = sgmv_fused(x, *ah, *bh, seg, a_lo=al, b_lo=bl, **kw)
+    torch.cuda.synchronize()
+    assert dict(LAUNCH_COUNTS) == {"sgmv_fused": 1}
+    _close(got, sgmv_fused_ref(x, *ah, *bh, seg, a_lo=al, b_lo=bl, **kw))
+
+
+def test_sgmv_kernels_cuda_limits(cuda):
+    """More than 64 rank rows (high + low) is the kernels' own limit."""
+    qas, qbs = _sides(256, 256, "rtn2", 72, 2, cuda, seed=1)
+    a, b = stack_adapter_side(qas), stack_adapter_side(qbs)
+    seg = torch.zeros(2, dtype=torch.int32, device=cuda)
+    x = torch.randn(2, 256, device=cuda)
+    with pytest.raises(NotImplementedError, match="64 rank rows"):
+        sgmv_rhs(x, *a, seg, bits=2, binary=False, tile_t=1)
+    with pytest.raises(NotImplementedError, match="64 rank rows"):
+        sgmv_fused(x, *a, *b, seg, bits_a=2, binary_a=False, group_a=128,
+                   bits_b=2, binary_b=False, group_b=128, tile_t=1)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_sgmv_apply_cuda_counts_and_oracle(cuda, fused):
+    """sgmv_apply: 1 sgmv_fused, or 1 sgmv_rhs + 1 sgmv_out; against the
+    dense oracle ``ref_sgmv``; output in x's dtype."""
+    qas, qbs = _sides(384, 200, "rtn3", 16, 3, cuda, seed=8)
+    segs = [1, 0, 2, 2]
+    x = torch.randn(32, 384, device=cuda)
+    reset_launch_counts()
+    y = sgmv_apply(x, qas, qbs, torch.tensor(segs, device=cuda), scaling=2.0,
+                   tile_t=8, fused=fused)
+    torch.cuda.synchronize()
+    assert dict(LAUNCH_COUNTS) == ({"sgmv_fused": 1} if fused else
+                                   {"sgmv_rhs": 1, "sgmv_out": 1})
+    assert y.dtype == torch.float32 and y.shape == (32, 200)
+    _close(y, 2.0 * ref.ref_sgmv(x, qas, qbs,
+                                 [a for a in segs for _ in range(8)]))
+
+
+def test_sgmv_apply_buckets_cuda(cuda):
+    """Two layout buckets: one launch each over all rows, non-members
+    masked; equal to each adapter's own sgmv_apply_packed."""
+    pb2 = _packed_layer(256, 384, 16, 2, 128, 4, cuda, seed=21)
+    pb4 = _packed_layer(256, 384, 16, 4, 128, 4, cuda, seed=22)
+    luts = (torch.tensor([0, -1, 1, 2, -1, 3, -1, -1], dtype=torch.int32,
+                         device=cuda),
+            torch.tensor([-1, 0, -1, -1, 1, -1, 2, 3], dtype=torch.int32,
+                         device=cuda))
+    seg = torch.tensor([4, 0, 1, 3, 7, 2, 1], dtype=torch.int32, device=cuda)
+    x = torch.randn(7, 256, device=cuda)
+    pbs = PackedLoRABuckets(
+        buckets=(dataclasses.replace(pb2, tile_t=1),
+                 dataclasses.replace(pb4, tile_t=1)), lookups=luts, seg=seg)
+    reset_launch_counts()
+    y = sgmv_apply_buckets(x, pbs, scaling=2.0)
+    torch.cuda.synchronize()
+    assert dict(LAUNCH_COUNTS) == {"sgmv_fused": 2}
+    for row, g in enumerate(seg.tolist()):
+        bucket = 0 if luts[0][g] >= 0 else 1
+        pb = pbs.buckets[bucket]
+        local = luts[bucket][g].reshape(1)
+        want = _call(sgmv_fused_ref, x[row:row + 1],
+                     dataclasses.replace(pb, tile_t=1), local)
+        _close(y[row:row + 1], 2.0 * want)

@@ -189,7 +189,7 @@ def test_packed_stack_and_retile_layouts():
 
 def test_wrapper_checks():
     m, k = 200, 256
-    _, tpb = _layers(_three_adapters(2)[:1], 8)
+    jpb, tpb = _layers(_three_adapters(2)[:1], 8)
     x = torch.randn(8, k)
     with pytest.raises(ValueError, match="segment ids"):
         sgmv_apply_packed(x, tpb)
@@ -204,7 +204,17 @@ def test_wrapper_checks():
               a_lo=(tpb.al_codes, tpb.al_scale, tpb.al_zero),
               b_lo=(tpb.bl_codes, tpb.bl_scale, tpb.bl_zero), tile_t=8,
               m=m)
-    with pytest.raises(NotImplementedError, match="low side"):
+    # the single-side form (no low side) is the reference's too
+    one = {**kw, "a_lo": None, "b_lo": None}
+    want = np.asarray(j_sgmv_fused(
+        jnp.asarray(x.numpy()), jpb.ah_codes, jpb.ah_scale, jpb.ah_zero,
+        jpb.bh_codes, jpb.bh_scale, jpb.bh_zero, jnp.asarray([0], jnp.int32),
+        interpret=True, **{k_: v for k_, v in one.items()
+                           if k_ not in ("a_lo", "b_lo")}))
+    got = sgmv_fused(*args, **one).numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=RTOL * np.abs(want).max())
+    with pytest.raises(ValueError, match="both low-side"):
         sgmv_fused(*args, **{**kw, "a_lo": None})
     with pytest.raises(ValueError, match="bf16 or fp32"):
         sgmv_fused(x.double(), *args[1:], **kw)

@@ -145,7 +145,50 @@ def test_linear_branches():
     assert y.shape == (1, 3, 4) and y.dtype == torch.bfloat16
     want = x @ base["w"] + lora_apply_quantized(x, q, scaling=2.0)
     torch.testing.assert_close(y[0], want)
-    with pytest.raises(NotImplementedError, match="A4"):
+    # a mixed-recipe PackedLoRABuckets leaf: one sgmv_fused per bucket, the
+    # same update as the reference's linear
+    from repro.core import LoRAQuantConfig as JConfig
+    from repro.core import quantize_lora as j_quantize_lora
+    from repro.kernels import PackedLoRABuckets as JBuckets
+    from repro.kernels import pack_adapter_layers as j_pack
+    from repro.kernels import stack_packed_adapters as j_stack
+    from repro.models.common import linear as j_linear
+    from repro_torch.bridge import quantized_lora
+    from repro_torch.kernels import (PackedLoRABuckets, pack_adapter_layers,
+                                     stack_packed_adapters)
+
+    g = np.random.default_rng(11)
+    jq = [j_quantize_lora(jnp.asarray(g.normal(size=(4, 2)), jnp.float32),
+                          jnp.asarray(g.normal(size=(2, 8)), jnp.float32),
+                          JConfig(rho=0.9, bits_high=bits, ste_steps=0))
+          for bits in (2, 4, 2)]
+    members = [[0, 2], [1]]                  # signatures (2,·,1), (4,·,1)
+    luts = [np.asarray([0, -1, 1], np.int32), np.asarray([-1, 0, -1],
+                                                         np.int32)]
+    seg = np.asarray([2, 0, 1], np.int32)
+    xf = g.normal(size=(3, 8)).astype(np.float32)
+    wf = g.normal(size=(8, 4)).astype(np.float32)
+    jb = JBuckets(
+        buckets=tuple(jax.tree_util.tree_map(
+            lambda z: z[0], j_stack([j_pack([jq[i]]) for i in idx],
+                                    tile_t=1)) for idx in members),
+        lookups=tuple(jnp.asarray(lut) for lut in luts),
+        seg=jnp.asarray(seg))
+    want = np.asarray(j_linear(jnp.asarray(xf), {"w": jnp.asarray(wf)}, jb,
+                               scaling=2.0))
+    tb = PackedLoRABuckets(
+        buckets=tuple(stack_packed_adapters(
+            [pack_adapter_layers([quantized_lora(jq[i], "cpu")])
+             for i in idx], tile_t=1).layer(0) for idx in members),
+        lookups=tuple(torch.from_numpy(lut) for lut in luts),
+        seg=torch.from_numpy(seg))
+    reset_launch_counts()
+    got = linear(torch.from_numpy(xf), {"w": torch.from_numpy(wf)}, tb,
+                 scaling=2.0)
+    assert dict(PLAIN_CALLS) == {"sgmv_fused": 2}
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    with pytest.raises(TypeError, match="unsupported LoRA leaf"):
         linear(x, base, object())
 
 

@@ -179,14 +179,28 @@ def test_engine_failure_contract(served):
 
 
 def test_mixed_recipes_and_unregister(served):
-    *_, tmodel, tparams, tstore = served
+    _, _, jparams, jstore, tmodel, tparams, tstore = served
     store = AdapterStore()
+    jst = JStore()
     for aid in ("u0", "u1"):
         store.register_quantized(aid, tstore.quantized[aid])
+        jst.register_quantized(aid, jstore.quantized[aid])
     store.register_quantized("u2", dataclasses.replace(
         tstore.quantized["u2"], recipe=LoRAQuantConfig(bits_high=4)))
-    with pytest.raises(NotImplementedError, match="A4"):
-        store.pack_batch(["u0", "u2"], tparams["lora"])
+    jst.register_quantized("u2", dataclasses.replace(
+        jstore.quantized["u2"], recipe=JConfig(bits_high=4)))
+    # two layout signatures: one bucket each, as the reference builds them
+    jleaf = jst.pack_batch(["u0", "u2"], jparams["lora"])[
+        "groups"][0]["sub_0"]["mixer"]["wq"]
+    tleaf = store.pack_batch(["u0", "u2"], tparams["lora"])[
+        "groups"][0]["sub_0"]["mixer"]["wq"]
+    assert type(tleaf).__name__ == type(jleaf).__name__ == "PackedLoRABuckets"
+    for jl, tl in zip(jleaf.lookups, tleaf.lookups, strict=True):
+        np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    for jb, tb in zip(jleaf.buckets, tleaf.buckets, strict=True):
+        np.testing.assert_array_equal(tb.ah_codes.numpy().astype(np.int64),
+                                      np.asarray(jb.ah_codes).astype(np.int64))
+        assert tb.ah_codes.shape[1] == jb.ah_codes.shape[1] == 1
     store.pack_batch(["u0", "u1"], tparams["lora"])
     assert store.packed_cache_bytes() > 0
     store.unregister("u1")
