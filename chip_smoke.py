@@ -73,6 +73,7 @@ summary and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -80,6 +81,16 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+if not (ROOT / "src" / "repro_torch").is_dir():
+    sys.exit(f"chip_smoke: no src/repro_torch next to {__file__}; run it "
+             f"from a checkout of the repository")
+sys.path.insert(0, str(ROOT / "src"))
+
+# The workload (llama3.2-3b's LoRA linears, the serve's requests, decode and
+# prefill tiles) and its main-path mix: one definition, shared with the
+# kernel benchmark.
+from repro_torch.launch.bench_kernels import (  # noqa: E402
+    LAYERS, LINEARS, MAX_NEW, N_ADAPTERS, N_REQ, PHASES, PROMPT, SHAPES, mix)
 
 # fp32 tolerance of the kernel against its plain version: both sum the same
 # fp32 products in different orders (lane-split K chunks vs cuBLAS), so the
@@ -93,14 +104,6 @@ LOGIT_RTOL = 1e-4
 CONTROL_MARGIN = 10
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM published peak
 FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
-
-LAYERS = 28
-LINEARS = {"wq": (3072, 3072), "wk": (3072, 1024), "wv": (3072, 1024),
-           "wo": (3072, 3072), "wg": (3072, 8192), "wu": (3072, 8192),
-           "wd": (8192, 3072)}
-SHAPES = [(3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072)]
-N_REQ, PROMPT, MAX_NEW, N_ADAPTERS = 16, 32, 8, 8
-PHASES = {"decode": (1, N_REQ), "prefill": (8, N_REQ * PROMPT)}  # tile, rows
 
 
 def log(msg: str):
@@ -125,33 +128,6 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def packed_layer(k, m, bits, group, na, seed):
-    """``na`` random adapters quantized by the port (refine off), packed as
-    one layer ``(NA, Rp, ·)``; rho cycles so split h differs per adapter and
-    one adapter keeps every pair high (h == r)."""
-    import torch
-    from repro_torch.core import LoRAQuantConfig, quantize_lora
-    from repro_torch.kernels.quant_matmul import (pack_adapter_layers,
-                                                   stack_packed_adapters)
-
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(seed)
-    r = 16
-    decay = torch.exp(-0.3 * torch.arange(r, device="cuda"))
-    qls = []
-    for i in range(na):
-        b = torch.randn(m, r, generator=gen, device="cuda") * decay
-        a = torch.randn(r, k, generator=gen, device="cuda") * decay[:, None]
-        rho = (0.5, 0.8, 0.9, 1.0)[i % 4]
-        qls.append(quantize_lora(b, a, LoRAQuantConfig(
-            rho=rho, bits_high=bits, group_size=group, refine="none")))
-    hs = {q.h for q in qls}
-    if len(hs) < 2 or all(q.a_low is not None for q in qls):
-        raise AssertionError(f"adapters do not mix split h: {sorted(hs)}")
-    pb = stack_packed_adapters([pack_adapter_layers([q]) for q in qls])
-    return pb.layer(0)
-
-
 def bound(pb, x, seg_tiles, m):
     """``(t_bytes, t_ops)`` in ms for one call: the bytes it must move (x,
     the packed codes/scales/zeros of the adapters the tiles use — the binary
@@ -170,32 +146,28 @@ def bound(pb, x, seg_tiles, m):
     return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
 
 
-def call(fn, x, pb, seg_tiles, tile_t):
-    return fn(x, pb.ah_codes, pb.ah_scale, pb.ah_zero, pb.bh_codes,
-              pb.bh_scale, pb.bh_zero, seg_tiles,
-              bits_a=pb.bits_hi, binary_a=False, group_a=pb.group_ah,
-              bits_b=pb.bits_hi, binary_b=False, group_b=pb.group_bh,
-              a_lo=(pb.al_codes, pb.al_scale, pb.al_zero),
-              b_lo=(pb.bl_codes, pb.bl_scale, pb.bl_zero),
-              group_al=pb.group_al, group_bl=pb.group_bl, m=pb.m,
-              tile_t=tile_t)
+def timed(name, tag, fn, args, kwargs, plain, t_bytes, t_ops, err):
+    """Time one kernel case and log it: device time (CUDA-graph replay) with
+    the inputs in L2 and rotating over 28 layer copies (cold L2), the
+    wrapper's host time per call, the plain version's time (CUDA events
+    around eager calls) and the bound. Returns the numbers as a dict."""
+    from repro_torch.launch.bench_kernels import kernel_times
 
-
-def seg_for(phase):
-    """Token tiles and their adapters as phase 2 lays them out: request r
-    uses adapter r mod 8; a prompt spans PROMPT / tile_t tiles."""
-    import torch
-
-    tile_t, rows = PHASES[phase]
-    n_tiles = rows // tile_t
-    per_req = max(1, n_tiles // N_REQ)
-    return ((torch.arange(n_tiles, device="cuda") // per_req)
-            % N_ADAPTERS).to(torch.int32)
+    t = kernel_times(fn, args, kwargs)
+    t.update(plain_ms=time_ms(lambda: plain(*args, **kwargs), iters=3),
+             bytes=t_bytes, ops=t_ops)
+    log(f"{name:10s} {tag} max|err|={err:.2e}  kernel {t['ms']:.4f} ms "
+        f"(cold-L2 {t['cold_ms']:.4f}, host {t['host_ms']:.4f} ms/call)  "
+        f"plain {t['plain_ms']:.4f} ms  bound {max(t_bytes, t_ops):.5f} ms "
+        f"(bytes {t_bytes:.5f}, ops {t_ops:.5f})")
+    return t
 
 
 def phase_kernel():
     import torch
     from repro_torch.kernels.quant_matmul import sgmv_fused, sgmv_fused_ref
+    from repro_torch.launch.bench_kernels import (packed_args, packed_layer,
+                                                  seg_for)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -216,9 +188,10 @@ def phase_kernel():
         tile_t, rows = PHASES[phase]
         seg_tiles = seg_for(phase)
         x = (torch.randn(rows, k, generator=gen, device="cuda")).to(xdtype)
-        got = call(sgmv_fused, x, pb, seg_tiles, tile_t)
+        args, kw = packed_args(pb, x, seg_tiles, tile_t)
+        got = sgmv_fused(*args, **kw)
         torch.cuda.synchronize()
-        want = call(sgmv_fused_ref, x, pb, seg_tiles, tile_t)
+        want = sgmv_fused_ref(*args, **kw)
         if got.shape != (rows, m) or not torch.isfinite(got).all():
             raise AssertionError(f"bad kernel output {tuple(got.shape)}")
         err = (got - want).abs().max().item()
@@ -227,38 +200,139 @@ def phase_kernel():
             raise AssertionError(
                 f"sgmv_fused K={k} M={m} bits={bits} {phase}: max |err| "
                 f"{err:.3e} > {RTOL:g} x {scale:.3e}")
+        again = sgmv_fused(*args, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"sgmv_fused K={k} M={m} bits={bits} "
+                                 f"{phase}: two launches differ")
         max_err = max(max_err, err)
-        ms = time_ms(lambda: call(sgmv_fused, x, pb, seg_tiles, tile_t))
-        plain = time_ms(lambda: call(sgmv_fused_ref, x, pb, seg_tiles, tile_t),
-                        iters=5)
-        t_bytes, t_ops = bound(pb, x, seg_tiles, m)
-        timings[(k, m), bits, phase] = (ms, plain, t_bytes, t_ops)
-        log(f"sgmv_fused K={k:5d} M={m:5d} bits={bits} {phase:7s} "
-            f"T={rows:3d} x={str(xdtype)[6:]:8s} max|err|={err:.2e} "
-            f"(max|y| {scale:.2e})  kernel {ms:.4f} ms  plain {plain:.4f} ms"
-            f"  bound {max(t_bytes, t_ops):.5f} ms (bytes {t_bytes:.5f}, "
-            f"ops {t_ops:.5f})")
+        timings[(k, m), bits, phase] = timed(
+            "sgmv_fused", f"K={k:5d} M={m:5d} bits={bits} {phase:7s} "
+            f"T={rows:3d} x={str(xdtype)[6:]:8s}", sgmv_fused, args, kw,
+            sgmv_fused_ref, *bound(pb, x, seg_tiles, m), err)
     return timings, max_err
 
 
-def main_path_mix(timings):
-    """Mean per launch over the main path's launches (bits_hi = 2): every
-    layer runs each of its 7 LoRA linears once at prefill and once per
-    decode step. The bound of the mix is the larger of its summed byte time
-    and its summed operation time."""
-    tot = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0}
-    n = 0
-    for k, m in LINEARS.values():
-        for phase, count in (("prefill", 1), ("decode", MAX_NEW - 1)):
-            ms, plain, t_bytes, t_ops = timings[(k, m), 2, phase]
-            tot["ms"] += count * ms
-            tot["plain_ms"] += count * plain
-            tot["bytes"] += count * t_bytes
-            tot["ops"] += count * t_ops
-            n += count
-    return {"ms": tot["ms"] / n, "plain_ms": tot["plain_ms"] / n,
-            "bound_ms": max(tot["bytes"], tot["ops"]) / n,
-            "bound_by": "bytes" if tot["bytes"] >= tot["ops"] else "operations"}
+MIX_KEYS = ("ms", "cold_ms", "host_ms", "plain_ms")
+
+
+def main_path_mix(per_case):
+    """Each timing of ``per_case`` (``{((k, m), phase): timings}`` at
+    bits_hi 2) per launch over the main path (:func:`mix`: every layer runs
+    each of its 7 LoRA linears once at prefill and once per decode step),
+    and the mix's bound: the larger of its byte time and its operation
+    time."""
+    out = {key: mix(per_case, key) for key in MIX_KEYS}
+    t_bytes, t_ops = mix(per_case, "bytes"), mix(per_case, "ops")
+    out.update(bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def mix_line(name, x) -> str:
+    return (f"{name} mix per launch: kernel {x['ms']:.4f} ms (cold-L2 "
+            f"{x['cold_ms']:.4f}, host {x['host_ms']:.4f} ms/call), plain "
+            f"{x['plain_ms']:.4f} ms, bound {x['bound_ms']:.5f} ms "
+            f"({x['bound_by']})")
+
+
+LORA_KERNELS = ("sgmv_fused_kernel", "fused_lora_kernel")
+
+
+def profile_step(step):
+    """Run ``step()`` (one decode step) under ``torch.profiler``; returns its
+    result and the window: host wall time (synchronized), device busy time
+    (the union of the card's kernel and copy spans), the LoRA kernels' share
+    and launches, the rest, and the idle share of the window. Falls back to
+    CUDA events (no split) if the profiler records no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        start.record()
+        out = step()
+        stop.record()
+        torch.cuda.synchronize()
+        window = (time.perf_counter() - t0) * 1e3
+    spans, lora, n_lora = [], 0.0, 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        if any(n in e.name for n in LORA_KERNELS):
+            lora += e.time_range.end - e.time_range.start
+            n_lora += 1
+    res = {"window_ms": window, "source": "torch.profiler",
+           "events_ms": start.elapsed_time(stop)}
+    if not spans:
+        res.update(source="CUDA events (the profiler recorded no device "
+                          "time)", device_ms=None, lora_ms=None,
+                   other_ms=None, idle=None, lora_launches=None, kernels=0)
+        return out, res
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):               # union of the spans, in µs
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    total = sum(b - a for a, b in spans)
+    res.update(device_ms=busy / 1e3, lora_ms=lora / 1e3,
+               other_ms=(total - lora) / 1e3, idle=1 - busy / 1e3 / window,
+               lora_launches=n_lora, kernels=len(spans))
+    return out, res
+
+
+@contextlib.contextmanager
+def profiled_decode(step: int = 4):
+    """While active, decode step ``step`` of the model (any caller:
+    ``Model.decode_step``) runs under :func:`profile_step` and the next one
+    is timed unprofiled (synchronized). Yields the dict that receives
+    both."""
+    import torch
+    from repro_torch.models.model import Model
+
+    orig = Model.decode_step
+    res = {"calls": 0}
+
+    def wrapped(self, *a, **kw):
+        res["calls"] += 1
+        if res["calls"] == step:
+            out, res["window"] = profile_step(lambda: orig(self, *a, **kw))
+            return out
+        if res["calls"] == step + 1:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig(self, *a, **kw)
+            torch.cuda.synchronize()
+            res["unprofiled_ms"] = (time.perf_counter() - t0) * 1e3
+            return out
+        return orig(self, *a, **kw)
+
+    Model.decode_step = wrapped
+    try:
+        yield res
+    finally:
+        Model.decode_step = orig
+
+
+def window_line(label, res) -> str:
+    w = res["window"]
+    head = (f"{label} decode-step profile ({w['source']}): window "
+            f"{w['window_ms']:.3f} ms (CUDA events {w['events_ms']:.3f} ms; "
+            f"the next step unprofiled {res.get('unprofiled_ms', 0):.3f} ms)")
+    if w["device_ms"] is None:
+        return head
+    return (f"{head}; device busy {w['device_ms']:.3f} ms: LoRA kernels "
+            f"{w['lora_ms']:.3f} ms in {w['lora_launches']} launches, other "
+            f"device work {w['other_ms']:.3f} ms in "
+            f"{w['kernels'] - w['lora_launches']} kernels/copies; idle share "
+            f"{w['idle']:.3f} of the window, "
+            f"{1 - w['device_ms'] / res.get('unprofiled_ms', w['window_ms']):.3f}"
+            f" of the unprofiled step")
 
 
 def serve(dtype: str, mode: str, adapters: int = N_ADAPTERS,
@@ -300,58 +374,13 @@ def check_outputs(done, vocab: int):
 # single-adapter apply (fused_lora, matmul_rhs, matmul_out)
 # --------------------------------------------------------------------------
 
-SINGLE_PHASES = {"decode": N_REQ, "prefill": N_REQ * PROMPT}     # rows
+SINGLE_PHASES = {phase: rows for phase, (_, rows) in PHASES.items()}
 GUARD = (32768, 256, 8, 128)          # M, K, rank, rows: the large-M guard
-
-
-def decayed_pairs(n, m, k, r, seed, scale=1.0):
-    """``n`` adapters ``b (n, m, r)``, ``a (n, r, k)`` with orthonormal
-    factors and one fixed singular spectrum ``scale·exp(-0.4 i)`` (the
-    reference benchmark's ``_decayed_pair``), so ``select_h`` gives every
-    one the same split h."""
-    import torch
-
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(seed)
-    u = torch.linalg.qr(torch.randn(n, m, r, generator=gen,
-                                    device="cuda"))[0]
-    v = torch.linalg.qr(torch.randn(n, k, r, generator=gen,
-                                    device="cuda"))[0]
-    s = scale * torch.exp(-0.4 * torch.arange(r, device="cuda"))
-    return u * s.sqrt(), s.sqrt()[:, None] * v.mT
-
-
-def single_qlora(k, m, bits, rho, seed, r=16):
-    from repro_torch.core import LoRAQuantConfig, quantize_lora
-
-    b, a = decayed_pairs(1, m, k, r, seed)
-    return quantize_lora(b[0], a[0], LoRAQuantConfig(
-        rho=rho, bits_high=bits, group_size=128, refine="none"))
-
-
-def side_layout(q):
-    from repro_torch.kernels.quant_matmul.ops import _kernel_layout
-
-    return _kernel_layout(q)[:3]
 
 
 def side_bytes(side, binary):
     codes, scale, zero = side
     return codes.nbytes + scale.nbytes + (0 if binary else zero.nbytes)
-
-
-def fused_args(q):
-    """``(sides, kwargs)`` of ``fused_lora`` (or its plain version) for one
-    adapter, laid out once so that a timed call times the wrapper and its
-    kernel only."""
-    kw = dict(m=q.b_high.orig_shape[0], bits_hi=q.a_high.bits,
-              binary_hi=False, group_ah=q.a_high.group_size,
-              group_bh=q.b_high.group_size)
-    lo = (None, None)
-    if q.a_low is not None:
-        lo = (side_layout(q.a_low), side_layout(q.b_low))
-        kw.update(group_al=q.a_low.group_size, group_bl=q.b_low.group_size)
-    return (side_layout(q.a_high), side_layout(q.b_high), *lo), kw
 
 
 def single_bounds(q, x, m):
@@ -360,6 +389,8 @@ def single_bounds(q, x, m):
     reads — a binary side's zeros are never read —, its fp32 output) over
     the HBM peak, and its fp32 operations over the fp32 peak. ``matmul_*``
     count the high side, as they are timed."""
+    from repro_torch.launch.bench_kernels import side_layout
+
     t, k = x.shape
     sides = [(q.a_high, q.b_high)] + ([(q.a_low, q.b_low)]
                                       if q.a_low is not None else [])
@@ -400,12 +431,14 @@ def check_close(name, got, want):
 
 def phase_single_kernels():
     """fused_lora / matmul_rhs / matmul_out against their plain versions;
-    returns ``{(kernel, (k, m), bits, rho, phase): (ms, plain_ms, t_bytes,
-    t_ops)}`` and the max error per kernel."""
+    returns ``{(kernel, (k, m), bits, rho, phase): timings}`` (see
+    :func:`timed`) and the max error per kernel."""
     import torch
     from repro_torch.kernels.quant_matmul import (
         fused_lora, fused_lora_ref, matmul_out, matmul_out_ref, matmul_rhs,
         matmul_rhs_ref)
+    from repro_torch.launch.bench_kernels import (fused_args, side_layout,
+                                                  single_qlora)
 
     cases = [((k, m), bits, rho, phase, torch.bfloat16)
              for (k, m) in SHAPES for bits in (2, 3, 4) for rho in (0.9, 1.0)
@@ -433,6 +466,8 @@ def phase_single_kernels():
         torch.cuda.synchronize()
         errs = {"fused_lora": check_close(f"fused_lora {tag}", got,
                                           fused_lora_ref(x, *sides, **fkw))}
+        if not torch.equal(got, fused_lora(x, *sides, **fkw)):
+            raise AssertionError(f"fused_lora {tag}: two launches differ")
         # both sides of the two-pass path; the high side is timed
         pairs = [(q.a_high, q.b_high)] + ([(q.a_low, q.b_low)]
                                           if q.a_low is not None else [])
@@ -456,28 +491,17 @@ def phase_single_kernels():
         kw = dict(bits=bits, binary=False)
         h = matmul_rhs(x, *a, group=q.a_high.group_size, **kw)
         runs = {
-            "fused_lora": (lambda: fused_lora(x, *sides, **fkw),
-                           lambda: fused_lora_ref(x, *sides, **fkw)),
-            "matmul_rhs": (
-                lambda: matmul_rhs(x, *a, group=q.a_high.group_size, **kw),
-                lambda: matmul_rhs_ref(x, *a, group=q.a_high.group_size,
-                                       **kw)),
-            "matmul_out": (
-                lambda: matmul_out(h, *b, group=q.b_high.group_size, **kw),
-                lambda: matmul_out_ref(h, *b, group=q.b_high.group_size,
-                                       **kw)),
+            "fused_lora": (fused_lora, fused_lora_ref, (x, *sides), fkw),
+            "matmul_rhs": (matmul_rhs, matmul_rhs_ref, (x, *a),
+                           dict(kw, group=q.a_high.group_size)),
+            "matmul_out": (matmul_out, matmul_out_ref, (h, *b),
+                           dict(kw, group=q.b_high.group_size)),
         }
         bounds = single_bounds(q, x, m)
-        for name, (kern, plain) in runs.items():
-            ms = time_ms(kern, iters=10)
-            plain_ms = time_ms(plain, iters=3)
-            t_bytes, t_ops = bounds[name]
-            timings[name, (k, m), bits, rho, phase] = (ms, plain_ms, t_bytes,
-                                                       t_ops)
-            log(f"{name:10s} {tag} x={str(xdtype)[6:]:8s} max|err|="
-                f"{errs[name]:.2e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} "
-                f"ms  bound {max(t_bytes, t_ops):.5f} ms (bytes "
-                f"{t_bytes:.5f}, ops {t_ops:.5f})")
+        for name, (kern, plain, args, kwargs) in runs.items():
+            timings[name, (k, m), bits, rho, phase] = timed(
+                name, f"{tag} x={str(xdtype)[6:]:8s}", kern, args, kwargs,
+                plain, *bounds[name], errs[name])
     return timings, max_err
 
 
@@ -485,9 +509,8 @@ def single_mix(timings, name):
     """Mean per launch of ``name`` over the single-adapter serve's mix
     (bits 2, rho 0.9; each of the 7 LoRA linears once at prefill and once
     per decode step), as :func:`main_path_mix` does for ``sgmv_fused``."""
-    sub = {((k, m), 2, phase): timings[name, (k, m), 2, 0.9, phase]
-           for (k, m) in SHAPES for phase in SINGLE_PHASES}
-    return main_path_mix(sub)
+    return main_path_mix({((k, m), phase): timings[name, (k, m), 2, 0.9, phase]
+                          for (k, m) in SHAPES for phase in SINGLE_PHASES})
 
 
 def phase_two_pass():
@@ -498,6 +521,7 @@ def phase_two_pass():
     from repro_torch.kernels.quant_matmul import (
         LAUNCH_COUNTS, fused_lora, fused_lora_ref, lora_apply_quantized,
         reset_launch_counts)
+    from repro_torch.launch.bench_kernels import fused_args, single_qlora
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(99)
@@ -572,6 +596,7 @@ def single_adapter(template, seed):
     tree), quantized ``2@0.9`` by the port's pipeline: per path the list of
     per-layer ``QuantizedLoRA`` entries."""
     from repro_torch.core import LoRAQuantConfig, quantize_lora_stack
+    from repro_torch.launch.bench_kernels import decayed_pairs
     from repro_torch.serving.engine import iter_lora_linears
 
     entries = {}
@@ -664,7 +689,9 @@ def phase_single_serve():
         qtree = lora_tree(template, entries, "qlora")
         if dtype == torch.bfloat16:
             # ---- 7. single-adapter serve, bf16 ----------------------------
-            greedy(model, base, qtree, qtree, prompts)        # warm-up
+            with profiled_decode() as prof7:  # the warm-up, profiled
+                greedy(model, base, qtree, qtree, prompts)
+            log(window_line("single-adapter serve", prof7))
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             reset_launch_counts()
@@ -762,30 +789,6 @@ MIXED_RECIPES = ("user_0=4@0.95", "user_1=4@0.95", "user_2=3@0.9",
                  "user_3=3@0.9")
 
 
-def sgmv_sides(k, m, fmt, seed, na=N_ADAPTERS, r=16):
-    """``na`` adapters' A ``(r, K)`` and Bᵀ-view ``(M, r)`` factors quantized
-    per side in one format (group 128): the per-adapter QuantizedTensors
-    and their ``(NA, Rp, ·)`` stacks."""
-    import torch
-    from repro_torch.core.quant import binary_quantize, rtn_quantize
-    from repro_torch.kernels.quant_matmul import stack_adapter_side
-
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(seed)
-    decay = torch.exp(-0.3 * torch.arange(r, device="cuda"))
-
-    def q(w, axis):
-        if fmt == "binary":
-            return binary_quantize(w, 128, axis=axis)
-        return rtn_quantize(w, int(fmt[3:]), 128, axis=axis)
-
-    qas = [q(torch.randn(r, k, generator=gen, device="cuda")
-             * decay[:, None], 1) for _ in range(na)]
-    qbs = [q(torch.randn(m, r, generator=gen, device="cuda") * decay, 0)
-           for _ in range(na)]
-    return qas, qbs, stack_adapter_side(qas), stack_adapter_side(qbs)
-
-
 def used_bytes(side, seg, binary):
     """Packed bytes of the adapters the tiles use (a binary side's
     zero-points are never read)."""
@@ -794,12 +797,14 @@ def used_bytes(side, seg, binary):
 
 def phase_sgmv_kernels():
     """sgmv_rhs, sgmv_out and the single-side sgmv_fused against their plain
-    versions; returns ``{(kernel, (k, m), fmt, phase): (ms, plain_ms,
-    t_bytes, t_ops)}`` and the max error per kernel."""
+    versions; returns ``{(kernel, (k, m), fmt, phase): timings}`` (see
+    :func:`timed`) and the max error per kernel."""
     import torch
     from repro_torch.kernels.quant_matmul import (
         sgmv_fused, sgmv_fused_ref, sgmv_out, sgmv_out_ref, sgmv_rhs,
         sgmv_rhs_ref)
+    from repro_torch.launch.bench_kernels import (kernel_times, seg_for,
+                                                  sgmv_sides)
 
     cases = [((k, m), fmt, phase, torch.bfloat16) for (k, m) in SHAPES
              for fmt in SIDE_FORMATS for phase in PHASES]
@@ -850,25 +855,17 @@ def phase_sgmv_kernels():
                            + y_bytes, 2 * rows * rp * (k + m)),
         }
         runs = {
-            "sgmv_rhs": (lambda: sgmv_rhs(x, *a, seg, **kw),
-                         lambda: sgmv_rhs_ref(x, *a, seg, **kw)),
-            "sgmv_out": (lambda: sgmv_out(h, *b, seg, **okw),
-                         lambda: sgmv_out_ref(h, *b, seg, **okw)),
-            "sgmv_fused": (lambda: sgmv_fused(x, *a, *b, seg, **fkw),
-                           lambda: sgmv_fused_ref(x, *a, *b, seg, **fkw)),
+            "sgmv_rhs": (sgmv_rhs, sgmv_rhs_ref, (x, *a, seg), kw),
+            "sgmv_out": (sgmv_out, sgmv_out_ref, (h, *b, seg), okw),
+            "sgmv_fused": (sgmv_fused, sgmv_fused_ref, (x, *a, *b, seg), fkw),
         }
-        for name, (kern, plain) in runs.items():
+        for name, (kern, plain, args, kwargs) in runs.items():
             max_err[name] = max(max_err[name], errs[name])
-            ms = time_ms(kern, iters=10)
-            plain_ms = time_ms(plain, iters=3)
             nbytes, ops = bounds[name]
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / FP32_FLOPS_PER_S * 1e3
-            timings[name, (k, m), fmt, phase] = (ms, plain_ms, t_bytes, t_ops)
-            log(f"{name:10s} {tag} x={str(xdtype)[6:]:8s} max|err|="
-                f"{errs[name]:.2e}  kernel {ms:.4f} ms  plain {plain_ms:.4f} "
-                f"ms  bound {max(t_bytes, t_ops):.5f} ms (bytes "
-                f"{t_bytes:.5f}, ops {t_ops:.5f})")
+            timings[name, (k, m), fmt, phase] = timed(
+                name, f"{tag} x={str(xdtype)[6:]:8s}", kern, args, kwargs,
+                plain, nbytes / HBM_BYTES_PER_S * 1e3,
+                ops / FP32_FLOPS_PER_S * 1e3, errs[name])
 
     # two-sided: an RTN-3 high side of rank 16 and a binary low side of
     # rank 8, at the widest-K shape
@@ -889,19 +886,19 @@ def phase_sgmv_kernels():
         err = check_close(f"sgmv_fused hi 16 + lo 8 {phase}", got,
                           sgmv_fused_ref(x, *qa, *qb, seg, **fkw))
         max_err["sgmv_fused"] = max(max_err["sgmv_fused"], err)
-        ms = time_ms(lambda: sgmv_fused(x, *qa, *qb, seg, **fkw), iters=10)
+        t = kernel_times(sgmv_fused, (x, *qa, *qb, seg), fkw)
         log(f"sgmv_fused K={k} M={m} hi rtn3 rank {qa[0].shape[1]} + lo "
             f"binary rank {la[0].shape[1]} {phase:7s} T={rows:3d} max|err|="
-            f"{err:.2e}  kernel {ms:.4f} ms")
+            f"{err:.2e}  kernel {t['ms']:.4f} ms (cold-L2 "
+            f"{t['cold_ms']:.4f}, host {t['host_ms']:.4f} ms/call)")
     return timings, max_err
 
 
 def sgmv_mix(timings, name, fmt="rtn2"):
     """Mean per launch of ``name`` over the serve's mix, as
     :func:`main_path_mix` weighs ``sgmv_fused``."""
-    sub = {((k, m), 2, phase): timings[name, (k, m), fmt, phase]
-           for (k, m) in SHAPES for phase in PHASES}
-    return main_path_mix(sub)
+    return main_path_mix({((k, m), phase): timings[name, (k, m), fmt, phase]
+                          for (k, m) in SHAPES for phase in PHASES})
 
 
 def phase_sgmv_apply():
@@ -912,6 +909,7 @@ def phase_sgmv_apply():
     from repro_torch.kernels.quant_matmul import (LAUNCH_COUNTS, ref,
                                                    reset_launch_counts,
                                                    sgmv_apply)
+    from repro_torch.launch.bench_kernels import seg_for, sgmv_sides
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1357)
@@ -1037,11 +1035,6 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script drives the "
               "port on an NVIDIA GPU", file=sys.stderr)
         return 2
-    if not (ROOT / "src" / "repro_torch").is_dir():
-        print(f"chip_smoke: no src/repro_torch next to {__file__}; run it "
-              f"from a checkout of the repository", file=sys.stderr)
-        return 2
-    sys.path.insert(0, str(ROOT / "src"))
     t_start = time.perf_counter()
 
     # ---- 1. environment and build ----------------------------------------
@@ -1068,11 +1061,10 @@ def main() -> int:
     # ---- 2. kernel vs plain ----------------------------------------------
     t0 = time.perf_counter()
     timings, max_err = phase_kernel()
-    mix = main_path_mix(timings)
-    log(f"kernel phase done in {time.perf_counter() - t0:.1f}s; main-path "
-        f"mix per launch: kernel {mix['ms']:.4f} ms, plain "
-        f"{mix['plain_ms']:.4f} ms, bound {mix['bound_ms']:.5f} ms "
-        f"({mix['bound_by']})")
+    fused_mix = main_path_mix({((k, m), phase): t for ((k, m), bits, phase), t
+                               in timings.items() if bits == 2})
+    log(f"kernel phase done in {time.perf_counter() - t0:.1f}s; "
+        + mix_line("sgmv_fused main-path", fused_mix))
 
     # ---- 3. serve full width, bf16, packed --------------------------------
     from repro_torch.configs import get_config
@@ -1092,6 +1084,10 @@ def main() -> int:
                              f"{want} (28 layers x 7 linears x 8 forwards)")
     check_outputs(done, vocab)
     del done
+    torch.cuda.empty_cache()
+    with profiled_decode() as prof3:          # a second run, profiled
+        check_outputs(serve("bfloat16", "packed"), vocab)
+    log(window_line("one-layout serve", prof3))
     torch.cuda.empty_cache()
 
     # ---- 4. parity in fp32: packed == materialize -------------------------
@@ -1138,9 +1134,7 @@ def main() -> int:
     mixes = {name: single_mix(single_timings, name)
              for name in ("fused_lora", "matmul_rhs", "matmul_out")}
     log(f"single-adapter kernel phase {time.perf_counter() - t0:.1f}s; "
-        + "; ".join(f"{n} mix per launch: kernel {x['ms']:.4f} ms, plain "
-                    f"{x['plain_ms']:.4f} ms, bound {x['bound_ms']:.5f} ms "
-                    f"({x['bound_by']})" for n, x in mixes.items()))
+        + "; ".join(mix_line(n, x) for n, x in mixes.items()))
 
     # ---- 6. the two-pass route ----------------------------------------------
     two_pass = phase_two_pass()
@@ -1156,13 +1150,11 @@ def main() -> int:
     sgmv_mixes = {name: sgmv_mix(sgmv_timings, name)
                   for name in ("sgmv_rhs", "sgmv_out", "sgmv_fused")}
     log(f"multi-adapter kernel phase {time.perf_counter() - t0:.1f}s; "
-        + "; ".join(f"{n} mix per launch (rtn2): kernel {x['ms']:.4f} ms, "
-                    f"plain {x['plain_ms']:.4f} ms, bound {x['bound_ms']:.5f}"
-                    f" ms ({x['bound_by']})" for n, x in sgmv_mixes.items()))
+        + "; ".join(mix_line(f"{n} (rtn2)", x)
+                    for n, x in sgmv_mixes.items()))
     for fmt in SIDE_FORMATS[1:]:
-        fm = sgmv_mix(sgmv_timings, "sgmv_fused", fmt)
-        log(f"single-side sgmv_fused mix per launch ({fmt}): kernel "
-            f"{fm['ms']:.4f} ms, bound {fm['bound_ms']:.5f} ms")
+        log(mix_line(f"single-side sgmv_fused ({fmt})",
+                     sgmv_mix(sgmv_timings, "sgmv_fused", fmt)))
 
     # ---- 10. sgmv_apply, fused and two-pass ---------------------------------
     kernel.reset_launch_counts()
@@ -1186,6 +1178,11 @@ def main() -> int:
         f"{mixed_counts}")
     del done
     torch.cuda.empty_cache()
+    with profiled_decode() as prof11:         # a second run, profiled
+        check_outputs(serve("bfloat16", "packed", recipes=MIXED_RECIPES),
+                      vocab)
+    log(window_line("mixed-recipe serve", prof11))
+    torch.cuda.empty_cache()
 
     # ---- 12. mixed-recipe parity in fp32 ------------------------------------
     t0 = time.perf_counter()
@@ -1207,7 +1204,7 @@ def main() -> int:
     print(smi)
     print(json.dumps({"kernels": [
         entry("sgmv_fused", 481, launches,
-              max(max_err, sgmv_err["sgmv_fused"]), mix),
+              max(max_err, sgmv_err["sgmv_fused"]), fused_mix),
         entry("sgmv_rhs", 250, sgmv_apply_counts["sgmv_rhs"],
               sgmv_err["sgmv_rhs"], sgmv_mixes["sgmv_rhs"]),
         entry("sgmv_out", 293, sgmv_apply_counts["sgmv_out"],

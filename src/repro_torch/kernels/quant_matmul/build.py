@@ -120,6 +120,7 @@ def load_library() -> ctypes.CDLL:
         return _LIB
     lib = ctypes.CDLL(str(build_library()[0]))
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    i32p = ctypes.POINTER(ctypes.c_int)
     lib.sgmv_fused_launch.argtypes = (
         [ptr, i32]                       # x, x_is_bf16
         + [ptr] * 12                     # A_hi B_hi A_lo B_lo codes/scale/zero
@@ -127,6 +128,7 @@ def load_library() -> ctypes.CDLL:
         + [i32] * 7                      # T K M NA r_hi r_lo kt
         + [i32] * 6                      # bits/binary of A_hi, B_hi, lo
         + [i32] * 12                     # group/ng/wpg of A_hi B_hi A_lo B_lo
+        + [i32p]                         # the cluster plan (ClusterPlan.c_args)
         + [ptr])                         # stream
     lib.sgmv_rhs_launch.argtypes = (
         [ptr, i32]                       # x, x_is_bf16
@@ -152,6 +154,7 @@ def load_library() -> ctypes.CDLL:
         + [ptr]                          # out
         + [i32] * 9                      # T K M r_hi r_lo bits/binary hi, lo
         + [i32] * 12                     # group/ng/wpg of A_hi B_hi A_lo B_lo
+        + [i32p]                         # the cluster plan (ClusterPlan.c_args)
         + [ptr])                         # stream
     for fn in (lib.sgmv_fused_launch, lib.sgmv_rhs_launch,
                lib.sgmv_out_launch, lib.matmul_rhs_launch,

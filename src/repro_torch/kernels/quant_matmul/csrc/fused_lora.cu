@@ -6,7 +6,7 @@
 // Replaces the Pallas TPU kernel `fused_lora`
 // (src/repro/kernels/quant_matmul/kernel.py:348, pallas_call at :466).
 //
-// What it computes: x (T, K) bf16 or fp32; each side packed as in
+// What it computes: x (T, K) bf16 or fp32, any T; each side packed as in
 // unpack.cuh with its own bit width, grouping and padded row count (the
 // high side RTN of 2/3/4/8 bits or binary, the low side usually binary);
 // A_hi (R_hi, ·) and B_hiᵀ (R_hi, ·), A_lo and B_loᵀ (R_lo, ·). The output
@@ -14,86 +14,59 @@
 // TPU kernel writes the group-padded width into an M-wide block and fails
 // when M is not a multiple of B's group; this kernel does not.)
 //
-// What bounds it on an H100: bytes. Per call the work is
-// 2·T·(R_hi + R_lo)·(K + M) flops against x, the packed codes and the T×M
-// fp32 output. The design keeps those bytes packed: codes are dequantized
-// in shared memory / registers, and the (kTileRows × R) h tiles stay in
-// shared memory between the two products, so device memory sees only x,
-// packed bytes and y.
+// What bounds it on an H100: latency, not bytes or operations. A decode
+// call (T = 16) moves ~100 KB and needs ~6 MFLOP (bound < 1 µs); what a
+// design must shorten is the chain of dependent memory steps.
 //
-// Design (simple and correct first): grid = (token tiles of kTileRows rows)
-// × (output chunks of blockDim columns). Phase 1 (tile_rhs in unpack.cuh):
-// the block computes its tile's h_hi and h_lo over all of K into shared
-// memory; the loop over K takes the place of the TPU's sequential K grid
-// axis and its VMEM scratch. Phase 2: each thread owns one output column,
-// dequantizes its B_hi and B_lo column and writes kTileRows outputs.
-// Known cost, the first thing a later PR removes: every output chunk of a
-// tile recomputes h, so x and A are read ceil(M / blockDim) times per tile
-// (from L2 after the first).
+// Design (cluster_lora.cuh): one thread-block cluster of C blocks per
+// token tile of TR rows (1/2/4/8, a template parameter chosen by the
+// launch plan so that a decode batch of 16 rows still fills the card). Each
+// block stages its K and M slices with cp.async up front, reduces its K
+// slice into a partial h, and after cluster.sync() sums the C partials from
+// distributed shared memory in rank order, then writes its M slice of y. h
+// is computed once per tile and never reaches device memory; no float
+// atomics, so the result is the same bits on every launch. fp32 FMA on the
+// CUDA cores, not wgmma: the largest serve call is ~0.37 GFLOP (5.5 µs at
+// the fp32 peak), and bf16/TF32 tensor-core operands would break the fp32
+// parity the serve checks hold.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "unpack.cuh"
+#include "cluster_lora.cuh"
 
 namespace {
 
+namespace cl = loraquant::cluster;
 using loraquant::QSide;
-using loraquant::kTileRows;
 
-struct Params {
-  const void* x;
-  QSide ah, bh, al, bl;
-  float* out;
-  int T, K, M, r_hi, r_lo;
-};
+template <int TR, typename XT>
+__global__ void __launch_bounds__(cl::kThreads, 1)
+    fused_lora_kernel(const cl::Params p) {
+  const int row0 = (blockIdx.x / p.plan.cluster) * TR;
+  const QSide sd[4] = {p.side[0], p.side[1], p.side[2], p.side[3]};
+  cl::lora_tile<TR, XT>(p, sd, row0, min(TR, p.T - row0));
+}
 
 template <typename XT>
-__global__ void __launch_bounds__(loraquant::kMaxThreads)
-    fused_lora_kernel(const Params p) {
-  extern __shared__ float smem[];
-  const int slots = p.r_hi + p.r_lo;  // A_hi rows, then A_lo rows
-  float* xs = smem;
-  float* ws = xs + kTileRows * loraquant::kChunk;
-  float* hs = ws + slots * loraquant::kChunk;  // [slots][kTileRows]
-  const int row0 = blockIdx.x * kTileRows;
-
-  // ---- phase 1: h_hi / h_lo = x_tile · A_{hi,lo}ᵀ over K -----------------
-  loraquant::tile_rhs(static_cast<const XT*>(p.x), p.T, p.K, row0, p.ah,
-                      p.r_hi, p.al, slots, xs, ws, hs);
-
-  // ---- phase 2: y[:, c] = h_hi · B_hi[:, c] + h_lo · B_lo[:, c] ----------
-  const int c = blockIdx.y * blockDim.x + threadIdx.x;
-  if (c >= p.M) return;
-  float yh[kTileRows], yl[kTileRows];
-#pragma unroll
-  for (int t = 0; t < kTileRows; ++t) yh[t] = yl[t] = 0.f;
-  for (int r = 0; r < p.r_hi; ++r) {
-    const float w = loraquant::dequant_at(p.bh, r, c);
-#pragma unroll
-    for (int t = 0; t < kTileRows; ++t)
-      yh[t] = fmaf(hs[r * kTileRows + t], w, yh[t]);
+int launch_rows(const cl::Params& p, int tr, int tiles, cudaStream_t s) {
+  switch (tr) {
+    case 1: return cl::launch<fused_lora_kernel<1, XT>>(p, 1, sizeof(XT), tiles, s);
+    case 2: return cl::launch<fused_lora_kernel<2, XT>>(p, 2, sizeof(XT), tiles, s);
+    case 4: return cl::launch<fused_lora_kernel<4, XT>>(p, 4, sizeof(XT), tiles, s);
+    default: return cl::launch<fused_lora_kernel<8, XT>>(p, 8, sizeof(XT), tiles, s);
   }
-  for (int r = 0; r < p.r_lo; ++r) {
-    const float w = loraquant::dequant_at(p.bl, r, c);
-#pragma unroll
-    for (int t = 0; t < kTileRows; ++t)
-      yl[t] = fmaf(hs[(p.r_hi + r) * kTileRows + t], w, yl[t]);
-  }
-#pragma unroll
-  for (int t = 0; t < kTileRows; ++t)
-    if (row0 + t < p.T)
-      p.out[static_cast<size_t>(row0 + t) * p.M + c] = yh[t] + yl[t];
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches fused_lora on `stream`; returns cudaGetLastError() after the
-// launch (0 on success). r_lo = 0 means no low side (its pointers are not
-// read). Shapes are validated by the Python wrapper; the checks here guard
-// the kernel's own limits.
+// Launches fused_lora on `stream` with the launch plan of kernel.py's
+// `_cluster_plan`; returns the launch's CUDA error (0 on success). r_lo = 0
+// means no low side (its pointers are not read). Shapes are validated by
+// the Python wrapper; the checks here guard the kernel's own limits.
 int fused_lora_launch(const void* x, int x_is_bf16,
                       const void* ah_codes, const float* ah_scale,
                       const int32_t* ah_zero,
@@ -108,35 +81,33 @@ int fused_lora_launch(const void* x, int x_is_bf16,
                       int group_ah, int ng_ah, int wpg_ah,
                       int group_bh, int ng_bh, int wpg_bh,
                       int group_al, int ng_al, int wpg_al,
-                      int group_bl, int ng_bl, int wpg_bl, void* stream) {
-  const int slots = r_hi + r_lo;
-  if (r_hi < 1 || r_lo < 0 || slots > loraquant::kMaxSlots || T < 0 ||
+                      int group_bl, int ng_bl, int wpg_bl,
+                      const int* plan, void* stream) {
+  const int tile_rows = plan[1];
+  if (r_hi < 1 || r_lo < 0 || r_hi + r_lo > loraquant::kMaxSlots || T < 0 ||
       K < 1 || M < 1)
     return cudaErrorInvalidValue;
   if (T == 0) return cudaSuccess;
-  Params p;
+  cl::Params p;
   p.x = x;
-  p.ah = QSide{ah_codes, ah_scale, ah_zero, bits_hi, binary_hi, group_ah,
-               ng_ah, wpg_ah};
-  p.bh = QSide{bh_codes, bh_scale, bh_zero, bits_hi, binary_hi, group_bh,
-               ng_bh, wpg_bh};
-  p.al = QSide{al_codes, al_scale, al_zero, bits_lo, binary_lo, group_al,
-               ng_al, wpg_al};
-  p.bl = QSide{bl_codes, bl_scale, bl_zero, bits_lo, binary_lo, group_bl,
-               ng_bl, wpg_bl};
+  p.side[0] = QSide{ah_codes, ah_scale, ah_zero, bits_hi, binary_hi,
+                    group_ah, ng_ah, wpg_ah};
+  p.side[1] = QSide{bh_codes, bh_scale, bh_zero, bits_hi, binary_hi,
+                    group_bh, ng_bh, wpg_bh};
+  p.side[2] = QSide{al_codes, al_scale, al_zero, bits_lo, binary_lo,
+                    group_al, ng_al, wpg_al};
+  p.side[3] = QSide{bl_codes, bl_scale, bl_zero, bits_lo, binary_lo,
+                    group_bl, ng_bl, wpg_bl};
+  p.seg_map = nullptr;
   p.out = out;
-  p.T = T; p.K = K; p.M = M; p.r_hi = r_hi; p.r_lo = r_lo;
-
-  const int threads = loraquant::threads_for(slots);
-  const size_t smem = loraquant::rhs_smem_bytes(slots);
-  const dim3 grid((T + kTileRows - 1) / kTileRows,
-                  (M + threads - 1) / threads);
+  p.T = T; p.K = K; p.M = M; p.NA = 1;
+  p.r_hi = r_hi; p.r_lo = r_lo; p.kt = tile_rows;
+  p.plan = cl::make_plan(plan);
+  if (!cl::plan_ok(p, tile_rows)) return cudaErrorInvalidValue;
+  const int tiles = (T + tile_rows - 1) / tile_rows;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_is_bf16)
-    fused_lora_kernel<__nv_bfloat16><<<grid, threads, smem, s>>>(p);
-  else
-    fused_lora_kernel<float><<<grid, threads, smem, s>>>(p);
-  return cudaGetLastError();
+  return x_is_bf16 ? launch_rows<__nv_bfloat16>(p, tile_rows, tiles, s)
+                   : launch_rows<float>(p, tile_rows, tiles, s);
 }
 
 }  // extern "C"

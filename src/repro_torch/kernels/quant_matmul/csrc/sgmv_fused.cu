@@ -3,8 +3,7 @@
 //
 // Replaces the Pallas TPU kernel `sgmv_fused`
 // (src/repro/kernels/quant_matmul/kernel.py:481, pallas_call at :568),
-// including its in-kernel unpack `_unpack_dequant_grouped` (kernel.py:110),
-// whose device code it shares with the other kernels through unpack.cuh.
+// including its in-kernel unpack `_unpack_dequant_grouped` (kernel.py:110).
 //
 // What it computes, per token tile of `kt` rows that all use adapter
 // a = seg_map[tile] (clamped to [0, NA)):
@@ -13,111 +12,75 @@
 // (RTN of 2/3/4/8 bits, `scale·(q − zero)`, or binary 1-bit,
 // `scale·(2q − 1)`, zero never read) and its own quant groups, read at run
 // time (unpack.cuh's QSide); A_hi and B_hi may differ in width; the low
-// side is optional and has its own padded rank R_lo. Rows padded with zero
-// scales (adapters with a smaller split h) give exactly 0. Columns of B past
-// `M` (the last group's padding) are never computed.
+// side is optional (r_lo = 0 never touches its pointers) and has its own
+// padded rank R_lo. Rows padded with zero scales (adapters with a smaller
+// split h) give exactly 0. The output has exactly `M` columns.
 //
 // Layout (the JAX package's kernel layout, unchanged): each side a stack
 // (NA, R, NG·Wg) of codes — Wg words per quant group, `per` little-endian
 // codes per word (8/bits per uint8 word; 10 per int32 word for 3-bit, 2
 // bits unused) —, scale (NA, R, NG) fp32 and zero (NA, R, NG) int32.
 //
-// What bounds it on an H100: bytes. Per call the work is tiny
-// (2·T·(R_hi + R_lo)·(K + M) flops) next to the bytes it must move: x
-// (T·K), the packed codes, scales and zeros of the adapters the tiles touch,
-// and the T×M fp32 output. The design keeps those bytes packed: codes are
-// dequantized in shared memory / registers and the (kt × R) h_hi and h_lo
-// never leave shared memory, so device memory sees only packed bytes, x and
-// y.
+// What bounds it on an H100: latency, not bytes or operations. A decode
+// call (16 one-row tiles) moves a few hundred KB and needs a few MFLOP
+// (bound < 1 µs); what a design must shorten is the chain of dependent
+// memory steps each tile takes.
 //
-// Design (simple and correct first): grid = (T / kt token tiles) ×
-// ceil(M / blockDim) output chunks. Phase 1 (tile_rhs in unpack.cuh): the
-// block offsets every side to its tile's adapter and computes h_hi / h_lo
-// over all of K into shared memory; the loop over K takes the place of the
-// TPU's sequential K grid axis. Phase 2: each thread owns one output column,
-// dequantizes its B_hi / B_lo column for all rank rows and writes kt
-// outputs. A block whose low side is absent (r_lo = 0) reads no pointer of
-// it and stages no row of it.
-// Known cost, the first thing a later PR removes: every output chunk of a
-// tile recomputes h, so x and A are read ceil(M / blockDim) times per tile
-// (from L2 after the first). Splitting h into its own pass or sharing it
-// across a cluster's blocks removes that.
+// Design (cluster_lora.cuh): one thread-block cluster of C blocks per
+// token tile, TR = tile_t rounded up to 1/2/4/8 rows (a template
+// parameter, so a decode tile does no work for dead rows). Each block
+// stages its K and M slices of x and the tile's adapter with cp.async up
+// front, reduces its K slice into a partial h, and after cluster.sync()
+// sums the C partials from distributed shared memory in rank order, then
+// writes its M slice of y. h is computed once per tile and never reaches
+// device memory; no float atomics, so the result is the same bits on every
+// launch. fp32 FMA on the CUDA cores, not wgmma: the largest serve call is
+// ~0.37 GFLOP (5.5 µs at the fp32 peak), and bf16/TF32 tensor-core
+// operands would break the fp32 parity the serve checks hold.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "unpack.cuh"
+#include "cluster_lora.cuh"
 
 namespace {
 
+namespace cl = loraquant::cluster;
 using loraquant::QSide;
-using loraquant::kTileRows;
 
-struct Params {
-  const void* x;
-  QSide ah, bh, al, bl;  // adapter 0 of each stack
-  const int32_t* seg_map;
-  float* out;
-  int T, K, M, NA, r_hi, r_lo, kt;
-};
+template <int TR, typename XT>
+__global__ void __launch_bounds__(cl::kThreads, 1)
+    sgmv_fused_kernel(const cl::Params p) {
+  const int tile = blockIdx.x / p.plan.cluster;
+  const int seg = min(max(p.seg_map[tile], 0), p.NA - 1);
+  QSide sd[4];
+  for (int s = 0; s < 4; ++s) {
+    const int rows = cl::side_rows(p, s);
+    sd[s] = rows > 0 ? loraquant::adapter_side(p.side[s], rows, seg)
+                     : p.side[s];
+  }
+  cl::lora_tile<TR, XT>(p, sd, tile * p.kt, p.kt);
+}
 
 template <typename XT>
-__global__ void __launch_bounds__(loraquant::kMaxThreads)
-    sgmv_fused_kernel(const Params p) {
-  extern __shared__ float smem[];
-  const int slots = p.r_hi + p.r_lo;  // A_hi rows, then A_lo rows
-  float* xs = smem;
-  float* ws = xs + kTileRows * loraquant::kChunk;
-  float* hs = ws + slots * loraquant::kChunk;  // [slots][kTileRows]
-
-  const int tile = blockIdx.x;
-  const int row0 = tile * p.kt;  // the tile's rows: [row0, row0 + kt)
-  const int seg = min(max(p.seg_map[tile], 0), p.NA - 1);
-  const QSide ah = loraquant::adapter_side(p.ah, p.r_hi, seg);
-  const QSide bh = loraquant::adapter_side(p.bh, p.r_hi, seg);
-  QSide al = p.al, bl = p.bl;
-  if (p.r_lo > 0) {
-    al = loraquant::adapter_side(p.al, p.r_lo, seg);
-    bl = loraquant::adapter_side(p.bl, p.r_lo, seg);
+int launch_rows(const cl::Params& p, int tr, int tiles, cudaStream_t s) {
+  switch (tr) {
+    case 1: return cl::launch<sgmv_fused_kernel<1, XT>>(p, 1, sizeof(XT), tiles, s);
+    case 2: return cl::launch<sgmv_fused_kernel<2, XT>>(p, 2, sizeof(XT), tiles, s);
+    case 4: return cl::launch<sgmv_fused_kernel<4, XT>>(p, 4, sizeof(XT), tiles, s);
+    default: return cl::launch<sgmv_fused_kernel<8, XT>>(p, 8, sizeof(XT), tiles, s);
   }
-
-  // ---- phase 1: h_hi / h_lo = x_tile · A[seg]ᵀ over K --------------------
-  loraquant::tile_rhs(static_cast<const XT*>(p.x), row0 + p.kt, p.K, row0,
-                      ah, p.r_hi, al, slots, xs, ws, hs);
-
-  // ---- phase 2: y[:, c] = h_hi · B_hi[:, c] + h_lo · B_lo[:, c] ----------
-  const int c = blockIdx.y * blockDim.x + threadIdx.x;
-  if (c >= p.M) return;
-  float yh[kTileRows], yl[kTileRows];
-#pragma unroll
-  for (int t = 0; t < kTileRows; ++t) yh[t] = yl[t] = 0.f;
-  for (int r = 0; r < p.r_hi; ++r) {
-    const float w = loraquant::dequant_at(bh, r, c);
-#pragma unroll
-    for (int t = 0; t < kTileRows; ++t)
-      yh[t] = fmaf(hs[r * kTileRows + t], w, yh[t]);
-  }
-  for (int r = 0; r < p.r_lo; ++r) {
-    const float w = loraquant::dequant_at(bl, r, c);
-#pragma unroll
-    for (int t = 0; t < kTileRows; ++t)
-      yl[t] = fmaf(hs[(p.r_hi + r) * kTileRows + t], w, yl[t]);
-  }
-#pragma unroll
-  for (int t = 0; t < kTileRows; ++t)
-    if (t < p.kt)
-      p.out[static_cast<size_t>(row0 + t) * p.M + c] = yh[t] + yl[t];
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches sgmv_fused on `stream`; returns cudaGetLastError() after the
-// launch (0 on success). r_lo = 0 means no low side (its pointers are not
-// read). Shapes are validated by the Python wrapper; the checks here guard
-// the kernel's own limits.
+// Launches sgmv_fused on `stream` with the launch plan of kernel.py's
+// `_cluster_plan`; returns the launch's CUDA error (0 on success). r_lo = 0
+// means no low side (its pointers are not read). Shapes are validated by
+// the Python wrapper; the checks here guard the kernel's own limits.
 int sgmv_fused_launch(const void* x, int x_is_bf16,
                       const void* ah_codes, const float* ah_scale,
                       const int32_t* ah_zero,
@@ -134,36 +97,32 @@ int sgmv_fused_launch(const void* x, int x_is_bf16,
                       int group_ah, int ng_ah, int wpg_ah,
                       int group_bh, int ng_bh, int wpg_bh,
                       int group_al, int ng_al, int wpg_al,
-                      int group_bl, int ng_bl, int wpg_bl, void* stream) {
-  const int slots = r_hi + r_lo;
-  if (kt < 1 || kt > kTileRows || T < 0 || T % kt != 0 || K < 1 || M < 1 ||
-      NA < 1 || r_hi < 1 || r_lo < 0 || slots > loraquant::kMaxSlots)
+                      int group_bl, int ng_bl, int wpg_bl,
+                      const int* plan, void* stream) {
+  const int tile_rows = plan[1];
+  if (kt < 1 || kt > tile_rows || T < 0 || T % kt != 0 || K < 1 || M < 1 ||
+      NA < 1 || r_hi < 1 || r_lo < 0 || r_hi + r_lo > loraquant::kMaxSlots)
     return cudaErrorInvalidValue;
   if (T == 0) return cudaSuccess;
-  Params p;
+  cl::Params p;
   p.x = x;
-  p.ah = QSide{ah_codes, ah_scale, ah_zero, bits_a, binary_a, group_ah,
-               ng_ah, wpg_ah};
-  p.bh = QSide{bh_codes, bh_scale, bh_zero, bits_b, binary_b, group_bh,
-               ng_bh, wpg_bh};
-  p.al = QSide{al_codes, al_scale, al_zero, bits_lo, binary_lo, group_al,
-               ng_al, wpg_al};
-  p.bl = QSide{bl_codes, bl_scale, bl_zero, bits_lo, binary_lo, group_bl,
-               ng_bl, wpg_bl};
+  p.side[0] = QSide{ah_codes, ah_scale, ah_zero, bits_a, binary_a, group_ah,
+                    ng_ah, wpg_ah};
+  p.side[1] = QSide{bh_codes, bh_scale, bh_zero, bits_b, binary_b, group_bh,
+                    ng_bh, wpg_bh};
+  p.side[2] = QSide{al_codes, al_scale, al_zero, bits_lo, binary_lo,
+                    group_al, ng_al, wpg_al};
+  p.side[3] = QSide{bl_codes, bl_scale, bl_zero, bits_lo, binary_lo,
+                    group_bl, ng_bl, wpg_bl};
   p.seg_map = seg_map;
   p.out = out;
   p.T = T; p.K = K; p.M = M; p.NA = NA;
   p.r_hi = r_hi; p.r_lo = r_lo; p.kt = kt;
-
-  const int threads = loraquant::threads_for(slots);
-  const size_t smem = loraquant::rhs_smem_bytes(slots);
-  const dim3 grid(T / kt, (M + threads - 1) / threads);
+  p.plan = cl::make_plan(plan);
+  if (!cl::plan_ok(p, tile_rows)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_is_bf16)
-    sgmv_fused_kernel<__nv_bfloat16><<<grid, threads, smem, s>>>(p);
-  else
-    sgmv_fused_kernel<float><<<grid, threads, smem, s>>>(p);
-  return cudaGetLastError();
+  return x_is_bf16 ? launch_rows<__nv_bfloat16>(p, tile_rows, T / kt, s)
+                   : launch_rows<float>(p, tile_rows, T / kt, s);
 }
 
 // The message of a CUDA error code returned by any launch of this library.

@@ -11,6 +11,11 @@ of the Pallas kernels in ``repro/kernels/quant_matmul/kernel.py``):
 * ``sgmv_fused`` — both products per token tile with the tile's adapter,
   optionally both sub-LoRAs (``csrc/sgmv_fused.cu``).
 
+``fused_lora`` and ``sgmv_fused`` launch one thread-block cluster per token
+tile (``csrc/cluster_lora.cuh``); :func:`_cluster_plan` cuts each call into
+clusters, K and M slices and copy widths, and the C launcher takes the
+plan as it is.
+
 The kernels are CUDA C++, built by ``build.py`` at first use. On a CUDA
 tensor a wrapper launches its kernel on the current stream (or raises); on a
 CPU tensor it returns the plain PyTorch version from ``ref.py``. Both take
@@ -25,10 +30,15 @@ model reaches the wrapper.
 from __future__ import annotations
 
 import collections
-from typing import Optional
+import ctypes
+import dataclasses
+import functools
+import math
+from typing import Optional, Sequence
 
 import torch
 
+from .build import load_library
 from .ref import (fused_lora_ref, matmul_out_ref, matmul_rhs_ref,
                   sgmv_fused_ref, sgmv_out_ref, sgmv_rhs_ref)
 
@@ -39,6 +49,12 @@ MAX_TILE_ROWS = 8          # token rows one CUDA block holds (kTileRows)
 MAX_SLOTS = 64             # rank rows one block holds, hi + lo
                            # (loraquant::kMaxSlots)
 BITS = (1, 2, 3, 4, 8)
+
+# The cluster launch of fused_lora and sgmv_fused (csrc/cluster_lora.cuh)
+MAX_CLUSTER = 8            # blocks per token tile (the portable cluster size)
+CHUNK_COLS = 1024          # columns of a K or M slice staged at once
+TILE_ROWS = (1, 2, 4, 8)   # compiled token-row counts of a tile
+TARGET_BLOCKS = 128        # fused_lora picks its tile rows to fill ~132 SMs
 
 
 def reset_launch_counts() -> None:
@@ -125,6 +141,106 @@ def _device_of(name, tensors) -> torch.device:
     return dev
 
 
+@dataclasses.dataclass(frozen=True)
+class ClusterPlan:
+    """How ``fused_lora`` / ``sgmv_fused`` cut one launch: ``tiles`` token
+    tiles of ``tile_rows`` compiled rows, one cluster of ``cluster`` blocks
+    each. Block b of a cluster owns the K units ``[b·k_units, (b+1)·k_units)``
+    of ``k_unit`` columns (a multiple of every A side's group) and the M
+    units likewise, staged ``k_chunk`` / ``m_chunk`` units at a time.
+    ``vec_*`` are the bytes per asynchronous copy (16, 4 or 1) of x and of
+    each side's codes ``(A_hi, B_hi, A_lo, B_lo)``; ``vec_y`` is 4 where y is
+    written with float4 stores."""
+
+    cluster: int
+    tile_rows: int
+    tiles: int
+    k_unit: int
+    k_units: int
+    k_chunk: int
+    m_unit: int
+    m_units: int
+    m_chunk: int
+    vec_x: int
+    vec_y: int
+    vec_codes: tuple
+
+    def args(self) -> tuple:
+        """The plan in the order of the C launchers' ``plan`` array."""
+        return (self.cluster, self.tile_rows, self.k_unit, self.k_units,
+                self.k_chunk, self.m_unit, self.m_units, self.m_chunk,
+                self.vec_x, self.vec_y, *self.vec_codes)
+
+    @functools.cached_property
+    def c_args(self) -> ctypes.Array:
+        """:meth:`args` as the int32 array the C launchers take, built once
+        per plan (one ctypes argument per call instead of 14)."""
+        args = self.args()
+        return (ctypes.c_int * len(args))(*args)
+
+
+def _copy_bytes(ptr: int, steps: Sequence[int]) -> int:
+    """Widest asynchronous copy (16 or 4 bytes, else 1) whose every piece
+    starts aligned: ``ptr`` (an address, or the address mod 16) and every
+    stride in ``steps`` divide by it."""
+    for vec in (16, 4):
+        if ptr % vec == 0 and all(s % vec == 0 for s in steps):
+            return vec
+    return 1
+
+
+@functools.lru_cache(maxsize=1024)
+def _cluster_plan(t: int, k: int, m: int, kt: Optional[int], x_ptr: int,
+                  x_bytes: int, out_ptr: int, sides: tuple) -> ClusterPlan:
+    """The launch plan of one ``fused_lora`` (``kt=None``: the plan picks
+    the tile rows) or ``sgmv_fused`` call (tiles of ``kt`` rows). ``sides``
+    are ``(group, words_per_group, word_bytes, codes_ptr)`` of A_hi, B_hi,
+    A_lo, B_lo, or None for an absent low side. Pointers matter only mod
+    16, which is what the wrappers pass, so a serve loop's calls hit the
+    cache.
+
+    K is cut in units of the A sides' common group multiple, M in units of
+    the B sides', so that no quant group spans two blocks; the cluster is
+    the smallest power of two that gives every unit its own block, at most
+    ``MAX_CLUSTER``. A side's codes are copied 16 bytes at a time only where
+    every group start is 16-byte aligned (a group's bytes and the base
+    pointer divide by 16: so never for 3-bit groups of 13 words), else 4
+    bytes at a time where that holds, else byte by byte."""
+    ah, bh, al, bl = sides
+    k_unit = ah[0] if al is None else math.lcm(ah[0], al[0])
+    m_unit = bh[0] if bl is None else math.lcm(bh[0], bl[0])
+    nu_k, nu_m = -(-k // k_unit), -(-m // m_unit)
+    cluster = 1
+    while cluster < MAX_CLUSTER and cluster < max(nu_k, nu_m):
+        cluster *= 2
+    k_units, m_units = -(-nu_k // cluster), -(-nu_m // cluster)
+    if kt is None:
+        want = min(-(-t * cluster // TARGET_BLOCKS), TILE_ROWS[-1])
+        tile_rows = next(r for r in TILE_ROWS if r >= want)
+        tiles = -(-t // tile_rows)
+    else:
+        tile_rows = next(r for r in TILE_ROWS if r >= kt)
+        tiles = t // kt
+    vec_codes = tuple(0 if s is None else _copy_bytes(s[3], [s[1] * s[2]])
+                      for s in sides)
+    return ClusterPlan(
+        cluster=cluster, tile_rows=tile_rows, tiles=tiles,
+        k_unit=k_unit, k_units=k_units,
+        k_chunk=min(k_units, max(1, CHUNK_COLS // k_unit)),
+        m_unit=m_unit, m_units=m_units,
+        m_chunk=min(m_units, max(1, CHUNK_COLS // m_unit)),
+        vec_x=_copy_bytes(x_ptr, [k * x_bytes, k_unit * x_bytes]),
+        vec_y=4 if out_ptr % 16 == 0 and m % 4 == 0 and m_unit % 4 == 0
+        else 1,
+        vec_codes=vec_codes)
+
+
+def _side_geom(group: int, wpg: int, bits: int, codes_ptr: int):
+    """``(group, words_per_group, word_bytes, codes address mod 16)`` of one
+    side for :func:`_cluster_plan`."""
+    return (group, wpg, 4 if bits == 3 else 1, codes_ptr % 16)
+
+
 def _launch(name: str, dev: torch.device, fn, *args) -> None:
     """Call the C launcher ``fn(*args, stream)`` on the current stream of
     ``dev``; raise on a refused launch, else count it."""
@@ -132,8 +248,6 @@ def _launch(name: str, dev: torch.device, fn, *args) -> None:
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(*args, stream)
     if rc != 0:
-        from .build import load_library
-
         msg = load_library().quant_matmul_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
     LAUNCH_COUNTS[name] += 1
@@ -159,8 +273,6 @@ def matmul_rhs(x, codes, scale, zero, *, bits: int, binary: bool,
         raise NotImplementedError(f"matmul_rhs holds at most {MAX_SLOTS} "
                                   f"rank rows, got {r}")
     out = torch.empty((t, r), dtype=torch.float32, device=dev)
-    from .build import load_library
-
     _launch("matmul_rhs", dev, load_library().matmul_rhs_launch,
             x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(),
             scale.data_ptr(), zero.data_ptr(), out.data_ptr(),
@@ -189,8 +301,6 @@ def matmul_out(h, codes, scale, zero, *, bits: int, binary: bool,
         raise NotImplementedError(f"matmul_out holds at most {MAX_SLOTS} "
                                   f"rank rows, got {r}")
     out = torch.empty((t, mp), dtype=torch.float32, device=dev)
-    from .build import load_library
-
     _launch("matmul_out", dev, load_library().matmul_out_launch,
             h.data_ptr(), codes.data_ptr(), scale.data_ptr(),
             zero.data_ptr(), out.data_ptr(), t, r, mp, bits, int(binary),
@@ -242,16 +352,20 @@ def fused_lora(x, a_hi, b_hi, a_lo=None, b_lo=None, *, m: int,
         raise NotImplementedError(f"fused_lora holds at most {MAX_SLOTS} "
                                   f"rank rows, got {r_hi} + {r_lo}")
     out = torch.empty((t, m), dtype=torch.float32, device=dev)
-    lo = ([p.data_ptr() for p in (*a_lo, *b_lo)] if a_lo is not None
-          else [None] * 6)
-    from .build import load_library
-
+    ptrs = [p.data_ptr() for p in (*a_hi, *b_hi)] + (
+        [p.data_ptr() for p in (*a_lo, *b_lo)] if r_lo else [None] * 6)
+    x_ptr, out_ptr = x.data_ptr(), out.data_ptr()
+    plan = _cluster_plan(
+        t, k, m, None, x_ptr % 16, x.element_size(), out_ptr % 16,
+        (_side_geom(group_ah, wpg_ah, bits_hi, ptrs[0]),
+         _side_geom(group_bh, wpg_bh, bits_hi, ptrs[3]),
+         _side_geom(group_al, wpg_al, bits_lo, ptrs[6]) if r_lo else None,
+         _side_geom(group_bl, wpg_bl, bits_lo, ptrs[9]) if r_lo else None))
     _launch("fused_lora", dev, load_library().fused_lora_launch,
-            x.data_ptr(), int(x.dtype == torch.bfloat16),
-            *[p.data_ptr() for p in (*a_hi, *b_hi)], *lo, out.data_ptr(),
+            x_ptr, int(x.dtype == torch.bfloat16), *ptrs, out_ptr,
             t, k, m, r_hi, r_lo, bits_hi, int(binary_hi), bits_lo,
             int(binary_lo), group_ah, ng_ah, wpg_ah, group_bh, ng_bh, wpg_bh,
-            group_al, ng_al, wpg_al, group_bl, ng_bl, wpg_bl)
+            group_al, ng_al, wpg_al, group_bl, ng_bl, wpg_bl, plan.c_args)
     return out
 
 
@@ -297,8 +411,6 @@ def sgmv_rhs(x, codes, scale, zero, seg_map, *, bits: int, binary: bool,
         raise NotImplementedError(f"sgmv_rhs holds at most {MAX_SLOTS} rank "
                                   f"rows per block, got {r}")
     out = torch.empty((t, r), dtype=torch.float32, device=dev)
-    from .build import load_library
-
     _launch("sgmv_rhs", dev, load_library().sgmv_rhs_launch,
             x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(),
             scale.data_ptr(), _ptr(zero), seg_map.data_ptr(), out.data_ptr(),
@@ -333,8 +445,6 @@ def sgmv_out(h, codes, scale, zero, seg_map, *, bits: int, binary: bool,
         raise NotImplementedError(f"sgmv_out holds at most {MAX_SLOTS} rank "
                                   f"rows per block, got {r}")
     out = torch.empty((t, m), dtype=torch.float32, device=dev)
-    from .build import load_library
-
     _launch("sgmv_out", dev, load_library().sgmv_out_launch,
             h.data_ptr(), codes.data_ptr(), scale.data_ptr(), _ptr(zero),
             seg_map.data_ptr(), out.data_ptr(), t, r, m, na, tile_t, bits,
@@ -397,18 +507,21 @@ def sgmv_fused(x, a_codes, a_scale, a_zero, b_codes, b_scale, b_zero,
             group_al=group_al, group_bl=group_bl, m=m, tile_t=tile_t)
     if r_hi + r_lo > MAX_SLOTS:
         raise NotImplementedError(
-            f"sgmv_fused stages at most {MAX_SLOTS} rank rows (high + low) "
-            f"per block, 4 per warp of at most 16, in 39 KB of shared "
-            f"memory; got {r_hi} + {r_lo}")
+            f"sgmv_fused holds at most {MAX_SLOTS} rank rows (high + low) "
+            f"per token tile; got {r_hi} + {r_lo}")
     dims += [0] * (12 - len(dims))        # no low side: groups never read
     ptrs = [_ptr(v) for _, side, *_ in sides for v in side]
     ptrs += [None] * (12 - len(ptrs))
     out = torch.empty((t, m), dtype=torch.float32, device=dev)
-    from .build import load_library
-
+    x_ptr, out_ptr = x.data_ptr(), out.data_ptr()
+    geoms = tuple(_side_geom(dims[3 * i], dims[3 * i + 2], side[2],
+                             ptrs[3 * i])
+                  for i, side in enumerate(sides))
+    plan = _cluster_plan(t, k, m, tile_t, x_ptr % 16, x.element_size(),
+                         out_ptr % 16, geoms + (None,) * (4 - len(geoms)))
     _launch("sgmv_fused", dev, load_library().sgmv_fused_launch,
-            x.data_ptr(), int(x.dtype == torch.bfloat16), *ptrs,
-            seg_map.data_ptr(), out.data_ptr(), t, k, m, na, r_hi, r_lo,
+            x_ptr, int(x.dtype == torch.bfloat16), *ptrs,
+            seg_map.data_ptr(), out_ptr, t, k, m, na, r_hi, r_lo,
             tile_t, bits_a, int(binary_a), bits_b, int(binary_b), bits_lo,
-            int(binary_lo), *dims)
+            int(binary_lo), *dims, plan.c_args)
     return out

@@ -20,6 +20,7 @@ of ``repro/kernels/quant_matmul/ops.py``).
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Optional, Sequence
 
 import torch
@@ -56,20 +57,68 @@ def _pick_tile(n: int, group: int, cap: int = TILE_CAP) -> int:
 
 
 def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
-    if rows == t.shape[0]:
+    """Zero rows appended along dim -2 up to ``rows``."""
+    if rows == t.shape[-2]:
         return t
-    return torch.cat([t, t.new_zeros((rows - t.shape[0],) + t.shape[1:])])
+    pad = t.new_zeros(t.shape[:-2] + (rows - t.shape[-2], t.shape[-1]))
+    return torch.cat([t, pad], dim=-2)
 
 
 def _kernel_layout(q: QuantizedTensor, pad_r: Optional[int] = None):
-    """QuantizedTensor → ``(codes (Rp, NG·Wg), scale (Rp, NG),
-    zero (Rp, NG), R)``. Column-grouped B factors are the same buffers
-    viewed as Bᵀ. Rows are zero-padded to ``pad_r`` (default: the next
-    multiple of 8); zero-scale rows dequantize to 0."""
-    r = q.scale.shape[0]
+    """QuantizedTensor → ``(codes (…, Rp, NG·Wg), scale (…, Rp, NG),
+    zero (…, Rp, NG), R)``, any leading (layer) axes kept. Column-grouped B
+    factors are the same buffers viewed as Bᵀ. Rows are zero-padded to
+    ``pad_r`` (default: the next multiple of 8); zero-scale rows dequantize
+    to 0."""
+    lead = tuple(q.scale.shape[:-1])
+    r = lead[-1]
     rp = pad_r or (-(-r // SUBLANE) * SUBLANE)
-    codes = _pad_rows(q.codes.reshape(r, -1), rp)
+    codes = _pad_rows(q.codes.reshape(*lead, -1), rp)
     return codes, _pad_rows(q.scale, rp), _pad_rows(q.zero, rp), r
+
+
+def _sides_of(qlora: QuantizedLoRA) -> tuple:
+    return (qlora.a_high, qlora.b_high, qlora.a_low, qlora.b_low)
+
+
+# The kernel layouts of QuantizedLoRA leaves, keyed by ``id(leaf)`` and
+# dropped with the leaf: ``(sides, layers)``, the ``(codes, scale, zero)``
+# of A_hi, B_hi, A_lo, B_lo (None for an absent low side) and, for a
+# layer-stacked leaf, its per-layer entries by index. A leaf served step
+# after step is padded once (the reference pads inside every jitted call).
+_LAYOUTS: dict = {}
+
+
+def _layout_entry(qlora: QuantizedLoRA, sides: Optional[tuple] = None):
+    key = id(qlora)
+    entry = _LAYOUTS.get(key)
+    if entry is None:
+        if sides is None:
+            sides = tuple(None if q is None else _kernel_layout(q)[:3]
+                          for q in _sides_of(qlora))
+        entry = _LAYOUTS[key] = (sides, {})
+        weakref.finalize(qlora, _LAYOUTS.pop, key, None)
+    return entry
+
+
+def _qlora_layout(qlora: QuantizedLoRA) -> tuple:
+    """The kernel layouts ``(codes, scale, zero)`` of ``(A_hi, B_hi, A_lo,
+    B_lo)``, built once per leaf; a layer-stacked leaf's are ``(L, …)``."""
+    return _layout_entry(qlora)[0]
+
+
+def qlora_layer(qlora: QuantizedLoRA, i: int) -> QuantizedLoRA:
+    """Entry ``i`` of a layer-stacked :class:`QuantizedLoRA`, the same
+    object on every call, whose kernel layouts are layer ``i`` of the
+    stacked leaf's (views, no copy)."""
+    sides, layers = _layout_entry(qlora)
+    if i not in layers:
+        layer = qlora.index(i)
+        _layout_entry(layer, tuple(
+            None if side is None else tuple(t[i] for t in side)
+            for side in sides))
+        layers[i] = layer
+    return layers[i]
 
 
 def _fused_vmem_estimate(qlora: QuantizedLoRA, tile_t: int,
@@ -113,10 +162,9 @@ def quant_matmul_rhs(x: torch.Tensor, codes: torch.Tensor,
     return matmul_rhs(x, codes, scale, zero, bits=bits, binary=binary)
 
 
-def _side(x: torch.Tensor, q: QuantizedTensor) -> torch.Tensor:
-    codes, scale, zero, _ = _kernel_layout(q)
-    return matmul_rhs(x, codes, scale, zero, bits=q.bits,
-                      binary=q.mode == "binary", group=q.group_size)
+def _side(x: torch.Tensor, q: QuantizedTensor, layout) -> torch.Tensor:
+    return matmul_rhs(x, *layout, bits=q.bits, binary=q.mode == "binary",
+                      group=q.group_size)
 
 
 def _quant_m(q: QuantizedTensor) -> int:
@@ -125,8 +173,8 @@ def _quant_m(q: QuantizedTensor) -> int:
     return q.orig_shape[0] if q.axis == 0 else q.orig_shape[1]
 
 
-def _out_side(h: torch.Tensor, q: QuantizedTensor) -> torch.Tensor:
-    codes, scale, zero, _ = _kernel_layout(q)
+def _out_side(h: torch.Tensor, q: QuantizedTensor, layout) -> torch.Tensor:
+    codes, scale, zero = layout
     if h.shape[1] != codes.shape[0]:
         h = torch.nn.functional.pad(h, (0, codes.shape[0] - h.shape[1]))
     y = matmul_out(h, codes, scale, zero, bits=q.bits,
@@ -140,14 +188,11 @@ def _fused_apply(x: torch.Tensor, qlora: QuantizedLoRA) -> torch.Tensor:
     kwargs = dict(m=bh.orig_shape[0],        # B is (M, R) column-grouped
                   bits_hi=ah.bits, binary_hi=ah.mode == "binary",
                   group_ah=ah.group_size, group_bh=bh.group_size)
-    a_lo = b_lo = None
     if qlora.a_low is not None:
         al, bl = qlora.a_low, qlora.b_low
-        a_lo, b_lo = _kernel_layout(al)[:3], _kernel_layout(bl)[:3]
         kwargs.update(bits_lo=al.bits, binary_lo=al.mode == "binary",
                       group_al=al.group_size, group_bl=bl.group_size)
-    return fused_lora(x, _kernel_layout(ah)[:3], _kernel_layout(bh)[:3],
-                      a_lo, b_lo, **kwargs)
+    return fused_lora(x, *_qlora_layout(qlora), **kwargs)
 
 
 def lora_apply_quantized(x: torch.Tensor, qlora: QuantizedLoRA, *,
@@ -175,9 +220,11 @@ def lora_apply_quantized(x: torch.Tensor, qlora: QuantizedLoRA, *,
     if fused:
         y = _fused_apply(xp, qlora)
     else:
-        y = _out_side(_side(xp, qlora.a_high), qlora.b_high)
+        lay = _qlora_layout(qlora)
+        y = _out_side(_side(xp, qlora.a_high, lay[0]), qlora.b_high, lay[1])
         if qlora.a_low is not None:
-            y = y + _out_side(_side(xp, qlora.a_low), qlora.b_low)
+            y = y + _out_side(_side(xp, qlora.a_low, lay[2]), qlora.b_low,
+                              lay[3])
     return (scaling * y[:t]).to(x.dtype)
 
 

@@ -33,6 +33,7 @@ from repro_torch import resolve_device
 from repro_torch.core.loraquant import QuantizedLoRA
 from repro_torch.kernels.quant_matmul import (PackedLoRABatch,
                                                PackedLoRABuckets)
+from repro_torch.kernels.quant_matmul.ops import qlora_layer
 
 from . import attention as attn_mod
 from . import ffn as ffn_mod
@@ -49,12 +50,12 @@ def _layer_slice(tree, i: int):
     """Layer ``i`` of a stacked tree: every tensor ``t[i]``, every packed
     leaf (buckets and their lookups included) its per-layer view (its
     ``seg`` stays per row), every ``QuantizedLoRA`` entry ``i`` of each
-    array, its metadata kept (what ``lax.scan`` hands the JAX model's layer
-    body)."""
+    array, its metadata and kernel layouts kept (what ``lax.scan``
+    hands the JAX model's layer body)."""
     if isinstance(tree, (PackedLoRABatch, PackedLoRABuckets)):
         return tree.layer(i)
     if isinstance(tree, QuantizedLoRA):
-        return tree.index(i)
+        return qlora_layer(tree, i)
     if isinstance(tree, dict):
         return {k: _layer_slice(v, i) for k, v in tree.items()}
     if isinstance(tree, torch.Tensor):

@@ -369,3 +369,145 @@ def test_sgmv_apply_buckets_cuda(cuda):
         want = _call(sgmv_fused_ref, x[row:row + 1],
                      dataclasses.replace(pb, tile_t=1), local)
         _close(y[row:row + 1], 2.0 * want)
+
+
+# --------------------------------------------------------------------------
+# the cluster kernels (sgmv_fused, fused_lora) at the edges of their launch
+# plan: K and M off the slice grid, K under one cluster's slices, widths
+# 1/2/3/4/8 on every side, small groups (4-byte and byte copies), clamped
+# adapter ids, staged chunks, the rank-row limit, bitwise determinism
+# --------------------------------------------------------------------------
+
+def _fmt_side(gen, rows, cols, bits, binary, group, axis, device):
+    w = torch.randn(rows, cols, generator=gen, device=device)
+    return (binary_quantize(w, group, axis=axis) if binary
+            else rtn_quantize(w, bits, group, axis=axis))
+
+
+def _fmt_stack(gen, na, rows, cols, bits, binary, group, axis, device):
+    return stack_adapter_side([_fmt_side(gen, rows, cols, bits, binary,
+                                         group, axis, device)
+                               for _ in range(na)])
+
+
+EDGE_CASES = [
+    # (K, M), hi (bits_a, bits_b, binary), lo (bits, binary) or None,
+    # groups (ah, bh, al, bl), (r_hi, r_lo)
+    ((250, 198), (4, 3, False), (1, True), (64, 32, 32, 64), (16, 8)),
+    ((256, 3072), (2, 2, False), (1, True), (128, 128, 128, 128), (16, 16)),
+    ((100, 60), (2, 2, False), (1, True), (100, 60, 100, 60), (8, 8)),
+    ((256, 200), (2, 2, False), (1, True), (32, 32, 32, 32), (16, 16)),
+    ((256, 200), (1, 1, True), (1, True), (8, 8, 16, 16), (16, 8)),
+    ((384, 256), (1, 1, True), None, (128, 128, 0, 0), (16, 0)),
+    ((640, 192), (8, 2, False), (2, False), (128, 64, 64, 128), (24, 16)),
+    ((1000, 500), (3, 3, False), (1, True), (128, 128, 128, 128), (24, 16)),
+    ((16384, 12288), (2, 2, False), (1, True), (128, 128, 128, 128), (16, 16)),
+]
+
+
+def _edge_args(case, tile_t, n_tiles, device, seed, na=4, seg=None,
+               xdtype=torch.float32):
+    (k, m), (ba, bb, bin_hi), lo, (ga, gb, gal, gbl), (r_hi, r_lo) = case
+    gen = torch.Generator(device=device).manual_seed(seed)
+    args = [None] + [*_fmt_stack(gen, na, r_hi, k, ba, bin_hi, ga, 1, device),
+                     *_fmt_stack(gen, na, m, r_hi, bb, bin_hi, gb, 0,
+                                 device)]
+    kw = dict(bits_a=ba, binary_a=bin_hi, group_a=ga, bits_b=bb,
+              binary_b=bin_hi, group_b=gb, m=m, tile_t=tile_t)
+    if lo is not None:
+        kw.update(a_lo=_fmt_stack(gen, na, r_lo, k, *lo, gal, 1, device),
+                  b_lo=_fmt_stack(gen, na, m, r_lo, *lo, gbl, 0, device),
+                  bits_lo=lo[0], binary_lo=lo[1], group_al=gal,
+                  group_bl=gbl)
+    if seg is None:
+        seg = torch.randint(0, na, (n_tiles,), generator=gen, device=device,
+                            dtype=torch.int32)
+    args[0] = torch.randn(seg.shape[0] * tile_t, k, generator=gen,
+                          device=device).to(xdtype)
+    return args + [seg], kw
+
+
+@pytest.mark.parametrize("tile_t", [1, 3, 8])
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_sgmv_fused_cluster_edges_cuda_vs_plain(cuda, tile_t, case):
+    args, kw = _edge_args(case, tile_t, 3, cuda, seed=tile_t)
+    reset_launch_counts()
+    got = sgmv_fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert dict(LAUNCH_COUNTS) == {"sgmv_fused": 1}
+    _close(got, sgmv_fused_ref(*args, **kw))
+
+
+# every RTN width on A and on B; a binary high side is binary on both
+WIDTH_PAIRS = [(a, b) for a in (2, 3, 4, 8) for b in (2, 3, 4, 8)] + [(1, 1)]
+
+
+@pytest.mark.parametrize("bits_a,bits_b", WIDTH_PAIRS)
+def test_sgmv_fused_every_width_pair_cuda_vs_plain(cuda, bits_a, bits_b):
+    """Every width on A and on B, a low side of another width (1/2/3/4/8
+    across the pairs), bf16 x, decode tiles."""
+    lo_bits = {1: 2, 2: 1, 3: 4, 4: 8, 8: 3}[bits_a]
+    case = ((640, 1152), (bits_a, bits_b, bits_a == 1),
+            (lo_bits, lo_bits == 1), (128, 128, 64, 128), (16, 8))
+    args, kw = _edge_args(case, 1, 6, cuda, seed=bits_a * 9 + bits_b,
+                          xdtype=torch.bfloat16)
+    _close(sgmv_fused(*args, **kw), sgmv_fused_ref(*args, **kw))
+
+
+def test_sgmv_fused_clamps_adapter_ids_cuda(cuda):
+    seg = torch.tensor([-3, 0, 7, 2, 99], dtype=torch.int32, device=cuda)
+    args, kw = _edge_args(EDGE_CASES[1], 1, 5, cuda, seed=1, seg=seg)
+    got = sgmv_fused(*args, **kw)
+    torch.cuda.synchronize()
+    _close(got, sgmv_fused_ref(*args, **kw))
+    clamped = seg.clamp(0, 3)
+    _close(got, sgmv_fused_ref(*args[:-1], clamped, **kw))
+
+
+def test_cluster_kernels_bitwise_deterministic_cuda(cuda):
+    """The cluster sums h in a fixed rank order, with no float atomics: two
+    launches on the same inputs give the same bits."""
+    args, kw = _edge_args(EDGE_CASES[-1], 8, 4, cuda, seed=3)
+    first = sgmv_fused(*args, **kw)
+    assert torch.equal(first, sgmv_fused(*args, **kw))
+    q = _qlora(3072, 8192, 2, 0.9, cuda, seed=4)
+    sides, fkw = _fused_args(q)
+    for t in (16, 512):
+        x = torch.randn(t, 3072, device=cuda, dtype=torch.bfloat16)
+        y = fused_lora(x, *sides, **fkw)
+        assert torch.equal(y, fused_lora(x, *sides, **fkw))
+
+
+@pytest.mark.parametrize("t", [1, 13, 16, 37, 512])
+@pytest.mark.parametrize("case", [c for c in EDGE_CASES  # one high width
+                                  if c[1][0] == c[1][1]])
+def test_fused_lora_cluster_edges_cuda_vs_plain(cuda, t, case):
+    """fused_lora on adapter 0 of each edge case, any T (the plan picks
+    tiles of 1..8 rows; the last one short)."""
+    args, kw = _edge_args(case, 1, 1, cuda, seed=t, na=1)
+    x = torch.randn(t, case[0][0], device=cuda)
+    sides = [tuple(a[0] for a in args[1:4]), tuple(a[0] for a in args[4:7])]
+    fkw = dict(m=kw["m"], bits_hi=kw["bits_a"], binary_hi=kw["binary_a"],
+               group_ah=kw["group_a"], group_bh=kw["group_b"])
+    if "a_lo" in kw:
+        sides += [tuple(a[0] for a in kw["a_lo"]),
+                  tuple(a[0] for a in kw["b_lo"])]
+        fkw.update(bits_lo=kw["bits_lo"], binary_lo=kw["binary_lo"],
+                   group_al=kw["group_al"], group_bl=kw["group_bl"])
+    reset_launch_counts()
+    got = fused_lora(x, *sides, **fkw)
+    torch.cuda.synchronize()
+    assert dict(LAUNCH_COUNTS) == {"fused_lora": 1}
+    _close(got, fused_lora_ref(x, *sides, **fkw))
+
+
+def test_fused_lora_cuda_limits(cuda):
+    """More than 64 rank rows (high + low) is the kernel's own limit."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    a = _kernel_layout(_fmt_side(gen, 48, 256, 2, False, 128, 1, cuda))[:3]
+    b = _kernel_layout(_fmt_side(gen, 256, 48, 2, False, 128, 0, cuda))[:3]
+    x = torch.randn(4, 256, device=cuda)
+    kw = dict(m=256, bits_hi=2, binary_hi=False, group_ah=128, group_bh=128,
+              bits_lo=2, binary_lo=False, group_al=128, group_bl=128)
+    with pytest.raises(NotImplementedError, match="64 rank rows"):
+        fused_lora(x, a, b, a, b, **kw)
