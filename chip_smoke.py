@@ -8,7 +8,7 @@ Phases (a failure raises and the script exits non-zero):
 1. Environment: torch / CUDA versions, the card's name and power limit, and
    the nvcc build of every kernel in
    ``src/repro_torch/kernels/quant_matmul/csrc/`` (timed; ptxas registers
-   and spills per kernel).
+   and spills per kernel, and a failure if a kernel has no report).
 2. Kernel vs plain: ``sgmv_fused`` against ``sgmv_fused_ref`` (TF32 off) at
    the four (K, M) shapes of llama3.2-3b's LoRA linears, Rp = 16, group 128,
    8 adapters with mixed split h (one with h == r), bits_hi 2/3/4, decode
@@ -31,7 +31,8 @@ Phases (a failure raises and the script exits non-zero):
    shapes, rank 16, group 128, bits_hi 2/3/4, one adapter with a low side
    (rho 0.9) and one with h == r (rho 1.0), decode (16 rows) and prefill
    (512 rows) with x bf16, plus (K, M) = (256, 200) in fp32 (3-bit padding,
-   and an M that is not a multiple of B's group).
+   and an M that is not a multiple of B's group). ``fused_lora`` and
+   ``matmul_rhs`` must give the same bits on two launches.
 6. The two-pass route: ``lora_apply_quantized(fused=False)`` and
    ``vmem_budget=1`` at every full-width shape (2 ``matmul_rhs`` + 2
    ``matmul_out`` each), and the reference's large-M guard shape (M 32768,
@@ -53,7 +54,8 @@ Phases (a failure raises and the script exits non-zero):
    bits and with ``binary_quantize`` (group 128), decode (tile_t 1, 16
    rows) and prefill (tile_t 8, 512 rows) with x bf16, plus (256, 200) in
    fp32, and one two-sided ``sgmv_fused`` whose low side has another rank
-   (8) than the high side (16).
+   (8) than the high side (16). ``sgmv_rhs`` must give the same bits on two
+   launches.
 10. ``sgmv_apply`` at every full-width shape, decode and prefill:
     ``fused=True`` launches exactly one ``sgmv_fused``, ``fused=False``
     exactly one ``sgmv_rhs`` and one ``sgmv_out``; both held against the
@@ -237,6 +239,8 @@ def mix_line(name, x) -> str:
 
 
 LORA_KERNELS = ("sgmv_fused_kernel", "fused_lora_kernel")
+KERNELS = ("sgmv_fused", "sgmv_rhs", "sgmv_out", "fused_lora", "matmul_rhs",
+           "matmul_out")
 
 
 def profile_step(step):
@@ -477,6 +481,10 @@ def phase_single_kernels():
             h = matmul_rhs(x, *a, group=qa.group_size, **kw)
             y = matmul_out(h, *b, group=qb.group_size, **kw)
             torch.cuda.synchronize()
+            if not torch.equal(h, matmul_rhs(x, *a, group=qa.group_size,
+                                             **kw)):
+                raise AssertionError(f"matmul_rhs {tag}: two launches "
+                                     f"differ")
             for name, g, w in (
                     ("matmul_rhs", h, matmul_rhs_ref(x, *a, group=qa.group_size,
                                                      **kw)),
@@ -834,6 +842,8 @@ def phase_sgmv_kernels():
         f = sgmv_fused(x, *a, *b, seg, **fkw)
         torch.cuda.synchronize()
         tag = f"K={k:5d} M={m:5d} {fmt:6s} {phase:7s} T={rows:3d}"
+        if not torch.equal(h, sgmv_rhs(x, *a, seg, **kw)):
+            raise AssertionError(f"sgmv_rhs {tag}: two launches differ")
         errs = {
             "sgmv_rhs": check_close(f"sgmv_rhs {tag}", h,
                                     sgmv_rhs_ref(x, *a, seg, **kw)),
@@ -1055,8 +1065,12 @@ def main() -> int:
             f"{time.perf_counter() - t0:.2f}s")
     else:
         log(f"{lib_path.name} cached from an earlier build of this source")
-    for line in build.ptxas_report(build.BUILD_LOG):
+    report = build.ptxas_report(build.BUILD_LOG)
+    for line in report:
         log(f"  ptxas: {line}")
+    for name in KERNELS:                      # every kernel, in every form
+        if built and not any(f"{name}_kernel" in line for line in report):
+            raise AssertionError(f"no ptxas report of {name}_kernel")
 
     # ---- 2. kernel vs plain ----------------------------------------------
     t0 = time.perf_counter()

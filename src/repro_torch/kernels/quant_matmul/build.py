@@ -134,6 +134,7 @@ def load_library() -> ctypes.CDLL:
         [ptr, i32]                       # x, x_is_bf16
         + [ptr] * 5                      # codes, scale, zero, seg_map, out
         + [i32] * 10                     # T K R NA kt bits binary group ng wpg
+        + [i32p]                         # the cluster plan (ClusterPlan.c_args)
         + [ptr])                         # stream
     lib.sgmv_out_launch.argtypes = (
         [ptr] * 6                        # h, codes, scale, zero, seg_map, out
@@ -143,6 +144,7 @@ def load_library() -> ctypes.CDLL:
         [ptr, i32]                       # x, x_is_bf16
         + [ptr] * 4                      # codes, scale, zero, out
         + [i32] * 8                      # T K R bits binary group ng wpg
+        + [i32p]                         # the cluster plan (ClusterPlan.c_args)
         + [ptr])                         # stream
     lib.matmul_out_launch.argtypes = (
         [ptr] * 5                        # h, codes, scale, zero, out

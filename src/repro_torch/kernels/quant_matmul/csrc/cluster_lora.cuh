@@ -1,10 +1,12 @@
 // One thread-block cluster per token tile: the device code shared by the
-// two fused LoRAQuant kernels of this directory, sgmv_fused.cu and
-// fused_lora.cu, for Hopper (sm_90a).
+// four LoRAQuant kernels of this directory that compute h = x · Aᵀ, for
+// Hopper (sm_90a): the fused kernels sgmv_fused.cu and fused_lora.cu, and
+// the first passes of the two-pass routes, matmul_rhs.cu and sgmv_rhs.cu.
 //
 // What a cluster computes, for one tile of `live` token rows (at most TR,
-// a compile-time row count) and one adapter's four packed sides:
-//     y[tile] = (x[tile] · A_hiᵀ) · B_hi + (x[tile] · A_loᵀ) · B_lo   (fp32)
+// a compile-time row count) and one adapter's packed sides:
+//     fused:  y[tile] = (x[tile] · A_hiᵀ) · B_hi + (x[tile] · A_loᵀ) · B_lo
+//     rhs:    h[tile] =  x[tile] · Aᵀ                                  (fp32)
 //
 // What bounds it on an H100: latency. A decode call moves a few hundred KB
 // and needs a few MFLOP, so the design's job is a short chain of dependent
@@ -17,22 +19,25 @@
 //   is 16-byte aligned, 4-byte copies otherwise, plain loads where neither
 //   is): the x rows, the A and B code words, scales and zeros. Slices wider
 //   than the plan's chunk are staged chunk by chunk.
-// * Phase 1: the block reduces its K slice into a partial h
-//   (slots × TR fp32, slots = R_hi + R_lo) in shared memory; a warp owns a
-//   slot and its lanes walk the slice word by word.
-// * cluster.sync(), then every block sums the C partials out of the other
+// * Phase 1, the one path of all four kernels (`lora_tile`): the block
+//   reduces its K slice into a partial h (slots × TR fp32, slots = R_hi +
+//   R_lo) in shared memory; a warp owns a slot and its lanes walk the
+//   slice word by word.
+// * cluster.sync(), then h is the sum of the C partials read out of the
 //   blocks' shared memory (distributed shared memory, map_shared_rank) in
-//   rank order 0..C-1. So each tile computes h once, h never reaches
-//   device memory (the TPU kernel's VMEM scratch), no float atomics are
-//   used, and the same inputs give the same bits on every launch.
-// * Phase 2: the block computes its M slice: a work item is one code word
-//   of B (`per` consecutive output columns) and two of the tile's rows; it
-//   loops over the side's rank rows and keeps 2 × per sums in registers;
-//   the high side's sums are stored to shared memory, the low side's
-//   added, and y is written with float4 stores where M allows.
-// * A final cluster barrier (arrived at right after the reduction, waited
-//   for at exit) keeps every block's partial h alive until its neighbours
-//   have read it.
+//   rank order 0..C-1. No float atomics are used, and the same inputs give
+//   the same bits on every launch. The fused kernels sum all of h in every
+//   block, so h never reaches device memory (the TPU kernel's VMEM
+//   scratch); the rhs kernels (an A-only call: M = 0, no low side) split
+//   the tile's live × R elements of h among the blocks, each summed and
+//   stored to device memory by one block.
+// * Phase 2 (fused only): the block computes its M slice: a work item is
+//   one code word of B (`per` consecutive output columns) and two of the
+//   tile's rows; it loops over the side's rank rows and keeps 2 × per sums
+//   in registers; the high side's sums are stored to shared memory, the low
+//   side's added, and y is written with float4 stores where M allows.
+// * A final cluster barrier keeps every block's partial h alive until its
+//   neighbours have read it.
 //
 // Dequant is word-wise: a thread loads one storage word and its group's
 // scale and zero once and expands every code of it in registers with the
@@ -66,7 +71,8 @@ constexpr int kMaxCluster = 8;      // the portable cluster size (MAX_CLUSTER)
 // in units of `k_unit` (resp. `m_unit`), a multiple of every A (resp. B)
 // side's group: block b of a cluster owns units
 // [b·k_units, min(NU, (b+1)·k_units)) of the NU = ceil(K / k_unit) and
-// stages them `k_chunk` units at a time.
+// stages them `k_chunk` units at a time. An A-only plan (M = 0) has
+// m_units = m_chunk = 0.
 struct Plan {
   int cluster;                       // C, blocks per token tile
   int k_unit, k_units, k_chunk;
@@ -76,13 +82,15 @@ struct Plan {
   int vec[4];                        // bytes per copy of each side's codes
 };
 
-// sides: 0 A_hi, 1 B_hi, 2 A_lo, 3 B_lo (adapter 0 of each stack)
+// sides: 0 A_hi, 1 B_hi, 2 A_lo, 3 B_lo (adapter 0 of each stack). An
+// A-only call (matmul_rhs, sgmv_rhs) has M = 0 and r_lo = 0: side 0 is its
+// A, out its h (T, r_hi).
 struct Params {
   const void* x;
   QSide side[4];
-  const int32_t* seg_map;            // sgmv_fused only
+  const int32_t* seg_map;            // sgmv_fused, sgmv_rhs
   float* out;
-  int T, K, M, NA, r_hi, r_lo, kt;   // kt: live rows per tile (sgmv_fused)
+  int T, K, M, NA, r_hi, r_lo, kt;   // kt: live rows per tile (sgmv_*)
   Plan plan;
 };
 
@@ -374,9 +382,17 @@ __device__ __forceinline__ void chunk_groups(const QSide& q, int c0, int c1,
 }
 
 // ---- the tile ----------------------------------------------------------------
-// One cluster computes y for token rows [row0, row0 + live) with the sides
-// `sd` (already offset to the tile's adapter); live <= TR.
-template <int TR, typename XT>
+// One cluster's work for token rows [row0, row0 + live) with the sides `sd`
+// (already offset to the tile's adapter); live <= TR. Phase 1 and the
+// rank-order reduction of h are the one path of all four kernels; FUSED
+// (sgmv_fused, fused_lora) adds phase 2 and writes y (T, M), else
+// (matmul_rhs, sgmv_rhs: an A-only call) h (T, r_hi) is stored to p.out,
+// the tile's live × r_hi elements split among the C blocks in row-major
+// order, so each is summed and stored by one block, consecutive threads on
+// consecutive addresses. (A compile-time flag, not a phase-1 function of
+// its own: factored out, the same code cost the fused kernels up to 15
+// registers and 6 % at a prefill shape on an H100.)
+template <int TR, typename XT, bool FUSED>
 __device__ void lora_tile(const Params& p, const QSide (&sd)[4], int row0,
                           int live) {
   extern __shared__ __align__(16) unsigned char cluster_smem[];
@@ -427,7 +443,9 @@ __device__ void lora_tile(const Params& p, const QSide (&sd)[4], int row0,
   // every load of the first chunks up front: A and x (group 0), B (group 1)
   if (ku0 < ku1) stage_k(ku0);
   cp_async_commit();
-  if (mu0 < mu1) stage_m(mu0);
+  if constexpr (FUSED) {
+    if (mu0 < mu1) stage_m(mu0);
+  }
   cp_async_commit();
   for (int i = threadIdx.x; i < slots * TR; i += blockDim.x) hp[i] = 0.f;
   // rows past the tile's live rows read 0 (never staged)
@@ -460,6 +478,21 @@ __device__ void lora_tile(const Params& p, const QSide (&sd)[4], int row0,
 
   // ---- h = Σ over the cluster's partials, in rank order -----------------------
   cl.sync();
+  if constexpr (!FUSED) {
+    const int R = p.r_hi, n = live * R, C = pl.cluster;
+    const int share = (n + C - 1) / C;
+    const int i1 = min(n, (rank + 1) * share);
+    float* out = p.out + static_cast<size_t>(row0) * R;
+    for (int i = rank * share + threadIdx.x; i < i1; i += blockDim.x) {
+      const int t = i / R, r = i - t * R;
+      float v = 0.f;
+      for (int b = 0; b < C; ++b)
+        v += cl.map_shared_rank(hp, b)[r * TR + t];
+      out[i] = v;
+    }
+    cl.sync();                        // the neighbours are done reading hp
+    return;
+  }
   if (mu0 < mu1) {
     for (int i = threadIdx.x; i < slots * TR; i += blockDim.x) {
       float v = 0.f;
@@ -515,18 +548,20 @@ __device__ void lora_tile(const Params& p, const QSide (&sd)[4], int row0,
 
 // ---- host side -----------------------------------------------------------------
 
-// Checks of the plan and shapes that the kernel relies on; 0 if they hold.
+// Checks of the plan and shapes that the kernel relies on; true if they
+// hold.
 inline bool plan_ok(const Params& p, int tr) {
   const Plan& pl = p.plan;
   if (pl.cluster < 1 || pl.cluster > kMaxCluster || pl.k_unit < 1 ||
-      pl.m_unit < 1 || pl.k_units < 1 || pl.m_units < 1 || pl.k_chunk < 1 ||
-      pl.m_chunk < 1 || tr < 1 || tr > 8)
+      pl.m_unit < 1 || pl.k_units < 1 || pl.k_chunk < 1 || tr < 1 || tr > 8)
     return false;
+  if (p.M > 0 && (pl.m_units < 1 || pl.m_chunk < 1)) return false;
+  if (p.M == 0 && p.r_lo != 0) return false;  // A-only: one side
   if (static_cast<long long>(pl.cluster) * pl.k_units * pl.k_unit < p.K ||
       static_cast<long long>(pl.cluster) * pl.m_units * pl.m_unit < p.M)
     return false;
   for (int s = 0; s < 4; ++s) {
-    if (side_rows(p, s) == 0) continue;
+    if (side_rows(p, s) == 0 || ((s & 1) && p.M == 0)) continue;
     const int unit = (s & 1) ? pl.m_unit : pl.k_unit;
     const int v = pl.vec[s];
     if (unit % p.side[s].group != 0 || (v != 16 && v != 4 && v != 1) ||
@@ -576,6 +611,25 @@ inline int launch(const Params& p, int tr, int x_bytes, int tiles,
 inline Plan make_plan(const int* a) {
   return Plan{a[0], a[2], a[3], a[4], a[5], a[6], a[7], a[8], a[9],
               {a[10], a[11], a[12], a[13]}};
+}
+
+// The Params of an A-only call (matmul_rhs, sgmv_rhs): side 0 is A (NA
+// stacked adapters of R rows), h (T, R) goes to `out`. B_hi is never read:
+// with M = 0 it has no columns, and a group of 1 gives it no shared memory
+// (make_layout).
+inline Params rhs_params(const void* x, const QSide& a,
+                         const int32_t* seg_map, float* out, int T, int K,
+                         int NA, int R, int kt, const int* plan) {
+  Params p = {};
+  p.x = x;
+  p.side[0] = a;
+  p.side[1].group = 1;
+  p.seg_map = seg_map;
+  p.out = out;
+  p.T = T; p.K = K; p.M = 0; p.NA = NA;
+  p.r_hi = R; p.r_lo = 0; p.kt = kt;
+  p.plan = make_plan(plan);
+  return p;
 }
 
 }  // namespace cluster

@@ -46,7 +46,7 @@ __global__ void __launch_bounds__(cl::kThreads, 1)
     fused_lora_kernel(const cl::Params p) {
   const int row0 = (blockIdx.x / p.plan.cluster) * TR;
   const QSide sd[4] = {p.side[0], p.side[1], p.side[2], p.side[3]};
-  cl::lora_tile<TR, XT>(p, sd, row0, min(TR, p.T - row0));
+  cl::lora_tile<TR, XT, true>(p, sd, row0, min(TR, p.T - row0));
 }
 
 template <typename XT>

@@ -4,47 +4,52 @@
 // Replaces the Pallas TPU kernel `matmul_rhs`
 // (src/repro/kernels/quant_matmul/kernel.py:157, pallas_call at :176).
 //
-// What it computes: x (T, K) bf16 or fp32, A (R, NG·Wg) packed as in
-// unpack.cuh (RTN of 2/3/4/8 bits or binary 1-bit) → h (T, R) fp32. Columns
-// of A past K (the last group's padding) are never read.
+// What it computes: x (T, K) bf16 or fp32, any T; A (R, NG·Wg) packed as in
+// unpack.cuh (RTN of 2/3/4/8 bits or binary 1-bit), R ≤ 64 → h (T, R) fp32.
+// Columns of A past K (the last group's padding) never count.
 //
-// What bounds it on an H100: bytes, and at these sizes latency. The work is
-// 2·T·R·K flops against x, the packed A and the fp32 h; R is a padded split
-// rank (≤ 64), so there are a few flops per byte of x. The design reads x and
-// the packed codes once per token tile and never writes a dequantized A to
-// device memory: codes are dequantized into shared memory chunk by chunk.
+// What bounds it on an H100: latency, not bytes or operations. A decode
+// call (T = 16, K = 3072, R = 16) moves ~0.1 MB and needs ~1.6 MFLOP
+// (bound < 0.1 µs); what a design must shorten is the chain of dependent
+// memory steps.
 //
-// Design (simple and correct first): one block per tile of kTileRows token
-// rows walks all of K (tile_rhs in unpack.cuh); the TPU's sequential K grid
-// axis, which carries the sum in the output block, becomes that loop.
-// Known cost: at decode (T = 16) only two blocks run, so each walks K alone;
-// splitting K across blocks with a second reduction pass is the obvious next
-// step.
+// Design (cluster_lora.cuh, the phase 1 of fused_lora): one thread-block
+// cluster of C blocks per token tile of TR rows (1/2/4/8, chosen by the
+// launch plan so that a decode batch of 16 rows still runs 16 clusters).
+// Block b owns a K slice of whole quant groups, issues every load of it up
+// front with cp.async and reduces it word by word into a partial h; after
+// cluster.sync() the tile's h elements are split among the blocks, each
+// summed from the C partials in distributed shared memory in rank order
+// and stored once. No float atomics, so two launches give the same bits.
+// The TPU kernel's sequential K grid axis, which carries the sum in the
+// output block, becomes the cluster's split of K and that one reduction.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "unpack.cuh"
+#include "cluster_lora.cuh"
 
 namespace {
 
+namespace cl = loraquant::cluster;
 using loraquant::QSide;
-using loraquant::kTileRows;
+
+template <int TR, typename XT>
+__global__ void __launch_bounds__(cl::kThreads, 1)
+    matmul_rhs_kernel(const cl::Params p) {
+  const int row0 = (blockIdx.x / p.plan.cluster) * TR;
+  const QSide sd[4] = {p.side[0], p.side[1], p.side[2], p.side[3]};
+  cl::lora_tile<TR, XT, false>(p, sd, row0, min(TR, p.T - row0));
+}
 
 template <typename XT>
-__global__ void __launch_bounds__(loraquant::kMaxThreads)
-    matmul_rhs_kernel(const XT* __restrict__ x, QSide a, float* out, int T,
-                      int K, int R) {
-  extern __shared__ float smem[];
-  float* xs = smem;
-  float* ws = xs + kTileRows * loraquant::kChunk;
-  float* hs = ws + R * loraquant::kChunk;
-  const int row0 = blockIdx.x * kTileRows;
-  loraquant::tile_rhs(x, T, K, row0, a, R, a, R, xs, ws, hs);
-  for (int i = threadIdx.x; i < R * kTileRows; i += blockDim.x) {
-    const int t = i / R, s = i - t * R;
-    if (row0 + t < T)
-      out[static_cast<size_t>(row0 + t) * R + s] = hs[s * kTileRows + t];
+int launch_rows(const cl::Params& p, int tr, int tiles, cudaStream_t s) {
+  switch (tr) {
+    case 1: return cl::launch<matmul_rhs_kernel<1, XT>>(p, 1, sizeof(XT), tiles, s);
+    case 2: return cl::launch<matmul_rhs_kernel<2, XT>>(p, 2, sizeof(XT), tiles, s);
+    case 4: return cl::launch<matmul_rhs_kernel<4, XT>>(p, 4, sizeof(XT), tiles, s);
+    default: return cl::launch<matmul_rhs_kernel<8, XT>>(p, 8, sizeof(XT), tiles, s);
   }
 }
 
@@ -52,28 +57,26 @@ __global__ void __launch_bounds__(loraquant::kMaxThreads)
 
 extern "C" {
 
-// Launches matmul_rhs on `stream`; returns cudaGetLastError() after the
-// launch (0 on success). Shapes are validated by the Python wrapper; the
-// checks here guard the kernel's own limits.
+// Launches matmul_rhs on `stream` with the A-only launch plan of kernel.py's
+// `_cluster_plan`; returns the launch's CUDA error (0 on success). Shapes
+// are validated by the Python wrapper; the checks here guard the kernel's
+// own limits.
 int matmul_rhs_launch(const void* x, int x_is_bf16, const void* codes,
                       const float* scale, const int32_t* zero, float* out,
                       int T, int K, int R, int bits, int binary, int group,
-                      int ng, int wpg, void* stream) {
+                      int ng, int wpg, const int* plan, void* stream) {
+  const int tile_rows = plan[1];
   if (R < 1 || R > loraquant::kMaxSlots || T < 0 || K < 1)
     return cudaErrorInvalidValue;
   if (T == 0) return cudaSuccess;
-  const QSide a{codes, scale, zero, bits, binary, group, ng, wpg};
-  const dim3 grid((T + kTileRows - 1) / kTileRows);
-  const dim3 block(loraquant::threads_for(R));
-  const size_t smem = loraquant::rhs_smem_bytes(R);
+  const cl::Params p = cl::rhs_params(
+      x, QSide{codes, scale, zero, bits, binary, group, ng, wpg}, nullptr,
+      out, T, K, 1, R, tile_rows, plan);
+  if (!cl::plan_ok(p, tile_rows)) return cudaErrorInvalidValue;
+  const int tiles = (T + tile_rows - 1) / tile_rows;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (x_is_bf16)
-    matmul_rhs_kernel<<<grid, block, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(x), a, out, T, K, R);
-  else
-    matmul_rhs_kernel<<<grid, block, smem, s>>>(
-        static_cast<const float*>(x), a, out, T, K, R);
-  return cudaGetLastError();
+  return x_is_bf16 ? launch_rows<__nv_bfloat16>(p, tile_rows, tiles, s)
+                   : launch_rows<float>(p, tile_rows, tiles, s);
 }
 
 }  // extern "C"

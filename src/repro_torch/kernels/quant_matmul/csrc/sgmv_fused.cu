@@ -60,7 +60,7 @@ __global__ void __launch_bounds__(cl::kThreads, 1)
     sd[s] = rows > 0 ? loraquant::adapter_side(p.side[s], rows, seg)
                      : p.side[s];
   }
-  cl::lora_tile<TR, XT>(p, sd, tile * p.kt, p.kt);
+  cl::lora_tile<TR, XT, true>(p, sd, tile * p.kt, p.kt);
 }
 
 template <typename XT>

@@ -1,12 +1,14 @@
-// Group-aware unpack and dequant of LoRAQuant packed codes, shared by the
-// Hopper kernels of this directory.
+// The packed-code side of LoRAQuant's kernel layout (QSide, adapter_side)
+// shared by the Hopper kernels of this directory, and the element-wise
+// dequant of the out kernels (matmul_out, sgmv_out).
 //
 // Replaces the in-kernel helper `_unpack_dequant_grouped` of the Pallas TPU
 // kernels (src/repro/kernels/quant_matmul/kernel.py:110). The TPU version
-// unpacks a whole VMEM tile with lane shifts; here each thread dequantizes
-// the elements it needs, by (quant group, code within the group), never by
-// flat code index, so the per-group word padding of 3-bit packing is skipped
-// exactly as `_unpack_dequant_grouped` slices it off.
+// unpacks a whole VMEM tile with lane shifts; `dequant_at` here dequantizes
+// one element by (quant group, code within the group), never by flat code
+// index, so the per-group word padding of 3-bit packing is skipped exactly
+// as `_unpack_dequant_grouped` slices it off. The cluster kernels
+// (cluster_lora.cuh) expand whole storage words instead.
 //
 // Layout (the JAX package's kernel layout, unchanged): codes (R, NG·Wg) —
 // Wg words per quant group, `per` little-endian codes per word (8/bits per
@@ -86,99 +88,9 @@ __device__ __forceinline__ float dequant_at(const QSide& s, int r, int c) {
   }
 }
 
-// ---------------------------------------------------------------------------
-// h[s][t] = Σ_k x[row0 + t][k] · W_s[k] for one tile of kTileRows token rows
-// and `slots` dequantized rows W_s (slot s < rows0 is row s of side 0, the
-// rest rows of side 1), over all of K. The loop over K inside the block
-// takes the place of the TPU's sequential K grid axis.
-//
-// Each step stages x[tile, chunk] and the dequantized W columns of the
-// chunk in shared memory; each warp owns kSlotsPerWarp slots × kTileRows
-// rows in registers, its lanes splitting the chunk's columns, and the lane
-// partial sums are reduced with shuffles at the end. Rows past T read 0:
-// they are zeroed once and never staged, so a tile of one row (SGMV decode)
-// stages one row per chunk. Needs blockDim.x >= 32·ceil(slots /
-// kSlotsPerWarp) and the shared arrays xs [kTileRows·kChunk],
-// ws [slots·kChunk], hs [slots·kTileRows].
-// ---------------------------------------------------------------------------
-
-constexpr int kTileRows = 8;     // token rows per block
-constexpr int kSlotsPerWarp = 4; // dequantized rows per warp
-constexpr int kChunk = 128;      // K columns staged per step
-constexpr int kMaxSlots = 64;    // 16 warps of 4 slots
-constexpr int kMaxThreads = 32 * kMaxSlots / kSlotsPerWarp;
-
-inline int threads_for(int slots) {
-  const int warps = (slots + kSlotsPerWarp - 1) / kSlotsPerWarp;
-  return 32 * (warps > 8 ? warps : 8);
-}
-
-inline size_t rhs_smem_bytes(int slots) {
-  return (static_cast<size_t>(kTileRows) * kChunk +
-          static_cast<size_t>(slots) * kChunk +
-          static_cast<size_t>(slots) * kTileRows) * sizeof(float);
-}
-
-template <typename XT>
-__device__ void tile_rhs(const XT* x, int T, int K, int row0,
-                         const QSide& side0, int rows0, const QSide& side1,
-                         int slots, float* xs, float* ws, float* hs) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int nthreads = blockDim.x;
-  const int slot0 = warp * kSlotsPerWarp;
-
-  float acc[kTileRows][kSlotsPerWarp];
-#pragma unroll
-  for (int t = 0; t < kTileRows; ++t)
-#pragma unroll
-    for (int s = 0; s < kSlotsPerWarp; ++s) acc[t][s] = 0.f;
-
-  const int live = min(kTileRows, T - row0);  // token rows of the tile
-  for (int i = live * kChunk + tid; i < kTileRows * kChunk; i += nthreads)
-    xs[i] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += kChunk) {
-    for (int i = tid; i < live * kChunk; i += nthreads) {
-      const int t = i / kChunk, k = k0 + (i - t * kChunk);
-      xs[i] = k < K ? load_x(x, static_cast<size_t>(row0 + t) * K + k) : 0.f;
-    }
-    for (int i = tid; i < slots * kChunk; i += nthreads) {
-      const int s = i / kChunk, k = k0 + (i - s * kChunk);
-      float v = 0.f;
-      if (k < K)
-        v = s < rows0 ? dequant_at(side0, s, k)
-                      : dequant_at(side1, s - rows0, k);
-      ws[i] = v;
-    }
-    __syncthreads();
-    for (int j = lane; j < kChunk; j += 32) {
-      float xv[kTileRows];
-#pragma unroll
-      for (int t = 0; t < kTileRows; ++t) xv[t] = xs[t * kChunk + j];
-#pragma unroll
-      for (int s = 0; s < kSlotsPerWarp; ++s) {
-        if (slot0 + s < slots) {
-          const float w = ws[(slot0 + s) * kChunk + j];
-#pragma unroll
-          for (int t = 0; t < kTileRows; ++t)
-            acc[t][s] = fmaf(xv[t], w, acc[t][s]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int s = 0; s < kSlotsPerWarp; ++s) {
-#pragma unroll
-    for (int t = 0; t < kTileRows; ++t) {
-      float v = acc[t][s];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (lane == 0 && slot0 + s < slots) hs[(slot0 + s) * kTileRows + t] = v;
-    }
-  }
-  __syncthreads();
-}
+// The out kernels (matmul_out, sgmv_out): token rows per block, and the
+// rank rows (high + low) every kernel of this directory holds at most.
+constexpr int kTileRows = 8;
+constexpr int kMaxSlots = 64;
 
 }  // namespace loraquant

@@ -11,10 +11,10 @@ of the Pallas kernels in ``repro/kernels/quant_matmul/kernel.py``):
 * ``sgmv_fused`` — both products per token tile with the tile's adapter,
   optionally both sub-LoRAs (``csrc/sgmv_fused.cu``).
 
-``fused_lora`` and ``sgmv_fused`` launch one thread-block cluster per token
-tile (``csrc/cluster_lora.cuh``); :func:`_cluster_plan` cuts each call into
-clusters, K and M slices and copy widths, and the C launcher takes the
-plan as it is.
+``fused_lora``, ``sgmv_fused``, ``matmul_rhs`` and ``sgmv_rhs`` launch one
+thread-block cluster per token tile (``csrc/cluster_lora.cuh``, one phase-1
+path for the four); :func:`_cluster_plan` cuts each call into clusters, K
+and M slices and copy widths, and the C launcher takes the plan as it is.
 
 The kernels are CUDA C++, built by ``build.py`` at first use. On a CUDA
 tensor a wrapper launches its kernel on the current stream (or raises); on a
@@ -45,16 +45,19 @@ from .ref import (fused_lora_ref, matmul_out_ref, matmul_rhs_ref,
 LAUNCH_COUNTS: "collections.Counter[str]" = collections.Counter()
 PLAIN_CALLS: "collections.Counter[str]" = collections.Counter()
 
-MAX_TILE_ROWS = 8          # token rows one CUDA block holds (kTileRows)
+MAX_TILE_ROWS = 8          # token rows of a tile (the cluster kernels'
+                           # largest TR, the out kernels' kTileRows)
 MAX_SLOTS = 64             # rank rows one block holds, hi + lo
                            # (loraquant::kMaxSlots)
 BITS = (1, 2, 3, 4, 8)
 
-# The cluster launch of fused_lora and sgmv_fused (csrc/cluster_lora.cuh)
+# The cluster launch of fused_lora, sgmv_fused, matmul_rhs and sgmv_rhs
+# (csrc/cluster_lora.cuh)
 MAX_CLUSTER = 8            # blocks per token tile (the portable cluster size)
 CHUNK_COLS = 1024          # columns of a K or M slice staged at once
 TILE_ROWS = (1, 2, 4, 8)   # compiled token-row counts of a tile
-TARGET_BLOCKS = 128        # fused_lora picks its tile rows to fill ~132 SMs
+TARGET_BLOCKS = 128        # fused_lora / matmul_rhs pick their tile rows
+                           # to fill ~132 SMs
 
 
 def reset_launch_counts() -> None:
@@ -143,11 +146,12 @@ def _device_of(name, tensors) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class ClusterPlan:
-    """How ``fused_lora`` / ``sgmv_fused`` cut one launch: ``tiles`` token
-    tiles of ``tile_rows`` compiled rows, one cluster of ``cluster`` blocks
-    each. Block b of a cluster owns the K units ``[b·k_units, (b+1)·k_units)``
-    of ``k_unit`` columns (a multiple of every A side's group) and the M
-    units likewise, staged ``k_chunk`` / ``m_chunk`` units at a time.
+    """How a cluster kernel cuts one launch: ``tiles`` token tiles of
+    ``tile_rows`` compiled rows, one cluster of ``cluster`` blocks each.
+    Block b of a cluster owns the K units ``[b·k_units, (b+1)·k_units)`` of
+    ``k_unit`` columns (a multiple of every A side's group) and the M units
+    likewise, staged ``k_chunk`` / ``m_chunk`` units at a time (an A-only
+    plan has ``m_unit`` 1 and no M units).
     ``vec_*`` are the bytes per asynchronous copy (16, 4 or 1) of x and of
     each side's codes ``(A_hi, B_hi, A_lo, B_lo)``; ``vec_y`` is 4 where y is
     written with float4 stores."""
@@ -192,12 +196,13 @@ def _copy_bytes(ptr: int, steps: Sequence[int]) -> int:
 @functools.lru_cache(maxsize=1024)
 def _cluster_plan(t: int, k: int, m: int, kt: Optional[int], x_ptr: int,
                   x_bytes: int, out_ptr: int, sides: tuple) -> ClusterPlan:
-    """The launch plan of one ``fused_lora`` (``kt=None``: the plan picks
-    the tile rows) or ``sgmv_fused`` call (tiles of ``kt`` rows). ``sides``
-    are ``(group, words_per_group, word_bytes, codes_ptr)`` of A_hi, B_hi,
-    A_lo, B_lo, or None for an absent low side. Pointers matter only mod
-    16, which is what the wrappers pass, so a serve loop's calls hit the
-    cache.
+    """The launch plan of one ``fused_lora`` / ``matmul_rhs`` (``kt=None``:
+    the plan picks the tile rows) or ``sgmv_fused`` / ``sgmv_rhs`` call
+    (tiles of ``kt`` rows). ``sides`` are ``(group, words_per_group,
+    word_bytes, codes_ptr)`` of A_hi, B_hi, A_lo, B_lo, or None for an
+    absent side: the low side, or both B sides of an A-only call (the rhs
+    kernels, ``m = 0``). Pointers matter only mod 16, which is what the
+    wrappers pass, so a serve loop's calls hit the cache.
 
     K is cut in units of the A sides' common group multiple, M in units of
     the B sides', so that no quant group spans two blocks; the cluster is
@@ -207,8 +212,10 @@ def _cluster_plan(t: int, k: int, m: int, kt: Optional[int], x_ptr: int,
     pointer divide by 16: so never for 3-bit groups of 13 words), else 4
     bytes at a time where that holds, else byte by byte."""
     ah, bh, al, bl = sides
+    if (bh is None) != (m == 0):
+        raise ValueError("an A-only plan has m = 0 and no B sides")
     k_unit = ah[0] if al is None else math.lcm(ah[0], al[0])
-    m_unit = bh[0] if bl is None else math.lcm(bh[0], bl[0])
+    m_unit = math.lcm(*(s[0] for s in (bh, bl) if s is not None))
     nu_k, nu_m = -(-k // k_unit), -(-m // m_unit)
     cluster = 1
     while cluster < MAX_CLUSTER and cluster < max(nu_k, nu_m):
@@ -273,10 +280,14 @@ def matmul_rhs(x, codes, scale, zero, *, bits: int, binary: bool,
         raise NotImplementedError(f"matmul_rhs holds at most {MAX_SLOTS} "
                                   f"rank rows, got {r}")
     out = torch.empty((t, r), dtype=torch.float32, device=dev)
+    x_ptr, codes_ptr = x.data_ptr(), codes.data_ptr()
+    plan = _cluster_plan(t, k, 0, None, x_ptr % 16, x.element_size(), 0,
+                         (_side_geom(group, wpg, bits, codes_ptr), None,
+                          None, None))
     _launch("matmul_rhs", dev, load_library().matmul_rhs_launch,
-            x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(),
+            x_ptr, int(x.dtype == torch.bfloat16), codes_ptr,
             scale.data_ptr(), zero.data_ptr(), out.data_ptr(),
-            t, k, r, bits, int(binary), group, ng, wpg)
+            t, k, r, bits, int(binary), group, ng, wpg, plan.c_args)
     return out
 
 
@@ -370,8 +381,8 @@ def fused_lora(x, a_hi, b_hi, a_lo=None, b_lo=None, *, m: int,
 
 
 def _check_tiles(name, t: int, tile_t: int, seg_map) -> None:
-    """Token tiles of ``tile_t`` rows (one CUDA block each) and their
-    ``(T/tile_t,)`` int32 adapter map."""
+    """Token tiles of ``tile_t`` rows (one CUDA block or cluster each) and
+    their ``(T/tile_t,)`` int32 adapter map."""
     if not 1 <= tile_t <= MAX_TILE_ROWS or t % tile_t:
         raise ValueError(f"{name}: rows {t} must divide into tiles of "
                          f"{tile_t} rows, 1 <= tile_t <= {MAX_TILE_ROWS}")
@@ -409,12 +420,17 @@ def sgmv_rhs(x, codes, scale, zero, seg_map, *, bits: int, binary: bool,
                             binary=binary, group=group, tile_t=tile_t)
     if r > MAX_SLOTS:
         raise NotImplementedError(f"sgmv_rhs holds at most {MAX_SLOTS} rank "
-                                  f"rows per block, got {r}")
+                                  f"rows per token tile, got {r}")
     out = torch.empty((t, r), dtype=torch.float32, device=dev)
+    x_ptr, codes_ptr = x.data_ptr(), codes.data_ptr()
+    plan = _cluster_plan(t, k, 0, tile_t, x_ptr % 16, x.element_size(), 0,
+                         (_side_geom(group, wpg, bits, codes_ptr), None,
+                          None, None))
     _launch("sgmv_rhs", dev, load_library().sgmv_rhs_launch,
-            x.data_ptr(), int(x.dtype == torch.bfloat16), codes.data_ptr(),
+            x_ptr, int(x.dtype == torch.bfloat16), codes_ptr,
             scale.data_ptr(), _ptr(zero), seg_map.data_ptr(), out.data_ptr(),
-            t, k, r, na, tile_t, bits, int(binary), group, ng, wpg)
+            t, k, r, na, tile_t, bits, int(binary), group, ng, wpg,
+            plan.c_args)
     return out
 
 

@@ -30,6 +30,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 LAYERS = 28
 LINEARS = {"wq": (3072, 3072), "wk": (3072, 1024), "wv": (3072, 1024),
@@ -321,12 +322,12 @@ def card() -> str:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--src", default=None,
-                    help="import repro_torch from this src directory")
+    ap.add_argument("--src", default=str(Path(__file__).resolve().parents[2]),
+                    help="import repro_torch from this src directory "
+                         "(default: this checkout's)")
     ap.add_argument("--label", default="this tree")
     args = ap.parse_args(argv)
-    if args.src:
-        sys.path.insert(0, args.src)
+    sys.path.insert(0, args.src)
     import torch
 
     if not torch.cuda.is_available():

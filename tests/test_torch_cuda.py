@@ -466,16 +466,23 @@ def test_sgmv_fused_clamps_adapter_ids_cuda(cuda):
 
 def test_cluster_kernels_bitwise_deterministic_cuda(cuda):
     """The cluster sums h in a fixed rank order, with no float atomics: two
-    launches on the same inputs give the same bits."""
+    launches on the same inputs give the same bits (sgmv_fused, fused_lora,
+    sgmv_rhs, matmul_rhs)."""
     args, kw = _edge_args(EDGE_CASES[-1], 8, 4, cuda, seed=3)
     first = sgmv_fused(*args, **kw)
     assert torch.equal(first, sgmv_fused(*args, **kw))
+    rkw = dict(bits=2, binary=False, group=128, tile_t=8)
+    h = sgmv_rhs(args[0], *args[1:4], args[-1], **rkw)
+    assert torch.equal(h, sgmv_rhs(args[0], *args[1:4], args[-1], **rkw))
     q = _qlora(3072, 8192, 2, 0.9, cuda, seed=4)
     sides, fkw = _fused_args(q)
     for t in (16, 512):
         x = torch.randn(t, 3072, device=cuda, dtype=torch.bfloat16)
         y = fused_lora(x, *sides, **fkw)
         assert torch.equal(y, fused_lora(x, *sides, **fkw))
+        h = matmul_rhs(x, *sides[0], bits=2, binary=False, group=128)
+        assert torch.equal(h, matmul_rhs(x, *sides[0], bits=2, binary=False,
+                                         group=128))
 
 
 @pytest.mark.parametrize("t", [1, 13, 16, 37, 512])
@@ -511,3 +518,125 @@ def test_fused_lora_cuda_limits(cuda):
               bits_lo=2, binary_lo=False, group_al=128, group_bl=128)
     with pytest.raises(NotImplementedError, match="64 rank rows"):
         fused_lora(x, a, b, a, b, **kw)
+
+
+# --------------------------------------------------------------------------
+# the rhs kernels (matmul_rhs, sgmv_rhs) on the cluster path: the fused
+# kernels' A sides at their edges (K off the slice grid, K under one
+# cluster's slices, 3-bit 13-word groups, groups 8-128 with 4-byte and byte
+# copies, staged chunks), R = 1 / 16 / 64, every width, clamped adapter
+# ids, CUDA-graph capture
+# --------------------------------------------------------------------------
+
+RHS_CASES = [
+    # K, bits, binary, group, R (unpadded)
+    (250, 4, False, 64, 16),
+    (250, 1, True, 32, 8),
+    (100, 2, False, 100, 8),
+    (256, 2, False, 32, 64),
+    (256, 1, True, 16, 8),
+    (256, 1, True, 8, 16),
+    (640, 8, False, 128, 24),
+    (640, 2, False, 64, 16),
+    (640, 3, False, 128, 1),
+    (1000, 3, False, 128, 24),
+    (3072, 2, False, 128, 64),
+    (16384, 2, False, 128, 16),
+]
+
+
+def _a_stack(gen, na, case, device):
+    """``na`` adapters' A sides of one RHS case, stacked ``(NA, R, ·)`` with
+    R unpadded."""
+    k, bits, binary, group, r = case
+    parts = [_kernel_layout(_fmt_side(gen, r, k, bits, binary, group, 1,
+                                      device), pad_r=r)[:3]
+             for _ in range(na)]
+    return tuple(torch.stack([p[i] for p in parts]) for i in range(3))
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [1, 13, 16, 37, 512])
+@pytest.mark.parametrize("case", RHS_CASES)
+def test_matmul_rhs_cluster_edges_cuda_vs_plain(cuda, case, t, xdtype):
+    """Any T (the plan picks tiles of 1..8 rows; the last one short)."""
+    k, bits, binary, group, r = case
+    gen = torch.Generator(device=cuda).manual_seed(t * 5 + k)
+    a = tuple(v[0] for v in _a_stack(gen, 1, case, cuda))
+    x = torch.randn(t, k, generator=gen, device=cuda).to(xdtype)
+    kw = dict(bits=bits, binary=binary, group=group)
+    reset_launch_counts()
+    h = matmul_rhs(x, *a, **kw)
+    torch.cuda.synchronize()
+    assert dict(LAUNCH_COUNTS) == {"matmul_rhs": 1}
+    assert h.shape == (t, r) and h.dtype == torch.float32
+    _close(h, matmul_rhs_ref(x, *a, **kw))
+
+
+@pytest.mark.parametrize("xdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tile_t,n_tiles", [(1, 16), (3, 13), (8, 64)])
+@pytest.mark.parametrize("case", RHS_CASES)
+def test_sgmv_rhs_cluster_edges_cuda_vs_plain(cuda, case, tile_t, n_tiles,
+                                              xdtype):
+    """Tiles of 1 / 3 / 8 rows, each with its adapter; a binary stack
+    without zero-points."""
+    k, bits, binary, group, r = case
+    na = 4
+    gen = torch.Generator(device=cuda).manual_seed(tile_t * 7 + k)
+    codes, scale, zero = _a_stack(gen, na, case, cuda)
+    if binary:
+        zero = None
+    seg = torch.randint(0, na, (n_tiles,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    x = torch.randn(n_tiles * tile_t, k, generator=gen,
+                    device=cuda).to(xdtype)
+    kw = dict(bits=bits, binary=binary, group=group, tile_t=tile_t)
+    reset_launch_counts()
+    h = sgmv_rhs(x, codes, scale, zero, seg, **kw)
+    torch.cuda.synchronize()
+    assert dict(LAUNCH_COUNTS) == {"sgmv_rhs": 1}
+    assert h.shape == (x.shape[0], r)
+    _close(h, sgmv_rhs_ref(x, codes, scale, zero, seg, **kw))
+
+
+def test_sgmv_rhs_clamps_adapter_ids_cuda(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    a = _a_stack(gen, 4, RHS_CASES[1], cuda)
+    seg = torch.tensor([-3, 0, 7, 2, 99], dtype=torch.int32, device=cuda)
+    x = torch.randn(10, 250, generator=gen, device=cuda)
+    kw = dict(bits=1, binary=True, group=32, tile_t=2)
+    got = sgmv_rhs(x, *a, seg, **kw)
+    torch.cuda.synchronize()
+    _close(got, sgmv_rhs_ref(x, *a, seg, **kw))
+    _close(got, sgmv_rhs_ref(x, *a, seg.clamp(0, 3), **kw))
+
+
+@pytest.mark.parametrize("name", ["matmul_rhs", "sgmv_rhs"])
+def test_rhs_kernels_cuda_graph_replay(cuda, name):
+    """The cluster launch (cudaLaunchKernelEx) is captured in a CUDA graph:
+    a replay gives the eager result, and follows an in-place change of x."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    codes, scale, zero = _a_stack(gen, 4, RHS_CASES[-2], cuda)
+    x = torch.randn(16, 3072, generator=gen, device=cuda,
+                    dtype=torch.bfloat16)
+    seg = torch.randint(0, 4, (16,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    kw = dict(bits=2, binary=False, group=128)
+
+    def call():
+        if name == "matmul_rhs":
+            return matmul_rhs(x, codes[1], scale[1], zero[1], **kw)
+        return sgmv_rhs(x, codes, scale, zero, seg, tile_t=1, **kw)
+
+    eager = call()                       # first launch: build, attributes
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    x.copy_(torch.randn(16, 3072, generator=gen, device=cuda))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, call())
