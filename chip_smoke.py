@@ -31,8 +31,9 @@ Phases (a failure raises and the script exits non-zero):
    shapes, rank 16, group 128, bits_hi 2/3/4, one adapter with a low side
    (rho 0.9) and one with h == r (rho 1.0), decode (16 rows) and prefill
    (512 rows) with x bf16, plus (K, M) = (256, 200) in fp32 (3-bit padding,
-   and an M that is not a multiple of B's group). ``fused_lora`` and
-   ``matmul_rhs`` must give the same bits on two launches.
+   and an M that is not a multiple of B's group). ``fused_lora``,
+   ``matmul_rhs`` and ``matmul_out`` must give the same bits on two
+   launches.
 6. The two-pass route: ``lora_apply_quantized(fused=False)`` and
    ``vmem_budget=1`` at every full-width shape (2 ``matmul_rhs`` + 2
    ``matmul_out`` each), and the reference's large-M guard shape (M 32768,
@@ -54,8 +55,8 @@ Phases (a failure raises and the script exits non-zero):
    bits and with ``binary_quantize`` (group 128), decode (tile_t 1, 16
    rows) and prefill (tile_t 8, 512 rows) with x bf16, plus (256, 200) in
    fp32, and one two-sided ``sgmv_fused`` whose low side has another rank
-   (8) than the high side (16). ``sgmv_rhs`` must give the same bits on two
-   launches.
+   (8) than the high side (16). ``sgmv_rhs`` and ``sgmv_out`` must give the
+   same bits on two launches.
 10. ``sgmv_apply`` at every full-width shape, decode and prefill:
     ``fused=True`` launches exactly one ``sgmv_fused``, ``fused=False``
     exactly one ``sgmv_rhs`` and one ``sgmv_out``; both held against the
@@ -485,6 +486,10 @@ def phase_single_kernels():
                                              **kw)):
                 raise AssertionError(f"matmul_rhs {tag}: two launches "
                                      f"differ")
+            if not torch.equal(y, matmul_out(h, *b, group=qb.group_size,
+                                             **kw)):
+                raise AssertionError(f"matmul_out {tag}: two launches "
+                                     f"differ")
             for name, g, w in (
                     ("matmul_rhs", h, matmul_rhs_ref(x, *a, group=qa.group_size,
                                                      **kw)),
@@ -844,6 +849,8 @@ def phase_sgmv_kernels():
         tag = f"K={k:5d} M={m:5d} {fmt:6s} {phase:7s} T={rows:3d}"
         if not torch.equal(h, sgmv_rhs(x, *a, seg, **kw)):
             raise AssertionError(f"sgmv_rhs {tag}: two launches differ")
+        if not torch.equal(y, sgmv_out(h, *b, seg, **okw)):
+            raise AssertionError(f"sgmv_out {tag}: two launches differ")
         errs = {
             "sgmv_rhs": check_close(f"sgmv_rhs {tag}", h,
                                     sgmv_rhs_ref(x, *a, seg, **kw)),
@@ -1069,8 +1076,11 @@ def main() -> int:
     for line in report:
         log(f"  ptxas: {line}")
     for name in KERNELS:                      # every kernel, in every form
-        if built and not any(f"{name}_kernel" in line for line in report):
-            raise AssertionError(f"no ptxas report of {name}_kernel")
+        forms = sum(f"{name}_kernel" in line for line in report)
+        if built and forms < len(kernel.TILE_ROWS):
+            raise AssertionError(f"ptxas reports {forms} forms of "
+                                 f"{name}_kernel, want one per tile-row "
+                                 f"count {kernel.TILE_ROWS}")
 
     # ---- 2. kernel vs plain ----------------------------------------------
     t0 = time.perf_counter()

@@ -139,6 +139,7 @@ def load_library() -> ctypes.CDLL:
     lib.sgmv_out_launch.argtypes = (
         [ptr] * 6                        # h, codes, scale, zero, seg_map, out
         + [i32] * 10                     # T R M NA kt bits binary group ng wpg
+        + [i32p]                         # the cluster plan (ClusterPlan.c_args)
         + [ptr])                         # stream
     lib.matmul_rhs_launch.argtypes = (
         [ptr, i32]                       # x, x_is_bf16
@@ -149,6 +150,7 @@ def load_library() -> ctypes.CDLL:
     lib.matmul_out_launch.argtypes = (
         [ptr] * 5                        # h, codes, scale, zero, out
         + [i32] * 8                      # T R Mp bits binary group ng wpg
+        + [i32p]                         # the cluster plan (ClusterPlan.c_args)
         + [ptr])                         # stream
     lib.fused_lora_launch.argtypes = (
         [ptr, i32]                       # x, x_is_bf16

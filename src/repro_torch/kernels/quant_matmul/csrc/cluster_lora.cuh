@@ -1,12 +1,25 @@
-// One thread-block cluster per token tile: the device code shared by the
-// four LoRAQuant kernels of this directory that compute h = x · Aᵀ, for
-// Hopper (sm_90a): the fused kernels sgmv_fused.cu and fused_lora.cu, and
-// the first passes of the two-pass routes, matmul_rhs.cu and sgmv_rhs.cu.
+// One thread-block cluster per token tile: the device code shared by all
+// six LoRAQuant kernels of this directory, for Hopper (sm_90a): the fused
+// kernels sgmv_fused.cu and fused_lora.cu, the first passes of the two-pass
+// routes, matmul_rhs.cu and sgmv_rhs.cu, and their second passes,
+// matmul_out.cu and sgmv_out.cu.
 //
 // What a cluster computes, for one tile of `live` token rows (at most TR,
 // a compile-time row count) and one adapter's packed sides:
 //     fused:  y[tile] = (x[tile] · A_hiᵀ) · B_hi + (x[tile] · A_loᵀ) · B_lo
 //     rhs:    h[tile] =  x[tile] · Aᵀ                                  (fp32)
+//     out:    y[tile] =  h[tile] · B                 (h fp32, device memory)
+//
+// Packed layout (the JAX package's kernel layout, unchanged): codes (R,
+// NG·Wg) — Wg words per quant group, `per` little-endian codes per word
+// (8/bits per uint8 word; 10 per int32 word for 3-bit, 2 bits unused);
+// scale (R, NG) fp32; zero (R, NG) int32, read only for RTN. RTN
+// dequantizes to `scale·(q − zero)`, binary 1-bit to `scale·(2q − 1)`. This
+// replaces the in-kernel helper `_unpack_dequant_grouped` of the Pallas TPU
+// kernels (src/repro/kernels/quant_matmul/kernel.py:110), which unpacks a
+// whole VMEM tile with lane shifts; here a thread expands whole storage
+// words (below), and the per-group word padding of 3-bit packing is skipped
+// by code index within the group, as `_unpack_dequant_grouped` slices it.
 //
 // What bounds it on an H100: latency. A decode call moves a few hundred KB
 // and needs a few MFLOP, so the design's job is a short chain of dependent
@@ -19,10 +32,10 @@
 //   is 16-byte aligned, 4-byte copies otherwise, plain loads where neither
 //   is): the x rows, the A and B code words, scales and zeros. Slices wider
 //   than the plan's chunk are staged chunk by chunk.
-// * Phase 1, the one path of all four kernels (`lora_tile`): the block
-//   reduces its K slice into a partial h (slots × TR fp32, slots = R_hi +
-//   R_lo) in shared memory; a warp owns a slot and its lanes walk the
-//   slice word by word.
+// * Phase 1, the one path of the four kernels that read x (`lora_tile`):
+//   the block reduces its K slice into a partial h (slots × TR fp32, slots
+//   = R_hi + R_lo) in shared memory; a warp owns a slot and its lanes walk
+//   the slice word by word.
 // * cluster.sync(), then h is the sum of the C partials read out of the
 //   blocks' shared memory (distributed shared memory, map_shared_rank) in
 //   rank order 0..C-1. No float atomics are used, and the same inputs give
@@ -31,13 +44,20 @@
 //   scratch); the rhs kernels (an A-only call: M = 0, no low side) split
 //   the tile's live × R elements of h among the blocks, each summed and
 //   stored to device memory by one block.
-// * Phase 2 (fused only): the block computes its M slice: a work item is
+// * Phase 2 (fused and out): the block computes its M slice: a work item is
 //   one code word of B (`per` consecutive output columns) and two of the
 //   tile's rows; it loops over the side's rank rows and keeps 2 × per sums
 //   in registers; the high side's sums are stored to shared memory, the low
 //   side's added, and y is written with float4 stores where M allows.
 // * A final cluster barrier keeps every block's partial h alive until its
 //   neighbours have read it.
+// * An out call (matmul_out, sgmv_out: a B-only call, K = 0, no A sides)
+//   has no phase 1 and nothing to reduce, so it launches plain blocks (a
+//   cluster of 1), the plan's C blocks of a tile splitting M as above. A
+//   block lays out only side 1 (out_layout), loads the tile's rows of h
+//   from device memory into registers, issues the cp.async copies of its
+//   first B chunk, stores h slot-major for phase 2 (rows past `live` read
+//   0) and runs phase 2 as the fused kernels do.
 //
 // Dequant is word-wise: a thread loads one storage word and its group's
 // scale and zero once and expands every code of it in registers with the
@@ -56,9 +76,43 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "unpack.cuh"
-
 namespace loraquant {
+
+__device__ __forceinline__ float load_x(const float* x, size_t i) {
+  return x[i];
+}
+__device__ __forceinline__ float load_x(const __nv_bfloat16* x, size_t i) {
+  return __bfloat162float(x[i]);
+}
+
+// One packed factor in the kernel layout, with its bit width and grouping
+// known only at run time (one build serves every recipe).
+struct QSide {
+  const void* codes;
+  const float* scale;
+  const int32_t* zero;
+  int bits;    // 1, 2, 3, 4 or 8
+  int binary;  // 1: scale·(2q − 1), zero never read
+  int group;   // codes per quant group
+  int ng;      // quant groups per row
+  int wpg;     // storage words per group
+};
+
+// The side of adapter `a` in a stack (NA, rows, ·) of sides that share one
+// layout: every array offset by `a · rows · ng` groups. A binary side may
+// carry no zero-points (nullptr), which are then never read.
+__device__ __forceinline__ QSide adapter_side(QSide s, int rows, int a) {
+  const size_t groups = static_cast<size_t>(a) * rows * s.ng;
+  const size_t word_bytes = s.bits == 3 ? 4 : 1;
+  s.codes = static_cast<const char*>(s.codes) + groups * s.wpg * word_bytes;
+  s.scale += groups;
+  if (s.zero != nullptr) s.zero += groups;
+  return s;
+}
+
+// The rank rows (high + low) every kernel of this directory holds at most.
+constexpr int kMaxSlots = 64;
+
 namespace cluster {
 
 namespace cg = cooperative_groups;
@@ -72,7 +126,7 @@ constexpr int kMaxCluster = 8;      // the portable cluster size (MAX_CLUSTER)
 // side's group: block b of a cluster owns units
 // [b·k_units, min(NU, (b+1)·k_units)) of the NU = ceil(K / k_unit) and
 // stages them `k_chunk` units at a time. An A-only plan (M = 0) has
-// m_units = m_chunk = 0.
+// m_units = m_chunk = 0, a B-only plan (K = 0) k_units = k_chunk = 0.
 struct Plan {
   int cluster;                       // C, blocks per token tile
   int k_unit, k_units, k_chunk;
@@ -84,11 +138,12 @@ struct Plan {
 
 // sides: 0 A_hi, 1 B_hi, 2 A_lo, 3 B_lo (adapter 0 of each stack). An
 // A-only call (matmul_rhs, sgmv_rhs) has M = 0 and r_lo = 0: side 0 is its
-// A, out its h (T, r_hi).
+// A, out its h (T, r_hi). A B-only call (matmul_out, sgmv_out) has K = 0
+// and r_lo = 0: x is its h (T, r_hi) fp32, side 1 its B.
 struct Params {
   const void* x;
   QSide side[4];
-  const int32_t* seg_map;            // sgmv_fused, sgmv_rhs
+  const int32_t* seg_map;            // sgmv_*
   float* out;
   int T, K, M, NA, r_hi, r_lo, kt;   // kt: live rows per tile (sgmv_*)
   Plan plan;
@@ -147,6 +202,34 @@ __host__ __device__ inline Layout make_layout(const Params& p, int tr,
     l.zero[s] = off;
     off = align16(off + (q.binary ? 0 : sizeof(int32_t) * l.gpc[s] * rows));
   }
+  l.total = off;
+  return l;
+}
+
+// make_layout of an out call (K = 0, r_lo = 0: side 1 only): the same
+// offsets without the loop over four sides, whose divisions and 64-bit
+// offsets every block of an out kernel would otherwise compute before its
+// first load.
+__host__ __device__ inline Layout out_layout(const Params& p, int tr) {
+  Layout l = {};
+  const QSide& q = p.side[1];
+  const int rows = p.r_hi;
+  const int m_cols = p.plan.m_chunk * p.plan.m_unit;
+  size_t off = align16(sizeof(float) * rows * tr);
+  l.hf = off;
+  off = align16(off + sizeof(float) * rows * tr);
+  l.xs = l.ys = off;
+  l.ys_stride = (m_cols + 3) & ~3;
+  off = align16(off + sizeof(float) * l.ys_stride * tr);
+  l.gpc[1] = m_cols / q.group;
+  l.code_stride[1] = static_cast<int>(
+      align16(static_cast<size_t>(l.gpc[1]) * q.wpg * word_bytes(q)));
+  l.codes[1] = off;
+  off = align16(off + static_cast<size_t>(l.code_stride[1]) * rows);
+  l.scale[1] = off;
+  off = align16(off + sizeof(float) * l.gpc[1] * rows);
+  l.zero[1] = off;
+  off = align16(off + (q.binary ? 0 : sizeof(int32_t) * l.gpc[1] * rows));
   l.total = off;
   return l;
 }
@@ -382,25 +465,36 @@ __device__ __forceinline__ void chunk_groups(const QSide& q, int c0, int c1,
 }
 
 // ---- the tile ----------------------------------------------------------------
+// What a lora_tile instantiation computes: kFused (sgmv_fused, fused_lora)
+// y (T, M) from x; kRhs (matmul_rhs, sgmv_rhs: an A-only call) h (T, r_hi)
+// from x; kOut (matmul_out, sgmv_out: a B-only call) y (T, M) from h.
+enum class Mode { kFused, kRhs, kOut };
+
 // One cluster's work for token rows [row0, row0 + live) with the sides `sd`
 // (already offset to the tile's adapter); live <= TR. Phase 1 and the
-// rank-order reduction of h are the one path of all four kernels; FUSED
-// (sgmv_fused, fused_lora) adds phase 2 and writes y (T, M), else
-// (matmul_rhs, sgmv_rhs: an A-only call) h (T, r_hi) is stored to p.out,
-// the tile's live × r_hi elements split among the C blocks in row-major
-// order, so each is summed and stored by one block, consecutive threads on
-// consecutive addresses. (A compile-time flag, not a phase-1 function of
-// its own: factored out, the same code cost the fused kernels up to 15
-// registers and 6 % at a prefill shape on an H100.)
-template <int TR, typename XT, bool FUSED>
+// rank-order reduction of h are the one path of kFused and kRhs. kFused
+// adds phase 2 and writes y (T, M); kRhs stores h (T, r_hi) to p.out, the
+// tile's live × r_hi elements split among the C blocks in row-major order,
+// so each is summed and stored by one block, consecutive threads on
+// consecutive addresses. kOut (plain blocks, block b of a tile being
+// blockIdx.x mod C) loads the tile's h rows from p.x in place of phase 1
+// and the reduction, then runs the same phase 2. (A compile-time mode, not
+// a function per phase: a phase-1 function of its own cost the fused
+// kernels up to 15 registers and 6 % at a prefill shape on an H100.)
+template <int TR, typename XT, Mode MODE>
 __device__ void lora_tile(const Params& p, const QSide (&sd)[4], int row0,
                           int live) {
   extern __shared__ __align__(16) unsigned char cluster_smem[];
   unsigned char* smem = cluster_smem;
   cg::cluster_group cl = cg::this_cluster();
-  const int rank = static_cast<int>(cl.block_rank());
+  const int rank = MODE == Mode::kOut
+                       ? static_cast<int>(blockIdx.x % p.plan.cluster)
+                       : static_cast<int>(cl.block_rank());
   const Plan& pl = p.plan;
-  const Layout l = make_layout(p, TR, static_cast<int>(sizeof(XT)));
+  const Layout l = MODE == Mode::kOut
+                       ? out_layout(p, TR)
+                       : make_layout(p, TR, static_cast<int>(sizeof(XT)));
+  constexpr int kSides = MODE == Mode::kOut ? 2 : 4;  // an out call: side 1
   const int slots = p.r_hi + p.r_lo;
   float* hp = reinterpret_cast<float*>(smem + l.hp);
   float* hf = reinterpret_cast<float*>(smem + l.hf);
@@ -410,7 +504,7 @@ __device__ void lora_tile(const Params& p, const QSide (&sd)[4], int row0,
   const XT* x = static_cast<const XT*>(p.x);
 
   // this block's K and M units
-  const int nu_k = (p.K + pl.k_unit - 1) / pl.k_unit;
+  const int nu_k = MODE == Mode::kOut ? 0 : (p.K + pl.k_unit - 1) / pl.k_unit;
   const int nu_m = (p.M + pl.m_unit - 1) / pl.m_unit;
   const int ku0 = rank * pl.k_units, ku1 = min(nu_k, ku0 + pl.k_units);
   const int mu0 = rank * pl.m_units, mu1 = min(nu_m, mu0 + pl.m_units);
@@ -432,7 +526,7 @@ __device__ void lora_tile(const Params& p, const QSide (&sd)[4], int row0,
   auto stage_m = [&](int u) {         // B sides of M chunk u
     const int c0 = u * pl.m_unit;
     const int c1 = min(u + pl.m_chunk, mu1) * pl.m_unit;
-    for (int s = 1; s < 4; s += 2) {
+    for (int s = 1; s < kSides; s += 2) {
       int g0, g1;
       if (side_rows(p, s) == 0) continue;
       chunk_groups(sd[s], c0, c1, &g0, &g1);
@@ -440,68 +534,94 @@ __device__ void lora_tile(const Params& p, const QSide (&sd)[4], int row0,
     }
   };
 
-  // every load of the first chunks up front: A and x (group 0), B (group 1)
-  if (ku0 < ku1) stage_k(ku0);
-  cp_async_commit();
-  if constexpr (FUSED) {
+  if constexpr (MODE == Mode::kOut) {
+    // every load up front: the tile's h rows (read row-major into registers
+    // first, so their latency overlaps the staging), then B's first chunk
+    // (cp.async); h is stored slot-major (hf[r·TR + t]), rows past `live` 0
+    constexpr int kH = (kMaxSlots * TR + kThreads - 1) / kThreads;
+    const int R = p.r_hi;
+    const float* h =
+        static_cast<const float*>(p.x) + static_cast<size_t>(row0) * R;
+    float hv[kH];
+#pragma unroll
+    for (int k = 0; k < kH; ++k) {
+      const int i = threadIdx.x + k * kThreads;
+      hv[k] = i < live * R ? h[i] : 0.f;
+    }
     if (mu0 < mu1) stage_m(mu0);
-  }
-  cp_async_commit();
-  for (int i = threadIdx.x; i < slots * TR; i += blockDim.x) hp[i] = 0.f;
-  // rows past the tile's live rows read 0 (never staged)
-  for (int i = threadIdx.x; i < (TR - live) * l.xs_stride; i += blockDim.x)
-    (reinterpret_cast<unsigned char*>(xs) + static_cast<size_t>(live) * l.xs_stride)[i] = 0;
+    cp_async_commit();
+#pragma unroll
+    for (int k = 0; k < kH; ++k) {
+      const int i = threadIdx.x + k * kThreads;
+      if (i < R * TR) {
+        const int t = i / R;
+        hf[(i - t * R) * TR + t] = hv[k];
+      }
+    }
+  } else {
+    // every load of the first chunks up front: A and x (group 0), B (group 1)
+    if (ku0 < ku1) stage_k(ku0);
+    cp_async_commit();
+    if constexpr (MODE == Mode::kFused) {
+      if (mu0 < mu1) stage_m(mu0);
+    }
+    cp_async_commit();
+    for (int i = threadIdx.x; i < slots * TR; i += blockDim.x) hp[i] = 0.f;
+    // rows past the tile's live rows read 0 (never staged)
+    for (int i = threadIdx.x; i < (TR - live) * l.xs_stride; i += blockDim.x)
+      (reinterpret_cast<unsigned char*>(xs) + static_cast<size_t>(live) * l.xs_stride)[i] = 0;
 
-  // ---- phase 1: partial h over this block's K slice ------------------------
-  for (int u = ku0; u < ku1; u += pl.k_chunk) {
-    if (u != ku0) {
-      __syncthreads();                // the previous chunk is consumed
-      stage_k(u);
-      cp_async_commit();
-      cp_async_wait<0>();
-    } else {
-      cp_async_wait<1>();
+    // ---- phase 1: partial h over this block's K slice ----------------------
+    for (int u = ku0; u < ku1; u += pl.k_chunk) {
+      if (u != ku0) {
+        __syncthreads();                // the previous chunk is consumed
+        stage_k(u);
+        cp_async_commit();
+        cp_async_wait<0>();
+      } else {
+        cp_async_wait<1>();
+      }
+      __syncthreads();
+      const int c0 = u * pl.k_unit;
+      const int c1 = min(u + pl.k_chunk, ku1) * pl.k_unit;
+      const int ncols = min(p.K, c1) - c0;
+      for (int s = 0; s < 4; s += 2) {
+        const int rows = side_rows(p, s);
+        if (rows == 0) continue;
+        int g0, g1;
+        chunk_groups(sd[s], c0, c1, &g0, &g1);
+        rhs_dispatch<TR>(sd[s], staged(smem, l, s, g0, g1, ncols), rows, xs,
+                         xs_stride, hp + (s == 0 ? 0 : p.r_hi * TR));
+      }
     }
-    __syncthreads();
-    const int c0 = u * pl.k_unit;
-    const int c1 = min(u + pl.k_chunk, ku1) * pl.k_unit;
-    const int ncols = min(p.K, c1) - c0;
-    for (int s = 0; s < 4; s += 2) {
-      const int rows = side_rows(p, s);
-      if (rows == 0) continue;
-      int g0, g1;
-      chunk_groups(sd[s], c0, c1, &g0, &g1);
-      rhs_dispatch<TR>(sd[s], staged(smem, l, s, g0, g1, ncols), rows, xs,
-                       xs_stride, hp + (s == 0 ? 0 : p.r_hi * TR));
-    }
-  }
 
-  // ---- h = Σ over the cluster's partials, in rank order -----------------------
-  cl.sync();
-  if constexpr (!FUSED) {
-    const int R = p.r_hi, n = live * R, C = pl.cluster;
-    const int share = (n + C - 1) / C;
-    const int i1 = min(n, (rank + 1) * share);
-    float* out = p.out + static_cast<size_t>(row0) * R;
-    for (int i = rank * share + threadIdx.x; i < i1; i += blockDim.x) {
-      const int t = i / R, r = i - t * R;
-      float v = 0.f;
-      for (int b = 0; b < C; ++b)
-        v += cl.map_shared_rank(hp, b)[r * TR + t];
-      out[i] = v;
+    // ---- h = Σ over the cluster's partials, in rank order ---------------------
+    cl.sync();
+    if constexpr (MODE == Mode::kRhs) {
+      const int R = p.r_hi, n = live * R, C = pl.cluster;
+      const int share = (n + C - 1) / C;
+      const int i1 = min(n, (rank + 1) * share);
+      float* out = p.out + static_cast<size_t>(row0) * R;
+      for (int i = rank * share + threadIdx.x; i < i1; i += blockDim.x) {
+        const int t = i / R, r = i - t * R;
+        float v = 0.f;
+        for (int b = 0; b < C; ++b)
+          v += cl.map_shared_rank(hp, b)[r * TR + t];
+        out[i] = v;
+      }
+      cl.sync();                        // the neighbours are done reading hp
+      return;
     }
-    cl.sync();                        // the neighbours are done reading hp
-    return;
-  }
-  if (mu0 < mu1) {
-    for (int i = threadIdx.x; i < slots * TR; i += blockDim.x) {
-      float v = 0.f;
-      for (int r = 0; r < pl.cluster; ++r)
-        v += cl.map_shared_rank(hp, r)[i];
-      hf[i] = v;
+    if (mu0 < mu1) {
+      for (int i = threadIdx.x; i < slots * TR; i += blockDim.x) {
+        float v = 0.f;
+        for (int r = 0; r < pl.cluster; ++r)
+          v += cl.map_shared_rank(hp, r)[i];
+        hf[i] = v;
+      }
     }
+    cluster_arrive();                   // done reading the neighbours' hp
   }
-  cluster_arrive();                   // done reading the neighbours' hp
 
   // ---- phase 2: y over this block's M slice ----------------------------------
   cp_async_wait<0>();
@@ -517,7 +637,7 @@ __device__ void lora_tile(const Params& p, const QSide (&sd)[4], int row0,
     const int c0 = u * pl.m_unit;
     const int c1 = min(u + pl.m_chunk, mu1) * pl.m_unit;
     const int ncols = min(p.M, c1) - c0;
-    for (int s = 1; s < 4; s += 2) {
+    for (int s = 1; s < kSides; s += 2) {
       const int rows = side_rows(p, s);
       if (rows == 0) continue;
       int g0, g1;
@@ -543,7 +663,8 @@ __device__ void lora_tile(const Params& p, const QSide (&sd)[4], int row0,
       }
     }
   }
-  cluster_wait();                     // the neighbours are done reading hp
+  if constexpr (MODE == Mode::kFused)
+    cluster_wait();                   // the neighbours are done reading hp
 }
 
 // ---- host side -----------------------------------------------------------------
@@ -553,15 +674,20 @@ __device__ void lora_tile(const Params& p, const QSide (&sd)[4], int row0,
 inline bool plan_ok(const Params& p, int tr) {
   const Plan& pl = p.plan;
   if (pl.cluster < 1 || pl.cluster > kMaxCluster || pl.k_unit < 1 ||
-      pl.m_unit < 1 || pl.k_units < 1 || pl.k_chunk < 1 || tr < 1 || tr > 8)
+      pl.m_unit < 1 || tr < 1 || tr > 8 || (p.K == 0 && p.M == 0))
     return false;
+  if (p.K > 0 && (pl.k_units < 1 || pl.k_chunk < 1)) return false;
   if (p.M > 0 && (pl.m_units < 1 || pl.m_chunk < 1)) return false;
-  if (p.M == 0 && p.r_lo != 0) return false;  // A-only: one side
+  // A-only and B-only: one side
+  if ((p.K == 0 || p.M == 0) && p.r_lo != 0) return false;
+  // an out call's blocks lay out shared memory by out_layout
+  if (p.K == 0 && out_layout(p, tr).total != make_layout(p, tr, 4).total)
+    return false;
   if (static_cast<long long>(pl.cluster) * pl.k_units * pl.k_unit < p.K ||
       static_cast<long long>(pl.cluster) * pl.m_units * pl.m_unit < p.M)
     return false;
   for (int s = 0; s < 4; ++s) {
-    if (side_rows(p, s) == 0 || ((s & 1) && p.M == 0)) continue;
+    if (side_rows(p, s) == 0 || ((s & 1) ? p.M == 0 : p.K == 0)) continue;
     const int unit = (s & 1) ? pl.m_unit : pl.k_unit;
     const int v = pl.vec[s];
     if (unit % p.side[s].group != 0 || (v != 16 && v != 4 && v != 1) ||
@@ -571,13 +697,14 @@ inline bool plan_ok(const Params& p, int tr) {
   return pl.vec_x == 16 || pl.vec_x == 4 || pl.vec_x == 1;
 }
 
-// Launch `Kernel` over `tiles` clusters of plan.cluster blocks; returns the
-// launch's CUDA error (0 on success). The function attributes are set once
-// per kernel and only raised, so a launch captured into a CUDA graph after
-// a first launch makes no attribute call.
+// Launch `Kernel` over `tiles` clusters of plan.cluster blocks (or, for a
+// kernel that reads no neighbour's shared memory, `cluster` false, as many
+// plain blocks); returns the launch's CUDA error (0 on success). The
+// function attributes are set once per kernel and only raised, so a launch
+// captured into a CUDA graph after a first launch makes no attribute call.
 template <auto Kernel>
 inline int launch(const Params& p, int tr, int x_bytes, int tiles,
-                  cudaStream_t stream) {
+                  cudaStream_t stream, bool cluster = true) {
   static size_t smem_set = 48 * 1024;
   const size_t smem = make_layout(p, tr, x_bytes).total;
   cudaError_t e = cudaSuccess;
@@ -599,7 +726,7 @@ inline int launch(const Params& p, int tr, int x_bytes, int tiles,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = cluster ? 1 : 0;
   e = cudaLaunchKernelEx(&cfg, Kernel, p);
   const cudaError_t last = cudaGetLastError();
   return e != cudaSuccess ? e : last;
@@ -627,6 +754,25 @@ inline Params rhs_params(const void* x, const QSide& a,
   p.seg_map = seg_map;
   p.out = out;
   p.T = T; p.K = K; p.M = 0; p.NA = NA;
+  p.r_hi = R; p.r_lo = 0; p.kt = kt;
+  p.plan = make_plan(plan);
+  return p;
+}
+
+// The Params of a B-only call (matmul_out, sgmv_out): h (T, R) fp32 is
+// read from `h`, side 1 is Bᵀ (NA stacked adapters of R rows), y (T, M)
+// goes to `out`. A_hi is never read: with K = 0 it has no columns, and a
+// group of 1 gives it no shared memory (make_layout).
+inline Params out_params(const float* h, const QSide& b,
+                         const int32_t* seg_map, float* out, int T, int M,
+                         int NA, int R, int kt, const int* plan) {
+  Params p = {};
+  p.x = h;
+  p.side[0].group = 1;
+  p.side[1] = b;
+  p.seg_map = seg_map;
+  p.out = out;
+  p.T = T; p.K = 0; p.M = M; p.NA = NA;
   p.r_hi = R; p.r_lo = 0; p.kt = kt;
   p.plan = make_plan(plan);
   return p;

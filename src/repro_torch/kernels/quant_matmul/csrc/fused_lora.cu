@@ -7,12 +7,13 @@
 // (src/repro/kernels/quant_matmul/kernel.py:348, pallas_call at :466).
 //
 // What it computes: x (T, K) bf16 or fp32, any T; each side packed as in
-// unpack.cuh with its own bit width, grouping and padded row count (the
-// high side RTN of 2/3/4/8 bits or binary, the low side usually binary);
-// A_hi (R_hi, ·) and B_hiᵀ (R_hi, ·), A_lo and B_loᵀ (R_lo, ·). The output
-// has exactly M columns: B's last-group padding is never computed. (The
-// TPU kernel writes the group-padded width into an M-wide block and fails
-// when M is not a multiple of B's group; this kernel does not.)
+// cluster_lora.cuh with its own bit width, grouping and padded row count
+// (the high side RTN of 2/3/4/8 bits or binary, the low side usually
+// binary); A_hi (R_hi, ·) and B_hiᵀ (R_hi, ·), A_lo and B_loᵀ (R_lo, ·).
+// The output has exactly M columns: B's last-group padding is never
+// computed. (The TPU kernel writes the group-padded width into an M-wide
+// block and fails when M is not a multiple of B's group; this kernel does
+// not.)
 //
 // What bounds it on an H100: latency, not bytes or operations. A decode
 // call (T = 16) moves ~100 KB and needs ~6 MFLOP (bound < 1 µs); what a
@@ -46,7 +47,7 @@ __global__ void __launch_bounds__(cl::kThreads, 1)
     fused_lora_kernel(const cl::Params p) {
   const int row0 = (blockIdx.x / p.plan.cluster) * TR;
   const QSide sd[4] = {p.side[0], p.side[1], p.side[2], p.side[3]};
-  cl::lora_tile<TR, XT, true>(p, sd, row0, min(TR, p.T - row0));
+  cl::lora_tile<TR, XT, cl::Mode::kFused>(p, sd, row0, min(TR, p.T - row0));
 }
 
 template <typename XT>

@@ -5,7 +5,8 @@
 // (src/repro/kernels/quant_matmul/kernel.py:157, pallas_call at :176).
 //
 // What it computes: x (T, K) bf16 or fp32, any T; A (R, NG·Wg) packed as in
-// unpack.cuh (RTN of 2/3/4/8 bits or binary 1-bit), R ≤ 64 → h (T, R) fp32.
+// cluster_lora.cuh (RTN of 2/3/4/8 bits or binary 1-bit), R ≤ 64 → h (T, R)
+// fp32.
 // Columns of A past K (the last group's padding) never count.
 //
 // What bounds it on an H100: latency, not bytes or operations. A decode
@@ -40,7 +41,7 @@ __global__ void __launch_bounds__(cl::kThreads, 1)
     matmul_rhs_kernel(const cl::Params p) {
   const int row0 = (blockIdx.x / p.plan.cluster) * TR;
   const QSide sd[4] = {p.side[0], p.side[1], p.side[2], p.side[3]};
-  cl::lora_tile<TR, XT, false>(p, sd, row0, min(TR, p.T - row0));
+  cl::lora_tile<TR, XT, cl::Mode::kRhs>(p, sd, row0, min(TR, p.T - row0));
 }
 
 template <typename XT>

@@ -11,10 +11,10 @@
 // The full contract of the TPU kernel: every side carries its own bit width
 // (RTN of 2/3/4/8 bits, `scale·(q − zero)`, or binary 1-bit,
 // `scale·(2q − 1)`, zero never read) and its own quant groups, read at run
-// time (unpack.cuh's QSide); A_hi and B_hi may differ in width; the low
-// side is optional (r_lo = 0 never touches its pointers) and has its own
-// padded rank R_lo. Rows padded with zero scales (adapters with a smaller
-// split h) give exactly 0. The output has exactly `M` columns.
+// time (cluster_lora.cuh's QSide); A_hi and B_hi may differ in width; the
+// low side is optional (r_lo = 0 never touches its pointers) and has its
+// own padded rank R_lo. Rows padded with zero scales (adapters with a
+// smaller split h) give exactly 0. The output has exactly `M` columns.
 //
 // Layout (the JAX package's kernel layout, unchanged): each side a stack
 // (NA, R, NG·Wg) of codes — Wg words per quant group, `per` little-endian
@@ -60,7 +60,7 @@ __global__ void __launch_bounds__(cl::kThreads, 1)
     sd[s] = rows > 0 ? loraquant::adapter_side(p.side[s], rows, seg)
                      : p.side[s];
   }
-  cl::lora_tile<TR, XT, true>(p, sd, tile * p.kt, p.kt);
+  cl::lora_tile<TR, XT, cl::Mode::kFused>(p, sd, tile * p.kt, p.kt);
 }
 
 template <typename XT>

@@ -6,85 +6,86 @@
 // (src/repro/kernels/quant_matmul/kernel.py:293, pallas_call at :320).
 //
 // What it computes: h (T, R) fp32, a stack Bᵀ (NA, R, NG·Wg) packed as in
-// unpack.cuh and seg_map (T / kt,) int32 → y (T, m) fp32, where token tile i
-// uses adapter seg_map[i] (clamped to [0, NA)) and m ≤ NG·group. Exactly m
-// columns are computed and written: unlike matmul_out, the caller slices
-// nothing. Zero-scale pad rows add exactly 0.
+// cluster_lora.cuh (RTN of 2/3/4/8 bits or binary 1-bit, whose zero-points
+// may be absent), R ≤ 64, and seg_map (T / kt,) int32 → y (T, m) fp32,
+// where token tile i uses adapter seg_map[i] (clamped to [0, NA)) and
+// m ≤ NG·group. Exactly m columns are computed and written: unlike
+// matmul_out, the caller slices nothing. Zero-scale pad rows add exactly 0.
 //
-// What bounds it on an H100: bytes. The work is 2·T·R·m flops against h,
-// the packed Bᵀ of the adapters the tiles touch and the T×m fp32 output,
-// which dominates: R ≤ 64 flops per output element written. Each output
-// element is written once, consecutive threads on consecutive columns, and
-// Bᵀ is dequantized in registers, never written out.
+// What bounds it on an H100: latency. The byte bound is the T×m fp32
+// output (R ≤ 64 flops per element written), but a decode call (16 one-row
+// tiles, m ≤ 8192) writes at most 0.5 MB, ~0.2 µs at 3.35 TB/s; what a
+// design must shorten is each block's chain of dependent steps from its
+// first instruction to its last store.
 //
-// Design (simple and correct first): grid = (token tiles) × (column chunks
-// of blockDim). A block stages its tile's h rows in shared memory; each
-// thread owns one output column of the tile's adapter, dequantizes its R
-// codes and writes kt outputs. Known cost: every token tile dequantizes its
-// adapter's Bᵀ again.
+// Design (cluster_lora.cuh, the phase 2 of sgmv_fused, a B-only call of
+// lora_tile): plain blocks, C per token tile, TR = kt rounded up to
+// 1/2/4/8 rows (a template parameter, so a decode tile does no work for
+// dead rows), with Bᵀ offset to the tile's adapter; block b owns an M slice
+// of whole quant groups, and a prefill's M split is halved until the grid
+// fits about two blocks per SM. A block computes only side 1's
+// shared-memory layout (out_layout), loads its h rows into registers,
+// issues the cp.async copies of its first slice chunk (codes, scales,
+// zeros) while they arrive, expands each code word in registers at its
+// compile-time width with the word's scale and zero loaded once, and
+// writes y with float4 stores where m allows. Each output element is
+// computed and written by one thread with no float atomics, so two
+// launches give the same bits.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "unpack.cuh"
+#include "cluster_lora.cuh"
 
 namespace {
 
+namespace cl = loraquant::cluster;
 using loraquant::QSide;
-using loraquant::kTileRows;
 
-constexpr int kThreads = 256;
+template <int TR>
+__global__ void __launch_bounds__(cl::kThreads, 1)
+    sgmv_out_kernel(const cl::Params p) {
+  const int tile = blockIdx.x / p.plan.cluster;
+  const int seg = min(max(p.seg_map[tile], 0), p.NA - 1);
+  const QSide sd[4] = {p.side[0],
+                       loraquant::adapter_side(p.side[1], p.r_hi, seg),
+                       p.side[2], p.side[3]};
+  cl::lora_tile<TR, float, cl::Mode::kOut>(p, sd, tile * p.kt, p.kt);
+}
 
-__global__ void __launch_bounds__(kThreads)
-    sgmv_out_kernel(const float* __restrict__ h, QSide b,
-                    const int32_t* __restrict__ seg_map, float* out, int R,
-                    int M, int NA, int kt) {
-  __shared__ float hs[loraquant::kMaxSlots * kTileRows];
-  const int tile = blockIdx.x;
-  const int row0 = tile * kt;
-  for (int i = threadIdx.x; i < R * kTileRows; i += blockDim.x) {
-    const int s = i / kTileRows, t = i - s * kTileRows;
-    hs[i] = t < kt ? h[static_cast<size_t>(row0 + t) * R + s] : 0.f;
+int launch_rows(const cl::Params& p, int tr, int tiles, cudaStream_t s) {
+  constexpr int kB = sizeof(float);
+  switch (tr) {
+    case 1: return cl::launch<sgmv_out_kernel<1>>(p, 1, kB, tiles, s, false);
+    case 2: return cl::launch<sgmv_out_kernel<2>>(p, 2, kB, tiles, s, false);
+    case 4: return cl::launch<sgmv_out_kernel<4>>(p, 4, kB, tiles, s, false);
+    default: return cl::launch<sgmv_out_kernel<8>>(p, 8, kB, tiles, s, false);
   }
-  __syncthreads();
-  const int c = blockIdx.y * blockDim.x + threadIdx.x;
-  if (c >= M) return;
-  const int seg = min(max(seg_map[tile], 0), NA - 1);
-  const QSide bs = loraquant::adapter_side(b, R, seg);
-  float y[kTileRows];
-#pragma unroll
-  for (int t = 0; t < kTileRows; ++t) y[t] = 0.f;
-  for (int r = 0; r < R; ++r) {
-    const float w = loraquant::dequant_at(bs, r, c);
-#pragma unroll
-    for (int t = 0; t < kTileRows; ++t)
-      y[t] = fmaf(hs[r * kTileRows + t], w, y[t]);
-  }
-#pragma unroll
-  for (int t = 0; t < kTileRows; ++t)
-    if (t < kt) out[static_cast<size_t>(row0 + t) * M + c] = y[t];
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches sgmv_out on `stream`; returns cudaGetLastError() after the
-// launch (0 on success). Shapes are validated by the Python wrapper; the
-// checks here guard the kernel's own limits.
+// Launches sgmv_out on `stream` with the B-only launch plan of kernel.py's
+// `_cluster_plan`; returns the launch's CUDA error (0 on success). Shapes
+// are validated by the Python wrapper; the checks here guard the kernel's
+// own limits.
 int sgmv_out_launch(const float* h, const void* codes, const float* scale,
                     const int32_t* zero, const int32_t* seg_map, float* out,
                     int T, int R, int M, int NA, int kt, int bits, int binary,
-                    int group, int ng, int wpg, void* stream) {
-  if (R < 1 || R > loraquant::kMaxSlots || kt < 1 || kt > kTileRows ||
+                    int group, int ng, int wpg, const int* plan,
+                    void* stream) {
+  const int tile_rows = plan[1];
+  if (R < 1 || R > loraquant::kMaxSlots || kt < 1 || kt > tile_rows ||
       T < 0 || T % kt != 0 || M < 1 || M > ng * group || NA < 1)
     return cudaErrorInvalidValue;
   if (T == 0) return cudaSuccess;
-  const QSide b{codes, scale, zero, bits, binary, group, ng, wpg};
-  const dim3 grid(T / kt, (M + kThreads - 1) / kThreads);
-  sgmv_out_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      h, b, seg_map, out, R, M, NA, kt);
-  return cudaGetLastError();
+  const cl::Params p = cl::out_params(
+      h, QSide{codes, scale, zero, bits, binary, group, ng, wpg}, seg_map,
+      out, T, M, NA, R, kt, plan);
+  if (!cl::plan_ok(p, tile_rows)) return cudaErrorInvalidValue;
+  return launch_rows(p, tile_rows, T / kt, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -6,11 +6,11 @@
 // (src/repro/kernels/quant_matmul/kernel.py:250, pallas_call at :276).
 //
 // What it computes: x (T, K) bf16 or fp32, a stack A (NA, R, NG·Wg) packed
-// as in unpack.cuh (RTN of 2/3/4/8 bits or binary 1-bit, whose zero-points
-// may be absent), R ≤ 64, and seg_map (T / kt,) int32 → h (T, R) fp32,
-// where token tile i (rows [i·kt, (i+1)·kt)) uses adapter seg_map[i]
-// (clamped to [0, NA)). Columns of A past K (the last group's padding)
-// never count.
+// as in cluster_lora.cuh (RTN of 2/3/4/8 bits or binary 1-bit, whose
+// zero-points may be absent), R ≤ 64, and seg_map (T / kt,) int32 → h
+// (T, R) fp32, where token tile i (rows [i·kt, (i+1)·kt)) uses adapter
+// seg_map[i] (clamped to [0, NA)). Columns of A past K (the last group's
+// padding) never count.
 //
 // What bounds it on an H100: latency, not bytes or operations. A decode
 // call (16 one-row tiles, K = 3072, R = 16) moves ~0.2 MB and needs
@@ -45,7 +45,7 @@ __global__ void __launch_bounds__(cl::kThreads, 1)
   const int seg = min(max(p.seg_map[tile], 0), p.NA - 1);
   const QSide sd[4] = {loraquant::adapter_side(p.side[0], p.r_hi, seg),
                        p.side[1], p.side[2], p.side[3]};
-  cl::lora_tile<TR, XT, false>(p, sd, tile * p.kt, p.kt);
+  cl::lora_tile<TR, XT, cl::Mode::kRhs>(p, sd, tile * p.kt, p.kt);
 }
 
 template <typename XT>

@@ -11,10 +11,12 @@ of the Pallas kernels in ``repro/kernels/quant_matmul/kernel.py``):
 * ``sgmv_fused`` — both products per token tile with the tile's adapter,
   optionally both sub-LoRAs (``csrc/sgmv_fused.cu``).
 
-``fused_lora``, ``sgmv_fused``, ``matmul_rhs`` and ``sgmv_rhs`` launch one
-thread-block cluster per token tile (``csrc/cluster_lora.cuh``, one phase-1
-path for the four); :func:`_cluster_plan` cuts each call into clusters, K
-and M slices and copy widths, and the C launcher takes the plan as it is.
+All six share ``csrc/cluster_lora.cuh``: ``fused_lora``, ``sgmv_fused``,
+``matmul_rhs`` and ``sgmv_rhs`` launch one thread-block cluster per token
+tile (one phase-1 path for the four), ``matmul_out`` and ``sgmv_out`` the
+fused kernels' phase 2 as plain blocks; :func:`_cluster_plan` cuts each
+call into tiles, K and M slices and copy widths, and the C launcher takes
+the plan as it is.
 
 The kernels are CUDA C++, built by ``build.py`` at first use. On a CUDA
 tensor a wrapper launches its kernel on the current stream (or raises); on a
@@ -45,19 +47,19 @@ from .ref import (fused_lora_ref, matmul_out_ref, matmul_rhs_ref,
 LAUNCH_COUNTS: "collections.Counter[str]" = collections.Counter()
 PLAIN_CALLS: "collections.Counter[str]" = collections.Counter()
 
-MAX_TILE_ROWS = 8          # token rows of a tile (the cluster kernels'
-                           # largest TR, the out kernels' kTileRows)
+MAX_TILE_ROWS = 8          # token rows of a tile (the largest compiled TR)
 MAX_SLOTS = 64             # rank rows one block holds, hi + lo
                            # (loraquant::kMaxSlots)
 BITS = (1, 2, 3, 4, 8)
 
-# The cluster launch of fused_lora, sgmv_fused, matmul_rhs and sgmv_rhs
-# (csrc/cluster_lora.cuh)
+# The launch plan of every kernel (csrc/cluster_lora.cuh)
 MAX_CLUSTER = 8            # blocks per token tile (the portable cluster size)
 CHUNK_COLS = 1024          # columns of a K or M slice staged at once
 TILE_ROWS = (1, 2, 4, 8)   # compiled token-row counts of a tile
-TARGET_BLOCKS = 128        # fused_lora / matmul_rhs pick their tile rows
+TARGET_BLOCKS = 128        # fused_lora / matmul_* pick their tile rows
                            # to fill ~132 SMs
+OUT_BLOCKS = 2 * TARGET_BLOCKS  # an out call's plain blocks at most: about
+                                # two per SM, so a prefill runs in one wave
 
 
 def reset_launch_counts() -> None:
@@ -146,12 +148,15 @@ def _device_of(name, tensors) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class ClusterPlan:
-    """How a cluster kernel cuts one launch: ``tiles`` token tiles of
-    ``tile_rows`` compiled rows, one cluster of ``cluster`` blocks each.
+    """How a kernel cuts one launch: ``tiles`` token tiles of ``tile_rows``
+    compiled rows, one cluster of ``cluster`` blocks each (``cluster``
+    plain blocks each for the out kernels, which read no neighbour's shared
+    memory).
     Block b of a cluster owns the K units ``[b·k_units, (b+1)·k_units)`` of
     ``k_unit`` columns (a multiple of every A side's group) and the M units
     likewise, staged ``k_chunk`` / ``m_chunk`` units at a time (an A-only
-    plan has ``m_unit`` 1 and no M units).
+    plan has ``m_unit`` 1 and no M units, a B-only plan ``k_unit`` 1 and no
+    K units).
     ``vec_*`` are the bytes per asynchronous copy (16, 4 or 1) of x and of
     each side's codes ``(A_hi, B_hi, A_lo, B_lo)``; ``vec_y`` is 4 where y is
     written with float4 stores."""
@@ -196,25 +201,32 @@ def _copy_bytes(ptr: int, steps: Sequence[int]) -> int:
 @functools.lru_cache(maxsize=1024)
 def _cluster_plan(t: int, k: int, m: int, kt: Optional[int], x_ptr: int,
                   x_bytes: int, out_ptr: int, sides: tuple) -> ClusterPlan:
-    """The launch plan of one ``fused_lora`` / ``matmul_rhs`` (``kt=None``:
-    the plan picks the tile rows) or ``sgmv_fused`` / ``sgmv_rhs`` call
-    (tiles of ``kt`` rows). ``sides`` are ``(group, words_per_group,
-    word_bytes, codes_ptr)`` of A_hi, B_hi, A_lo, B_lo, or None for an
-    absent side: the low side, or both B sides of an A-only call (the rhs
-    kernels, ``m = 0``). Pointers matter only mod 16, which is what the
-    wrappers pass, so a serve loop's calls hit the cache.
+    """The launch plan of one ``fused_lora`` / ``matmul_*`` (``kt=None``:
+    the plan picks the tile rows) or ``sgmv_*`` call (tiles of ``kt``
+    rows). ``sides`` are ``(group, words_per_group, word_bytes, codes_ptr)``
+    of A_hi, B_hi, A_lo, B_lo, or None for an absent side: the low side,
+    both B sides of an A-only call (the rhs kernels, ``m = 0``) or both A
+    sides of a B-only call (the out kernels, ``k = 0``, which stage no x).
+    Pointers matter only mod 16, which is what the wrappers pass, so a
+    serve loop's calls hit the cache.
 
     K is cut in units of the A sides' common group multiple, M in units of
     the B sides', so that no quant group spans two blocks; the cluster is
     the smallest power of two that gives every unit its own block, at most
-    ``MAX_CLUSTER``. A side's codes are copied 16 bytes at a time only where
-    every group start is 16-byte aligned (a group's bytes and the base
-    pointer divide by 16: so never for 3-bit groups of 13 words), else 4
-    bytes at a time where that holds, else byte by byte."""
+    ``MAX_CLUSTER``, and for a B-only call (plain blocks, nothing to
+    reduce) halved while the grid exceeds ``OUT_BLOCKS``. A side's codes
+    are copied 16 bytes at a time only where every group start is 16-byte
+    aligned (a group's bytes and the base pointer divide by 16: so never for
+    3-bit groups of 13 words), else 4 bytes at a time where that holds,
+    else byte by byte."""
     ah, bh, al, bl = sides
-    if (bh is None) != (m == 0):
+    if (bh is None) != (m == 0) or (bh is None and bl is not None):
         raise ValueError("an A-only plan has m = 0 and no B sides")
-    k_unit = ah[0] if al is None else math.lcm(ah[0], al[0])
+    if (ah is None) != (k == 0) or (ah is None and al is not None):
+        raise ValueError("a B-only plan has k = 0 and no A sides")
+    if k == m == 0:
+        raise ValueError("a plan needs an A or a B side")
+    k_unit = math.lcm(*(s[0] for s in (ah, al) if s is not None))
     m_unit = math.lcm(*(s[0] for s in (bh, bl) if s is not None))
     nu_k, nu_m = -(-k // k_unit), -(-m // m_unit)
     cluster = 1
@@ -228,6 +240,10 @@ def _cluster_plan(t: int, k: int, m: int, kt: Optional[int], x_ptr: int,
     else:
         tile_rows = next(r for r in TILE_ROWS if r >= kt)
         tiles = t // kt
+    if k == 0:
+        while cluster > 1 and tiles * cluster > OUT_BLOCKS:
+            cluster //= 2
+        m_units = -(-nu_m // cluster)
     vec_codes = tuple(0 if s is None else _copy_bytes(s[3], [s[1] * s[2]])
                       for s in sides)
     return ClusterPlan(
@@ -236,7 +252,8 @@ def _cluster_plan(t: int, k: int, m: int, kt: Optional[int], x_ptr: int,
         k_chunk=min(k_units, max(1, CHUNK_COLS // k_unit)),
         m_unit=m_unit, m_units=m_units,
         m_chunk=min(m_units, max(1, CHUNK_COLS // m_unit)),
-        vec_x=_copy_bytes(x_ptr, [k * x_bytes, k_unit * x_bytes]),
+        vec_x=_copy_bytes(x_ptr, [k * x_bytes, k_unit * x_bytes]) if k
+        else 1,
         vec_y=4 if out_ptr % 16 == 0 and m % 4 == 0 and m_unit % 4 == 0
         else 1,
         vec_codes=vec_codes)
@@ -312,10 +329,14 @@ def matmul_out(h, codes, scale, zero, *, bits: int, binary: bool,
         raise NotImplementedError(f"matmul_out holds at most {MAX_SLOTS} "
                                   f"rank rows, got {r}")
     out = torch.empty((t, mp), dtype=torch.float32, device=dev)
+    codes_ptr, out_ptr = codes.data_ptr(), out.data_ptr()
+    plan = _cluster_plan(t, 0, mp, None, 0, 4, out_ptr % 16,
+                         (None, _side_geom(group, wpg, bits, codes_ptr),
+                          None, None))
     _launch("matmul_out", dev, load_library().matmul_out_launch,
-            h.data_ptr(), codes.data_ptr(), scale.data_ptr(),
-            zero.data_ptr(), out.data_ptr(), t, r, mp, bits, int(binary),
-            group, ng, wpg)
+            h.data_ptr(), codes_ptr, scale.data_ptr(), zero.data_ptr(),
+            out_ptr, t, r, mp, bits, int(binary), group, ng, wpg,
+            plan.c_args)
     return out
 
 
@@ -461,10 +482,14 @@ def sgmv_out(h, codes, scale, zero, seg_map, *, bits: int, binary: bool,
         raise NotImplementedError(f"sgmv_out holds at most {MAX_SLOTS} rank "
                                   f"rows per block, got {r}")
     out = torch.empty((t, m), dtype=torch.float32, device=dev)
+    codes_ptr, out_ptr = codes.data_ptr(), out.data_ptr()
+    plan = _cluster_plan(t, 0, m, tile_t, 0, 4, out_ptr % 16,
+                         (None, _side_geom(group, wpg, bits, codes_ptr),
+                          None, None))
     _launch("sgmv_out", dev, load_library().sgmv_out_launch,
-            h.data_ptr(), codes.data_ptr(), scale.data_ptr(), _ptr(zero),
-            seg_map.data_ptr(), out.data_ptr(), t, r, m, na, tile_t, bits,
-            int(binary), group, ng, wpg)
+            h.data_ptr(), codes_ptr, scale.data_ptr(), _ptr(zero),
+            seg_map.data_ptr(), out_ptr, t, r, m, na, tile_t, bits,
+            int(binary), group, ng, wpg, plan.c_args)
     return out
 
 

@@ -1,7 +1,7 @@
 """Tests of the port that need an NVIDIA GPU: build the kernels
 (``sgmv_fused``, ``sgmv_rhs``, ``sgmv_out``, ``fused_lora``, ``matmul_rhs``,
-``matmul_out``) with nvcc
-and hold each against its plain PyTorch version on the card. They skip
+``matmul_out``) with nvcc and hold each against its plain PyTorch version on
+the card. They skip
 on a machine without CUDA. This file imports no JAX, so it also runs where
 JAX is absent:
 
@@ -637,6 +637,145 @@ def test_rhs_kernels_cuda_graph_replay(cuda, name):
     torch.cuda.synchronize()
     assert torch.equal(captured, eager)
     x.copy_(torch.randn(16, 3072, generator=gen, device=cuda))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, call())
+
+
+# --------------------------------------------------------------------------
+# the out kernels (matmul_out, sgmv_out) on the cluster path, a B-only call
+# of the fused kernels' phase 2: every width, groups 8-130 (byte, 4-byte and
+# 16-byte copies; 3-bit groups of 13 words and the group-padded 3-bit Mp),
+# M off the group grid (200, 198) and up to 8192, staged chunks, R = 1 / 16
+# / 64, T 1-512, tiles of 1 / 2 / 4 / 8 rows with clamped adapter ids, two
+# launches and a CUDA-graph replay bitwise equal, the large-M guard shape
+# --------------------------------------------------------------------------
+
+OUT_CASES = [
+    # M, bits, binary, group, R (unpadded)
+    (200, 2, False, 128, 16),
+    (198, 2, False, 32, 8),
+    (60, 2, False, 60, 8),
+    (100, 1, True, 8, 16),
+    (256, 1, True, 32, 8),
+    (260, 3, False, 130, 16),
+    (384, 3, False, 128, 24),
+    (1000, 3, False, 128, 1),
+    (640, 8, False, 64, 24),
+    (8192, 4, False, 128, 16),
+    (3072, 2, False, 128, 64),
+]
+
+
+def _b_stack(gen, na, case, device):
+    """``na`` adapters' Bᵀ sides of one OUT case (B ``(M, R)`` grouped along
+    M), stacked ``(NA, R, ·)`` with R unpadded."""
+    m, bits, binary, group, r = case
+    parts = [_kernel_layout(_fmt_side(gen, m, r, bits, binary, group, 0,
+                                      device), pad_r=r)[:3]
+             for _ in range(na)]
+    return tuple(torch.stack([p[i] for p in parts]) for i in range(3))
+
+
+@pytest.mark.parametrize("t", [1, 13, 16, 37, 512])
+@pytest.mark.parametrize("case", OUT_CASES)
+def test_matmul_out_cluster_path_cuda_vs_plain(cuda, case, t):
+    """Any T (the plan picks tiles of 1..8 rows; the last one short); y over
+    the group-padded width Mp = NG·group; two launches give the same
+    bits."""
+    m, bits, binary, group, r = case
+    gen = torch.Generator(device=cuda).manual_seed(t * 3 + m)
+    b = tuple(v[0] for v in _b_stack(gen, 1, case, cuda))
+    h = torch.randn(t, r, generator=gen, device=cuda)
+    kw = dict(bits=bits, binary=binary, group=group)
+    reset_launch_counts()
+    y = matmul_out(h, *b, **kw)
+    torch.cuda.synchronize()
+    assert dict(LAUNCH_COUNTS) == {"matmul_out": 1}
+    mp = b[1].shape[-1] * group
+    assert y.shape == (t, mp) and y.dtype == torch.float32
+    _close(y, matmul_out_ref(h, *b, **kw))
+    assert torch.equal(y, matmul_out(h, *b, **kw))
+
+
+@pytest.mark.parametrize("tile_t", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", OUT_CASES)
+def test_sgmv_out_cluster_path_cuda_vs_plain(cuda, case, tile_t):
+    """Tiles of 1 / 2 / 4 / 8 rows, each with its adapter, ids out of range
+    clamped; exactly m columns; a binary stack without zero-points; two
+    launches give the same bits."""
+    m, bits, binary, group, r = case
+    na, n_tiles = 4, 13
+    gen = torch.Generator(device=cuda).manual_seed(tile_t * 11 + m)
+    codes, scale, zero = _b_stack(gen, na, case, cuda)
+    if binary:
+        zero = None
+    seg = torch.randint(-2, na + 2, (n_tiles,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    h = torch.randn(n_tiles * tile_t, r, generator=gen, device=cuda)
+    kw = dict(bits=bits, binary=binary, group=group, m=m, tile_t=tile_t)
+    reset_launch_counts()
+    y = sgmv_out(h, codes, scale, zero, seg, **kw)
+    torch.cuda.synchronize()
+    assert dict(LAUNCH_COUNTS) == {"sgmv_out": 1}
+    assert y.shape == (h.shape[0], m)
+    _close(y, sgmv_out_ref(h, codes, scale, zero, seg, **kw))
+    _close(y, sgmv_out_ref(h, codes, scale, zero, seg.clamp(0, na - 1),
+                           **kw))
+    assert torch.equal(y, sgmv_out(h, codes, scale, zero, seg, **kw))
+
+
+def test_out_kernels_large_m_guard_cuda(cuda):
+    """The reference's large-M guard shape (M 32768, K 256, r 8, 128 rows):
+    lora_apply_quantized takes the two-pass route, 1 matmul_rhs + 1
+    matmul_out, and matmul_out stages its M slice chunk by chunk; sgmv_out
+    at the same width."""
+    q = _qlora(256, 32768, 2, 1.0, cuda, seed=13, r=8)
+    x = torch.randn(128, 256, device=cuda)
+    reset_launch_counts()
+    y = lora_apply_quantized(x, q, scaling=2.0)
+    torch.cuda.synchronize()
+    assert dict(LAUNCH_COUNTS) == {"matmul_rhs": 1, "matmul_out": 1}
+    sides, fkw = _fused_args(q)
+    _close(y, 2.0 * fused_lora_ref(x, *sides, **fkw))
+    b = _kernel_layout(q.b_high)[:3]
+    h = torch.randn(128, b[0].shape[0], device=cuda)
+    kw = dict(bits=2, binary=False, group=128)
+    y = matmul_out(h, *b, **kw)
+    _close(y, matmul_out_ref(h, *b, **kw))
+    assert torch.equal(y, matmul_out(h, *b, **kw))
+    stack = tuple(v[None] for v in b)
+    seg = torch.zeros(16, dtype=torch.int32, device=cuda)
+    y = sgmv_out(h, *stack, seg, m=32768, tile_t=8, **kw)
+    _close(y, sgmv_out_ref(h, *stack, seg, m=32768, tile_t=8, **kw))
+
+
+@pytest.mark.parametrize("name", ["matmul_out", "sgmv_out"])
+def test_out_kernels_cuda_graph_replay(cuda, name):
+    """The plain-block launch (cudaLaunchKernelEx) is captured in a CUDA
+    graph: a replay gives the eager result bit for bit, and follows an
+    in-place change of h."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    codes, scale, zero = _b_stack(gen, 4, OUT_CASES[-1], cuda)
+    h = torch.randn(16, 64, generator=gen, device=cuda)
+    seg = torch.randint(0, 4, (16,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    kw = dict(bits=2, binary=False, group=128)
+
+    def call():
+        if name == "matmul_out":
+            return matmul_out(h, codes[1], scale[1], zero[1], **kw)
+        return sgmv_out(h, codes, scale, zero, seg, tile_t=1, **kw)
+
+    eager = call()                       # first launch: build, attributes
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    h.copy_(torch.randn(16, 64, generator=gen, device=cuda))
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(captured, call())

@@ -1,7 +1,8 @@
-"""The launch plan of the cluster kernels (``fused_lora``, ``sgmv_fused``
-and the A-only ``matmul_rhs``, ``sgmv_rhs``): ``_cluster_plan`` in
+"""The launch plan of the kernels (``fused_lora``, ``sgmv_fused``, the
+A-only ``matmul_rhs``, ``sgmv_rhs`` and the B-only ``matmul_out``,
+``sgmv_out``): ``_cluster_plan`` in
 ``repro_torch/kernels/quant_matmul/kernel.py`` is pure Python, so its
-guarantees are held here on the CPU: the blocks of a cluster cover K and M
+guarantees are held here on the CPU: the blocks of a tile cover K and M
 exactly once in whole quant groups of every side, the grid is whole
 clusters, and a side's codes are copied 16 bytes at a time only where every
 group start is 16-byte aligned."""
@@ -11,8 +12,8 @@ import math
 import pytest
 
 from repro_torch.kernels.quant_matmul.kernel import (CHUNK_COLS, MAX_CLUSTER,
-                                                     TILE_ROWS, _cluster_plan,
-                                                     _per_word)
+                                                     OUT_BLOCKS, TILE_ROWS,
+                                                     _cluster_plan, _per_word)
 
 
 def _side(bits, group, ptr=0):
@@ -23,7 +24,8 @@ def _side(bits, group, ptr=0):
 
 def _plan(t, k, m, kt, groups, bits=(2, 2, 1, 1), x_bytes=2):
     """The plan of one call; ``groups`` ``(ah, bh, al, bl)``, None for an
-    absent side (bh None: an A-only call, m = 0)."""
+    absent side (bh None: an A-only call, m = 0; ah None: a B-only call,
+    k = 0)."""
     sides = [None if g is None else _side(b, g)
              for b, g in zip(bits, groups)]
     return _cluster_plan(t, k, m, kt, 0, x_bytes, 0, tuple(sides)), sides
@@ -75,6 +77,15 @@ SHAPES = [
     (39, 250, 0, 3, (32, None, None, None)),
     (24, 640, 0, 3, (100, None, None, None)),
     (64, 16384, 0, 8, (128, None, None, None)),
+    # B-only (matmul_out: kt None; sgmv_out: kt 1 / 3 / 8): k = 0, no A
+    (16, 0, 3072, None, (None, 128, None, None)),
+    (512, 0, 8192, None, (None, 128, None, None)),
+    (128, 0, 32768, None, (None, 128, None, None)),
+    (13, 0, 200, None, (None, 128, None, None)),
+    (16, 0, 1024, 1, (None, 128, None, None)),
+    (512, 0, 3072, 8, (None, 128, None, None)),
+    (39, 0, 198, 3, (None, 32, None, None)),
+    (24, 0, 200, 3, (None, 100, None, None)),
 ]
 
 
@@ -90,11 +101,12 @@ def test_plan_slices_cover_k_and_m_exactly_once(t, k, m, kt, groups):
         assert len(slices) == plan.cluster
         _check_cover(slices, dim, gs)
     # a staging chunk stays within CHUNK_COLS unless one unit is wider; an
-    # A-only plan stages no M
-    for unit, units, chunk in ((plan.k_unit, plan.k_units, plan.k_chunk),
-                               (plan.m_unit, plan.m_units, plan.m_chunk)):
+    # A-only plan stages no M, a B-only plan no K
+    for dim, unit, units, chunk in (
+            (k, plan.k_unit, plan.k_units, plan.k_chunk),
+            (m, plan.m_unit, plan.m_units, plan.m_chunk)):
         if units == 0:
-            assert m == 0 and chunk == 0 and unit == 1
+            assert dim == 0 and chunk == 0 and unit == 1
             continue
         assert 1 <= chunk <= units
         assert chunk * unit <= max(CHUNK_COLS, unit)
@@ -108,14 +120,19 @@ def test_plan_grid_is_whole_clusters_and_tiles_cover_rows(t, k, m, kt,
     grid = plan.tiles * plan.cluster      # the launcher's gridDim.x
     assert grid % plan.cluster == 0 and grid >= plan.cluster
     assert plan.tile_rows in TILE_ROWS
-    if kt is None:                       # fused_lora, matmul_rhs: any T
+    if kt is None:                       # fused_lora, matmul_*: any T
         assert (plan.tiles - 1) * plan.tile_rows < t <= (
             plan.tiles * plan.tile_rows)
     else:                                # sgmv_*: tiles of kt rows
         assert plan.tile_rows >= kt and plan.tiles * kt == t
-    # the cluster is no larger than the work needs
+    # the cluster is no larger than the work needs (a B-only grid of plain
+    # blocks, at most OUT_BLOCKS of them unless one block per tile exceeds)
     units = max(-(-k // plan.k_unit), -(-m // plan.m_unit))
-    assert plan.cluster == min(MAX_CLUSTER, 1 << (units - 1).bit_length())
+    want = min(MAX_CLUSTER, 1 << (units - 1).bit_length())
+    if k == 0:
+        while want > 1 and plan.tiles * want > OUT_BLOCKS:
+            want //= 2
+    assert plan.cluster == want
     assert len(plan.args()) == 14
     assert list(plan.c_args) == list(plan.args())   # what C reads
 
@@ -220,3 +237,120 @@ def test_a_only_plan_copies_as_the_fused_plan(bits, group, ptr):
             fused.k_unit, fused.k_units, fused.k_chunk)
         if bits == 3 and group == 128:
             assert rhs.vec_codes[0] == 4
+
+
+# --------------------------------------------------------------------------
+# the B-only plan of the out kernels (matmul_out, sgmv_out): k = 0, no A
+# --------------------------------------------------------------------------
+
+def test_b_only_plan_needs_k_0_and_no_a_sides():
+    b = _side(2, 128)
+    with pytest.raises(ValueError, match="B-only"):
+        _cluster_plan(16, 3072, 3072, 1, 0, 4, 0, (None, b, None, None))
+    with pytest.raises(ValueError, match="B-only"):
+        _cluster_plan(16, 0, 3072, 1, 0, 4, 0,
+                      (_side(2, 128), b, None, None))
+    with pytest.raises(ValueError, match="B-only"):
+        _cluster_plan(16, 0, 3072, 1, 0, 4, 0, (None, b, _side(1, 128), None))
+    with pytest.raises(ValueError, match="A or a B side"):
+        _cluster_plan(16, 0, 0, 1, 0, 4, 0, (None, None, None, None))
+
+
+@pytest.mark.parametrize("bits,group,m,kt", [
+    (3, 130, 200, None), (3, 130, 260, 1), (3, 128, 384, 8),
+    (2, 128, 200, None), (2, 128, 200, 8), (2, 128, 32768, None),
+    (1, 8, 198, 3), (4, 32, 1000, 2), (8, 64, 8192, 1), (2, 100, 3072, 4)])
+def test_b_only_plan_covers_m_once_in_whole_groups(bits, group, m, kt):
+    """M slices in block order cover M exactly once, each starting on a
+    group boundary; the grid is whole tiles of C blocks; no K, no x."""
+    t = 48 if kt is None else 16 * kt
+    plan, _ = _plan(t, 0, m, kt, (None, group, None, None),
+                    bits=(1, bits, 1, 1), x_bytes=4)
+    assert plan.m_unit == group
+    assert (plan.k_unit, plan.k_units, plan.k_chunk) == (1, 0, 0)
+    assert plan.vec_x == 1 and plan.vec_codes[0::2] == (0, 0)
+    slices = _slices(plan, m, "m")
+    assert len(slices) == plan.cluster
+    _check_cover(slices, m, [group])
+    nu = -(-m // group)
+    assert plan.cluster == min(MAX_CLUSTER, 1 << (nu - 1).bit_length())
+    assert 1 <= plan.m_chunk <= plan.m_units
+    assert plan.m_chunk * group <= max(CHUNK_COLS, group)
+    if kt is None:
+        assert (plan.tiles - 1) * plan.tile_rows < t <= (
+            plan.tiles * plan.tile_rows)
+    else:
+        assert plan.tile_rows >= kt and plan.tiles * kt == t
+
+
+@pytest.mark.parametrize("bits", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("group", [8, 16, 32, 64, 100, 128])
+@pytest.mark.parametrize("ptr", [0, 4, 8, 12])
+def test_b_only_plan_copies_as_the_fused_plan(bits, group, ptr):
+    """A B-only plan (the out kernels) copies B and stores y exactly as the
+    fused plan of the same B side does (so 4-byte copies for 3-bit groups
+    of 13 words, 16-byte copies only where every group start is 16-byte
+    aligned), with no A copies and no x."""
+    side = _side(bits, group, ptr)
+    for kt in (None, 1, 8):
+        fused = _cluster_plan(16, 3072, 3072, kt, 0, 2, 0,
+                              (_side(2, 128), side, None, None))
+        out = _cluster_plan(16, 0, 3072, kt, 0, 4, 0,
+                            (None, side, None, None))
+        assert out.vec_codes == (0, fused.vec_codes[1], 0, 0)
+        assert out.vec_y == fused.vec_y and out.vec_x == 1
+        assert (out.cluster, out.m_unit, out.m_units, out.m_chunk) == (
+            fused.cluster, fused.m_unit, fused.m_units, fused.m_chunk)
+        group_bytes = side[1] * side[2]
+        starts = [ptr + i * group_bytes for i in range(64)]
+        vec = out.vec_codes[1]
+        assert vec == (16 if all(s % 16 == 0 for s in starts) else
+                       4 if all(s % 4 == 0 for s in starts) else 1)
+        if bits == 3 and group == 128:
+            assert vec == 4
+
+
+@pytest.mark.parametrize("m", [200, 198, 256, 260, 3072])
+@pytest.mark.parametrize("group", [128, 130, 8, 6])
+@pytest.mark.parametrize("out_ptr", [0, 8])
+def test_b_only_plan_float4_stores_only_where_m_allows(m, group, out_ptr):
+    """y is stored as float4 only where m, the M unit and the output's
+    address divide by 4 (16 bytes)."""
+    plan = _cluster_plan(8, 0, m, 8, 0, 4, out_ptr,
+                         (None, _side(3 if group == 130 else 2, group),
+                          None, None))
+    want = m % 4 == 0 and group % 4 == 0 and out_ptr % 16 == 0
+    assert plan.vec_y == (4 if want else 1)
+
+
+@pytest.mark.parametrize("kt", [None, 1])
+def test_out_plan_fills_the_card_at_decode(kt):
+    """A 16-row decode of matmul_out (kt None: tiles of one row) or
+    sgmv_out (16 one-row tiles) runs 16 tiles of 8 blocks, as the rhs plan
+    does; a 512-row prefill 64 tiles of 8 rows."""
+    for m in (1024, 3072, 8192):
+        plan, _ = _plan(16, 0, m, kt, (None, 128, None, None), x_bytes=4)
+        rhs, _ = _plan(16, 3072, 0, kt, (128, None, None, None))
+        assert plan.tile_rows == 1 and plan.cluster == 8
+        assert plan.tiles * plan.cluster >= 128
+        assert (plan.tiles, plan.tile_rows) == (rhs.tiles, rhs.tile_rows)
+        prefill, _ = _plan(512, 0, m, 8 if kt else None,
+                           (None, 128, None, None), x_bytes=4)
+        assert prefill.tile_rows == 8 and prefill.tiles == 64
+
+
+@pytest.mark.parametrize("kt", [None, 1, 2, 8])
+@pytest.mark.parametrize("t", [16, 64, 128, 512, 4096])
+def test_out_plan_grid_fits_one_wave(kt, t):
+    """A B-only grid (plain blocks) halves its M split while it exceeds
+    OUT_BLOCKS, so a 512-row prefill runs 64 tiles x 4 blocks, and still
+    covers M exactly once in whole groups; one block per tile is the
+    floor."""
+    m = 3072
+    plan, _ = _plan(t, 0, m, kt, (None, 128, None, None), x_bytes=4)
+    grid = plan.tiles * plan.cluster
+    assert grid <= OUT_BLOCKS or plan.cluster == 1
+    assert plan.cluster == 8 or grid * 2 > OUT_BLOCKS
+    _check_cover(_slices(plan, m, "m"), m, [128])
+    if t == 512 and kt in (None, 8):
+        assert (plan.tiles, plan.cluster) == (64, 4)
