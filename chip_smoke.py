@@ -69,8 +69,27 @@ Phases (a failure raises and the script exits non-zero):
     identical greedy tokens and every step's logits within ``LOGIT_RTOL``;
     a control in which every request meets another adapter must move every
     request's logits by ``CONTROL_MARGIN`` tolerances.
+13. Continuous serve (the serve driver's default mode): the uniform
+    ``2@0.9`` fleet at full width in bf16, ``MultiLoRAEngine`` with 8 rows
+    over the paged adapter memory, 16 requests drawn Zipf(α=1) over the 8
+    adapters as ``benchmarks/bench_serving.py`` draws them, prompt 32, 8
+    new tokens; all-resident and bounded to 4 slots: identical tokens, the
+    reference's paging of this stream (``ZIPF_BOUNDED``), the pool at 4
+    pages, and exactly 196 ``sgmv_fused`` per forward (prefill groups plus
+    decode steps) and no other kernel. A third, profiled run times one
+    engine step under ``torch.profiler``.
+14. fp32 parity of the bounded continuous serve against materialize:
+    identical tokens, every step's logits within ``LOGIT_RTOL``, and a
+    control in which every request meets another adapter moving them by
+    ``CONTROL_MARGIN`` tolerances.
+15. Phase 11's three-recipe fleet served continuously under a device
+    budget of half the fleet's summed page bytes: at least 2 live pools,
+    evictions, and exactly 196 ``sgmv_fused`` per live pool per forward.
+    In bf16 a second budgeted run (one engine step profiled) must repeat
+    the first's tokens and paging; in fp32 the budgeted serve must give
+    the all-resident serve's tokens and logits within ``LOGIT_RTOL``.
 
-The last three lines are the card (nvidia-smi), a ``{"kernels": [...]}``
+The phases' total time is logged last. The last three lines are the card (nvidia-smi), a ``{"kernels": [...]}``
 summary and ``{"ok": true, "device": {...}}``.
 """
 
@@ -292,15 +311,13 @@ def profile_step(step):
 
 
 @contextlib.contextmanager
-def profiled_decode(step: int = 4):
-    """While active, decode step ``step`` of the model (any caller:
-    ``Model.decode_step``) runs under :func:`profile_step` and the next one
-    is timed unprofiled (synchronized). Yields the dict that receives
-    both."""
+def profiled_call(cls, name: str, step: int = 4):
+    """While active, call ``step`` of ``cls.name`` (any instance) runs under
+    :func:`profile_step` and the next call is timed unprofiled
+    (synchronized). Yields the dict that receives both."""
     import torch
-    from repro_torch.models.model import Model
 
-    orig = Model.decode_step
+    orig = getattr(cls, name)
     res = {"calls": 0}
 
     def wrapped(self, *a, **kw):
@@ -317,16 +334,24 @@ def profiled_decode(step: int = 4):
             return out
         return orig(self, *a, **kw)
 
-    Model.decode_step = wrapped
+    setattr(cls, name, wrapped)
     try:
         yield res
     finally:
-        Model.decode_step = orig
+        setattr(cls, name, orig)
 
 
-def window_line(label, res) -> str:
+def profiled_decode(step: int = 4):
+    """Decode step ``step`` of the model (any caller: ``Model.decode_step``)
+    under :func:`profile_step`, the next one timed unprofiled."""
+    from repro_torch.models.model import Model
+
+    return profiled_call(Model, "decode_step", step)
+
+
+def window_line(label, res, what: str = "decode-step") -> str:
     w = res["window"]
-    head = (f"{label} decode-step profile ({w['source']}): window "
+    head = (f"{label} {what} profile ({w['source']}): window "
             f"{w['window_ms']:.3f} ms (CUDA events {w['events_ms']:.3f} ms; "
             f"the next step unprofiled {res.get('unprofiled_ms', 0):.3f} ms)")
     if w["device_ms"] is None:
@@ -1045,6 +1070,386 @@ def phase_mixed_parity(vocab):
             "control_min": min(moved.values())}
 
 
+# --------------------------------------------------------------------------
+# continuous serving over paged adapter memory (phases 13-15)
+# --------------------------------------------------------------------------
+
+CONT_ROWS = 8                 # decode rows of the continuous scheduler
+CONT_SLOTS = 4                # the bounded slot pool: half the fleet
+CACHE_CAPACITY = 128          # the serve driver's
+# The reference engine's schedule and paging of the Zipf stream at
+# CONT_ROWS rows and CONT_SLOTS slots (without EOS they depend on neither
+# width nor depth); tests/test_torch_memory.py holds JAX's engine to them.
+ZIPF_BOUNDED = {"hits": 9, "misses": 7, "evictions": 3, "swap_ins": 7,
+                "decode_steps": 21, "admission_waves": 3}
+
+
+def zipf_stream(vocab: int, n_adapters: int = N_ADAPTERS,
+                n_req: int = N_REQ, prompt: int = PROMPT):
+    """``benchmarks/bench_serving.py``'s churn stream: adapter ids drawn
+    Zipf(α=1) over the fleet (``default_rng(17)``), prompts from
+    ``default_rng(19)``."""
+    import numpy as np
+
+    pz = 1.0 / np.arange(1, n_adapters + 1)
+    ids = [f"user_{i}" for i in np.random.default_rng(17).choice(
+        n_adapters, size=n_req, p=pz / pz.sum())]
+    rng = np.random.default_rng(19)
+    return ids, [rng.integers(0, vocab, size=prompt).astype(np.int32)
+                 for _ in ids]
+
+
+def fleet(dtype, recipes=(), device="cuda", preset="full"):
+    """llama3.2-3b with params from seed 0 and the serve driver's 8
+    adapters (generator seed 1, default recipe ``2@0.9``, ``recipes``
+    overrides), quantized once."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import LoRAQuantConfig
+    from repro_torch.launch.serve import (parse_recipe_override,
+                                          random_trained_lora)
+    from repro_torch.models import build_model
+    from repro_torch.serving import AdapterStore
+
+    model = build_model(dataclasses.replace(
+        get_config("llama3.2-3b", preset), dtype=dtype))
+    params = model.init(seed=0, device=device)
+    store = AdapterStore(LoRAQuantConfig(rho=0.9, bits_high=2))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    store.register_many(
+        {f"user_{i}": random_trained_lora(params["lora"], gen)
+         for i in range(N_ADAPTERS)},
+        recipes=dict(parse_recipe_override(r) for r in recipes))
+    return model, params, store
+
+
+def launch_counts(device):
+    from repro_torch.kernels.quant_matmul import LAUNCH_COUNTS, PLAIN_CALLS
+
+    return dict(LAUNCH_COUNTS if device == "cuda" else PLAIN_CALLS)
+
+
+def sync(device):
+    import torch
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def count_forwards():
+    """While active, every ``Model.prefill`` / ``decode_step`` appends the
+    number of ``sgmv_fused`` launches per LoRA linear its params carry
+    (one per bucket of a mixed tree, else one) to the yielded list."""
+    from repro_torch.models.model import Model
+
+    seen = []
+    orig = {n: getattr(Model, n) for n in ("prefill", "decode_step")}
+
+    def wrap(fn):
+        def call(self, params, *a, **kw):
+            leaf = params["lora"]["groups"][0]["sub_0"]["mixer"]["wq"]
+            seen.append(len(getattr(leaf, "buckets", (leaf,))))
+            return fn(self, params, *a, **kw)
+        return call
+
+    for n, fn in orig.items():
+        setattr(Model, n, wrap(fn))
+    try:
+        yield seen
+    finally:
+        for n, fn in orig.items():
+            setattr(Model, n, fn)
+
+
+def run_stream(model, params, store, ids, prompts, vocab, *, slots=None,
+               mode="continuous", keep_logits=False, shift=0,
+               device="cuda", profile=False):
+    """Serve the stream through ``MultiLoRAEngine`` (``CONT_ROWS`` rows,
+    ``slots`` device slots); request r meets adapter ``ids[r] + shift``.
+    Checks the outputs and that the kernel launches are exactly one
+    ``sgmv_fused`` per LoRA linear per bucket per forward (none for
+    ``materialize``). Returns the requests in id order and the run's
+    numbers."""
+    from repro_torch.kernels.quant_matmul import reset_launch_counts
+    from repro_torch.serving import MultiLoRAEngine, Request
+
+    engine = MultiLoRAEngine(model, params, store,
+                             cache_capacity=CACHE_CAPACITY, mode=mode,
+                             max_rows=CONT_ROWS, hbm_slots=slots)
+    for rid, (aid, p) in enumerate(zip(ids, prompts)):
+        aid = f"user_{(int(aid.split('_')[1]) + shift) % N_ADAPTERS}"
+        engine.submit(Request(request_id=rid, adapter_id=aid, prompt=p,
+                              max_new_tokens=MAX_NEW,
+                              keep_logits=keep_logits))
+    prof = (profiled_call(type(engine), "step") if profile
+            else contextlib.nullcontext({}))
+    sync(device)
+    reset_launch_counts()
+    with count_forwards() as forwards, prof as window:
+        t0 = time.perf_counter()
+        done = engine.run()
+        sync(device)
+        dt = time.perf_counter() - t0
+    counts = launch_counts(device)
+    check_outputs(done, vocab)
+    st = engine.stats()
+    want = ({} if mode == "materialize" else
+            {"sgmv_fused": LAYERS_OF[device] * len(LINEARS) * sum(forwards)})
+    if counts != want:
+        raise AssertionError(f"{mode} serve (slots {slots}) launched "
+                             f"{counts}, want {want} ({len(forwards)} "
+                             f"forwards over {forwards} buckets)")
+    if mode != "materialize" and len(forwards) != (
+            st["decode_steps"] + st["admission_waves"]):
+        raise AssertionError(f"{len(forwards)} forwards, the engine counts "
+                             f"{st}")
+    return sorted(done, key=lambda r: r.request_id), {
+        "s": dt, "tok_s": sum(len(r.output) for r in done) / dt,
+        "counts": counts, "forwards": forwards, "engine": engine,
+        "stats": st, "window": window}
+
+
+LAYERS_OF = {"cuda": LAYERS, "cpu": 2}     # full width; the smoke rehearsal
+
+
+def same_tokens(a, b, what):
+    diff = [r.request_id for r, q in zip(a, b)
+            if r.output.tolist() != q.output.tolist()]
+    if diff:
+        raise AssertionError(f"{what}: tokens differ for requests {diff}")
+
+
+def phase_continuous(vocab, device="cuda", preset="full"):
+    """Phases 13 and 14: the uniform ``2@0.9`` fleet served continuously,
+    all-resident and bounded, in bf16; then the bounded serve in fp32
+    against materialize, with a shifted-adapter control."""
+    import torch
+
+    ids, prompts = zipf_stream(vocab)
+    t0 = time.perf_counter()
+    model, params, store = fleet(torch.bfloat16, device=device,
+                                 preset=preset)
+    sync(device)
+    log(f"continuous phase: bf16 model and 8 adapters in "
+        f"{time.perf_counter() - t0:.1f}s; stream {ids}")
+    resident, r_res = run_stream(model, params, store, ids, prompts, vocab,
+                                 device=device)
+    bounded, r_bnd = run_stream(model, params, store, ids, prompts, vocab,
+                                slots=CONT_SLOTS, device=device)
+    same_tokens(resident, bounded, "bounded vs all-resident continuous")
+    eng = r_bnd["engine"]
+    mem = eng.memory_stats()
+    got = {k: mem[k] for k in ("hits", "misses", "evictions", "swap_ins")}
+    got.update({k: r_bnd["stats"][k]
+                for k in ("decode_steps", "admission_waves")})
+    if got != ZIPF_BOUNDED:
+        raise AssertionError(f"bounded paging {got}, the reference's "
+                             f"{ZIPF_BOUNDED}")
+    page = eng.memory.page_bytes
+    if eng.memory.hbm_bytes() != CONT_SLOTS * page or mem["slots"] != 4:
+        raise AssertionError(f"bounded pool holds {eng.memory.hbm_bytes()} "
+                             f"bytes, want {CONT_SLOTS} x {page}")
+    rmem = r_res["engine"].memory_stats()
+    for name, r, m in (("all-resident", r_res, rmem),
+                       ("bounded", r_bnd, mem)):
+        log(f"continuous bf16 {name}: {r['tok_s']:.1f} tokens/s "
+            f"({N_REQ * MAX_NEW} tokens in {r['s']:.3f}s, "
+            f"{r['stats']['admission_waves']} prefill groups + "
+            f"{r['stats']['decode_steps']} decode steps, "
+            f"{r['counts']['sgmv_fused']} sgmv_fused launches); "
+            f"{m['slots']} slots, pool {m['hbm_slot_mb'] * 1e6:.0f} bytes "
+            f"(page {page} bytes), host tier "
+            f"{m['host_tier_mb'] * 1e6:.0f} bytes; hits {m['hits']}, "
+            f"misses {m['misses']}, evictions {m['evictions']}, swap-ins "
+            f"{m['swap_ins']} ({m['swap_in_bytes']} bytes), prefetch "
+            f"{m['prefetch']}")
+    del r_res, resident
+    res = {"launches": r_bnd["counts"]["sgmv_fused"], "page": page}
+    if device == "cuda":
+        _, r_prof = run_stream(model, params, store, ids, prompts, vocab,
+                               slots=CONT_SLOTS, device=device, profile=True)
+        log(window_line("continuous bounded serve", r_prof["window"],
+                        "engine-step"))
+        del r_prof
+    del model, params, eng, r_bnd, bounded
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- 14. fp32: bounded continuous == materialize ---------------------
+    # the same quantized store: the adapters come from their own generator
+    # over the fp32 LoRA template, whatever the base dtype
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    model = build_model(dataclasses.replace(
+        get_config("llama3.2-3b", preset), dtype=torch.float32))
+    params = model.init(seed=0, device=device)
+    runs = {}
+    for name, mode, slots, shift in (("continuous", "continuous",
+                                      CONT_SLOTS, 0),
+                                     ("materialize", "materialize", None, 0),
+                                     ("control", "continuous",
+                                      CONT_SLOTS, 1)):
+        runs[name] = run_stream(model, params, store, ids, prompts, vocab,
+                                slots=slots, mode=mode, keep_logits=True,
+                                shift=shift, device=device)[0]
+    same_tokens(runs["continuous"], runs["materialize"],
+                "fp32 continuous vs materialize")
+    scale = max(float(abs(r.logits).max()) for r in runs["continuous"])
+    tol = LOGIT_RTOL * scale
+    gap = logit_gap(runs["continuous"], runs["materialize"])
+    if max(gap.values()) > tol:
+        raise AssertionError(f"fp32 continuous vs materialize logits differ "
+                             f"by {gap} > {LOGIT_RTOL:g} x {scale:.3e}")
+    moved = logit_gap(runs["continuous"], runs["control"])
+    if min(moved.values()) < CONTROL_MARGIN * tol:
+        raise AssertionError(f"another adapter moves the logits by only "
+                             f"{moved}, under {CONTROL_MARGIN} x {tol:.3e}: "
+                             f"the parity check is blind")
+    log(f"continuous fp32 parity {time.perf_counter() - t0:.1f}s: bounded "
+        f"({CONT_SLOTS} slots) continuous == materialize for all {N_REQ} "
+        f"requests ({N_REQ * MAX_NEW} tokens); logits max |diff| "
+        f"{max(gap.values()):.3e} <= {tol:.3e} ({LOGIT_RTOL:g} x "
+        f"max|logit| {scale:.3e}); every request meeting another adapter "
+        f"moves by {min(moved.values()):.3e} to {max(moved.values()):.3e}")
+    res.update(gap=max(gap.values()), tol=tol)
+    del model, params, store, runs
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_mixed_continuous(vocab, device="cuda", preset="full"):
+    """Phase 15: phase 11's three-recipe fleet served continuously under a
+    device budget of half the fleet's summed page bytes. In bf16 the
+    budgeted serve runs twice (the second profiled) and must repeat its
+    tokens and paging; in fp32 it must give the all-resident serve's
+    tokens and logits. (A budget changes which requests share a prefill
+    group, and bf16 logits then round differently: the bf16 tokens of the
+    two serves may part at a near-tie, so bf16 only reports them.)"""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import AdapterMemoryManager
+    from repro_torch.serving import memory as memory_mod
+
+    ids, prompts = zipf_stream(vocab)
+    t0 = time.perf_counter()
+    model, params, store = fleet(torch.bfloat16, MIXED_RECIPES,
+                                 device=device, preset=preset)
+    probe = AdapterMemoryManager(store, params["lora"], device=device)
+    pages = {aid: probe.page_bytes_of(aid) for aid in store.quantized}
+    budget = sum(pages.values()) // 2
+    del probe
+    log(f"mixed continuous phase: model and 8 adapters in "
+        f"{time.perf_counter() - t0:.1f}s; page bytes "
+        f"{sorted(set(pages.values()))}, budget {budget} bytes")
+    reclaims = []
+    orig = memory_mod.AdapterMemoryManager._reclaim
+
+    def counted(self, sig):
+        reclaims.append(sig)
+        return orig(self, sig)
+
+    def serve_budgeted(**kw):
+        store.hbm_budget_bytes = budget
+        memory_mod.AdapterMemoryManager._reclaim = counted
+        try:
+            return run_stream(model, params, store, ids, prompts, vocab,
+                              device=device, **kw)
+        finally:
+            memory_mod.AdapterMemoryManager._reclaim = orig
+            store.hbm_budget_bytes = None
+
+    def check_budgeted(r, what):
+        mem = r["engine"].memory_stats()
+        hbm = r["engine"].memory.hbm_bytes()
+        if max(r["forwards"]) < 2 or mem["pools"] < 2:
+            raise AssertionError(f"{what}: at most {max(r['forwards'])} "
+                                 f"live pools")
+        if mem["evictions"] == 0 or hbm > budget:
+            raise AssertionError(f"{what}: {mem['evictions']} evictions, "
+                                 f"{hbm} bytes against budget {budget}")
+        return mem
+
+    resident, r_res = run_stream(model, params, store, ids, prompts, vocab,
+                                 device=device)
+    bounded, r_bnd = serve_budgeted()
+    mem = check_budgeted(r_bnd, "bf16 budgeted mixed serve")
+    n_reclaims = len(reclaims)
+    again, r_again = serve_budgeted(profile=device == "cuda")
+    same_tokens(bounded, again, "bf16 budgeted mixed serve, two runs")
+    if r_again["engine"].memory_stats() != mem:
+        raise AssertionError("bf16 budgeted mixed serve: the second run "
+                             "paged differently")
+    parted = [r.request_id for r, q in zip(resident, bounded)
+              if r.output.tolist() != q.output.tolist()]
+    rmem = r_res["engine"].memory_stats()
+    for name, r, m in (("all-resident", r_res, rmem),
+                       ("budgeted", r_bnd, mem)):
+        log(f"mixed continuous bf16 {name}: {r['tok_s']:.1f} tokens/s "
+            f"({r['s']:.3f}s, {r['stats']['admission_waves']} prefill "
+            f"groups + {r['stats']['decode_steps']} decode steps, "
+            f"{r['counts']['sgmv_fused']} sgmv_fused launches over "
+            f"{sum(r['forwards'])} bucket-forwards); {m['pools']} pools, "
+            f"{m['slots']} slots, {m['hbm_slot_mb'] * 1e6:.0f} bytes; hits "
+            f"{m['hits']}, misses {m['misses']}, evictions "
+            f"{m['evictions']}, swap-ins {m['swap_ins']}; per pool "
+            + ", ".join(f"{k}: {v['capacity']} slots, {v['evictions']} "
+                        f"evictions" for k, v in sorted(
+                            m["per_pool"].items())))
+    log(f"mixed continuous bf16: _reclaim ran {n_reclaims} times; the "
+        f"second budgeted run repeats tokens and paging; requests whose "
+        f"bf16 tokens part from the all-resident serve's: {parted}")
+    if device == "cuda":
+        log(window_line("mixed continuous budgeted serve",
+                        r_again["window"], "engine-step"))
+    res = {"launches": r_bnd["counts"]["sgmv_fused"],
+           "reclaims": n_reclaims, "budget": budget}
+    del model, params, r_res, r_bnd, r_again, resident, bounded, again
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # fp32: the budgeted serve gives the all-resident serve's tokens and
+    # logits (the same quantized store; the adapters do not depend on the
+    # base dtype)
+    t0 = time.perf_counter()
+    model = build_model(dataclasses.replace(
+        get_config("llama3.2-3b", preset), dtype=torch.float32))
+    params = model.init(seed=0, device=device)
+    resident, _ = run_stream(model, params, store, ids, prompts, vocab,
+                             keep_logits=True, device=device)
+    bounded, r_bnd = serve_budgeted(keep_logits=True)
+    check_budgeted(r_bnd, "fp32 budgeted mixed serve")
+    same_tokens(resident, bounded, "fp32 budgeted vs all-resident mixed")
+    scale = max(float(abs(r.logits).max()) for r in resident)
+    tol = LOGIT_RTOL * scale
+    gap = logit_gap(bounded, resident)
+    if max(gap.values()) > tol:
+        raise AssertionError(f"fp32 budgeted vs all-resident logits differ "
+                             f"by {gap} > {LOGIT_RTOL:g} x {scale:.3e}")
+    log(f"mixed continuous fp32 {time.perf_counter() - t0:.1f}s: budgeted "
+        f"== all-resident tokens for all {N_REQ} requests; logits max "
+        f"|diff| {max(gap.values()):.3e} <= {tol:.3e} ({LOGIT_RTOL:g} x "
+        f"max|logit| {scale:.3e}); {r_bnd['counts']['sgmv_fused']} "
+        f"sgmv_fused launches over {sum(r_bnd['forwards'])} "
+        f"bucket-forwards")
+    res.update(gap=max(gap.values()), tol=tol, parted_bf16=parted)
+    del model, params, store, resident, bounded, r_bnd
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1212,6 +1617,16 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_mixed_parity(vocab)
     log(f"mixed-recipe parity phase {time.perf_counter() - t0:.1f}s")
+
+    # ---- 13-14. continuous serve over paged memory; fp32 parity ------------
+    t0 = time.perf_counter()
+    cont = phase_continuous(vocab)
+    log(f"continuous phases {time.perf_counter() - t0:.1f}s")
+
+    # ---- 15. mixed-recipe continuous serve under a byte budget --------------
+    t0 = time.perf_counter()
+    phase_mixed_continuous(vocab)
+    log(f"mixed continuous phase {time.perf_counter() - t0:.1f}s")
     log(f"total {time.perf_counter() - t_start:.1f}s")
 
     # ---- summary -------------------------------------------------------------
@@ -1227,7 +1642,7 @@ def main() -> int:
 
     print(smi)
     print(json.dumps({"kernels": [
-        entry("sgmv_fused", 481, launches,
+        entry("sgmv_fused", 481, cont["launches"],
               max(max_err, sgmv_err["sgmv_fused"]), fused_mix),
         entry("sgmv_rhs", 250, sgmv_apply_counts["sgmv_rhs"],
               sgmv_err["sgmv_rhs"], sgmv_mixes["sgmv_rhs"]),

@@ -1,10 +1,15 @@
 """Multi-LoRA serving driver on PyTorch (port of ``repro/launch/serve.py``):
-register N LoRAQuant-quantized adapters, serve a heterogeneous batch of
-requests through the static engine, report throughput and memory.
+register N LoRAQuant-quantized adapters, serve requests through the
+continuous-batching engine over paged adapter memory (or one of the static
+modes), report throughput and memory.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
         --preset full --adapters 8 --requests 16 --variant 2@0.9 \\
-        --recipe user_0=4@0.95 --recipe user_1=3@0.9
+        --recipe user_0=4@0.95 --recipe user_1=3@0.9 --slots 4
+
+``--slots`` bounds the device slot pools of the paged adapter memory to
+that many adapters, ``--hbm-budget`` to that many MB at each recipe's real
+page size; the rest page in from the host tier on demand.
 
 ``--recipe id=bits@rho`` (repeatable) quantizes one upload under its own
 recipe, so a batch may mix packed layouts; ``--target-bits`` fits the
@@ -90,11 +95,24 @@ def main(argv=None):
     p.add_argument("--target-bits", type=float, default=None,
                    help="fit the default recipe to this average-bits budget "
                         "on the first upload (overrides --variant)")
-    p.add_argument("--mode", default="packed",
-                   choices=("packed", "materialize"),
-                   help="packed: one heterogeneous batch straight from "
-                        "packed codes; materialize: per-adapter segment "
-                        "loop over dequantized fp trees")
+    p.add_argument("--mode", default="continuous",
+                   choices=("continuous", "packed", "materialize"),
+                   help="continuous: step-based scheduler (mid-decode "
+                        "admission, per-row positions) over paged adapter "
+                        "memory, straight from packed codes; packed: one "
+                        "static heterogeneous batch; materialize: "
+                        "per-adapter segment loop over dequantized fp trees")
+    p.add_argument("--max-rows", type=int, default=8,
+                   help="decode batch rows owned by the continuous scheduler")
+    p.add_argument("--slots", type=int, default=None,
+                   help="slot-pool size of the paged adapter memory "
+                        "(continuous mode): at most this many adapters' "
+                        "packed pages are device-resident, the rest page in "
+                        "from the host tier. Default: unbounded")
+    p.add_argument("--hbm-budget", type=float, default=None, metavar="MB",
+                   help="alternative to --slots: device budget of the slot "
+                        "pools in MB, each slot priced at its recipe's page "
+                        "bytes (--slots wins if both are given)")
     p.add_argument("--keep-logits", action="store_true",
                    help="keep each request's per-step logits on the returned "
                         "requests (parity checks between modes)")
@@ -114,7 +132,9 @@ def main(argv=None):
     params = model.init(seed=args.seed, device=dev)
 
     qcfg = parse_variant(args.variant)
-    store = AdapterStore(qcfg)
+    budget = (int(args.hbm_budget * 1e6)
+              if args.hbm_budget is not None else None)
+    store = AdapterStore(qcfg, hbm_budget_bytes=budget)
     recipes = dict(parse_recipe_override(r) for r in args.recipe)
     unknown = sorted(set(recipes) - {f"user_{i}"
                                      for i in range(args.adapters)})
@@ -143,7 +163,8 @@ def main(argv=None):
     print(f"[serve] quantized in {t_reg:.2f}s; store stats: {store.stats()}")
 
     engine = MultiLoRAEngine(model, params, store, cache_capacity=128,
-                             mode=args.mode)
+                             mode=args.mode, max_rows=args.max_rows,
+                             hbm_slots=args.slots)
     drng = np.random.default_rng(args.seed)
     for rid in range(args.requests):
         engine.submit(Request(
@@ -165,6 +186,28 @@ def main(argv=None):
     if dev.type == "cuda":
         print(f"[serve] peak device memory while serving: "
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    mem = engine.memory_stats()
+    if mem:
+        # hit_rate is None until the first acquire: an idle pool must not
+        # print as a perfect one
+        rate = ("n/a (0 lookups)" if mem["hit_rate"] is None
+                else f"{mem['hit_rate']:.2f} ({mem['lookups']} lookups)")
+        print(f"[serve] adapter memory: {mem['slots']} slots in "
+              f"{mem['pools']:.0f} pool(s) "
+              f"({mem['hbm_slot_mb']:.3f} MB on {dev.type}) over "
+              f"{store.stats()['adapters']:.0f} adapters "
+              f"({mem['host_tier_mb']:.3f} MB host tier); "
+              f"hit rate {rate}, "
+              f"swap-ins {mem['swap_ins']:.0f}, "
+              f"evictions {mem['evictions']:.0f}")
+        for label, pool in sorted(mem["per_pool"].items()):
+            prate = ("n/a" if pool["hit_rate"] is None
+                     else f"{pool['hit_rate']:.2f}")
+            print(f"[serve]   pool {label}: {pool['resident']}/"
+                  f"{pool['capacity']} resident, hit rate {prate}, "
+                  f"swap-ins {pool['swap_ins']} "
+                  f"({pool['swap_in_bytes'] / 1e6:.3f} MB), "
+                  f"evictions {pool['evictions']}")
     col = " ".join(f"{aid}={st['avg_bits']:.2f}"
                    for aid, st in sorted(store.adapter_stats().items()))
     print(f"[serve] per-adapter avg_bits: {col}")

@@ -10,15 +10,24 @@ from .engine import (
 )
 from .faults import (
     AdapterValidationError,
+    DeadlineExceeded,
+    HostReadError,
+    HostTransport,
+    MemoryExhausted,
+    PoisonedAdapter,
     RequestError,
     RequestStatus,
     UnknownAdapter,
+    page_arrays_finite,
     validate_lora_tree,
 )
+from .memory import AdapterMemoryManager
 
 __all__ = [
-    "AdapterStore", "AdapterValidationError", "MultiLoRAEngine",
-    "QuantizedAdapter", "Request", "RequestError", "RequestStatus",
-    "TensorSpec", "UnknownAdapter", "dequantize_adapter", "iter_lora_linears",
+    "AdapterMemoryManager", "AdapterStore", "AdapterValidationError",
+    "DeadlineExceeded", "HostReadError", "HostTransport", "MemoryExhausted",
+    "MultiLoRAEngine", "PoisonedAdapter", "QuantizedAdapter", "Request",
+    "RequestError", "RequestStatus", "TensorSpec", "UnknownAdapter",
+    "dequantize_adapter", "iter_lora_linears", "page_arrays_finite",
     "quantize_adapter_tree", "validate_lora_tree",
 ]

@@ -1,5 +1,4 @@
-"""Multi-LoRA serving engine (port of ``repro/serving/engine.py``, static
-modes).
+"""Multi-LoRA serving engine (port of ``repro/serving/engine.py``).
 
 * :class:`AdapterStore` holds many adapters LoRAQuant-quantized, each under
   its own recipe, and serves them in two forms: **packed**
@@ -10,15 +9,20 @@ modes).
   kernel) and
   **materialize** (:meth:`AdapterStore.materialize`, dequantized fp trees
   through a byte-budgeted LRU — the reference path).
-* :class:`MultiLoRAEngine` serves all pending requests as one batch:
-  ``mode="packed"`` runs one heterogeneous left-padded batch from packed
-  codes (prefill at ``tile_t = SEG_TILE = 8``, decode at ``tile_t = 1``);
-  ``mode="materialize"`` loops over adapters with dequantized fp trees.
-  Both mask pad slots and use real rotary positions, so they agree token
-  for token.
+* :class:`MultiLoRAEngine` is a step-based continuous-batching scheduler
+  (``mode="continuous"``, the default): requests are admitted into free
+  batch rows mid-decode, finished rows retire at once, and per-row seg ids
+  over the paged adapter memory
+  (:class:`~repro_torch.serving.memory.AdapterMemoryManager`) let one
+  fixed-shape decode step serve a churning mix of users from packed codes.
+  ``mode="packed"`` keeps the static one-shot heterogeneous batch
+  (prefill at ``tile_t = SEG_TILE = 8``, decode at ``tile_t = 1``) and
+  ``mode="materialize"`` the per-adapter loop over dequantized fp trees,
+  as references. All modes mask pad slots and use real rotary positions,
+  so they agree token for token.
 
-Not ported yet: ``mode="continuous"`` with the paged adapter memory
-(ROADMAP A7); telemetry, deadlines, queue limits and quarantine (A8).
+Not ported yet (ROADMAP A3): queue limits, the static modes' integrity
+screen, fault injection and telemetry.
 """
 
 from __future__ import annotations
@@ -47,11 +51,16 @@ from repro_torch.kernels import (
 )
 from repro_torch.serving.faults import (
     AdapterValidationError,
+    DeadlineExceeded,
+    HostReadError,
+    MemoryExhausted,
+    PoisonedAdapter,
     RequestError,
     RequestStatus,
     UnknownAdapter,
     validate_lora_tree,
 )
+from repro_torch.serving.memory import upload
 
 # Prefill token-tile rows: prompts are padded to a multiple of this so every
 # tile holds one adapter; it is the most rows one sgmv_fused block holds.
@@ -211,17 +220,25 @@ class AdapterStore:
     stacked batches in ``_batch_cache``); :meth:`materialize` builds fp
     LoRA trees through a byte-budgeted LRU (``fp_cache_bytes``).
     Re-registering an id invalidates both caches; :meth:`unregister` drops
-    an adapter outright.
+    an adapter outright. Every mutation bumps a per-id version and a
+    store-wide mutation counter, against which the paged adapter memory
+    reconciles.
+
+    ``hbm_budget_bytes`` caps the device bytes of the continuous path's
+    slot pools (the memory manager prices each slot at its recipe's real
+    page bytes); ``None`` means unbounded (all-resident).
     """
 
     def __init__(self, default_recipe: Optional[QuantRecipe] = None,
                  fp_cache_bytes: int = 1 << 30,
-                 batched_quantize: bool = True):
+                 batched_quantize: bool = True,
+                 hbm_budget_bytes: Optional[int] = None):
         self.default_recipe = (default_recipe if default_recipe is not None
                                else QuantRecipe())
         self.quantized: Dict[str, QuantizedAdapter] = {}
         self.fp_cache_bytes = fp_cache_bytes
         self.batched_quantize = batched_quantize
+        self.hbm_budget_bytes = hbm_budget_bytes
         self._lru: "collections.OrderedDict[str, Any]" = \
             collections.OrderedDict()
         self._packed: Dict[str, Dict[str, PackedLoRABatch]] = {}
@@ -240,7 +257,13 @@ class AdapterStore:
         self._versions[adapter_id] = self._mutations
 
     def version(self, adapter_id: str) -> Optional[int]:
+        """Monotonic per-id registration epoch; ``None`` if unregistered."""
         return self._versions.get(adapter_id)
+
+    def mutation_count(self) -> int:
+        """Store-wide mutation counter (register, re-register and
+        unregister all bump it): a cheap change signal for caches."""
+        return self._mutations
 
     def recipe_of(self, adapter_id: str) -> QuantRecipe:
         qa = self.quantized[adapter_id]
@@ -441,6 +464,9 @@ class AdapterStore:
             "fp16_equiv_mb": params * 2 / 1e6,
             "fp_lru_mb": self.fp_resident_bytes() / 1e6,
             "packed_cache_mb": self.packed_cache_bytes() / 1e6,
+            "hbm_budget_mb": (self.hbm_budget_bytes / 1e6
+                              if self.hbm_budget_bytes is not None
+                              else float("inf")),
         }
 
     def adapter_stats(self) -> Dict[str, Dict[str, Any]]:
@@ -449,15 +475,22 @@ class AdapterStore:
                 for aid, qa in self.quantized.items()}
 
 
+
+
 @dataclasses.dataclass
 class Request:
-    """One generation request with its lifecycle state."""
+    """One generation request with its lifecycle state. ``deadline_ms`` is
+    the total wall-clock budget from submit and ``ttft_deadline_ms`` the
+    budget to the first token; the continuous scheduler checks both every
+    step."""
 
     request_id: int
     adapter_id: str
     prompt: np.ndarray          # (T,) int32
     max_new_tokens: int = 16
     eos_id: Optional[int] = None
+    deadline_ms: Optional[float] = None       # total budget (submit → done)
+    ttft_deadline_ms: Optional[float] = None  # budget to the first token
     keep_logits: bool = False   # fill ``logits`` (parity checks across modes)
     output: Optional[np.ndarray] = None
     logits: Optional[np.ndarray] = None   # (len(output), vocab) fp32
@@ -467,35 +500,83 @@ class Request:
     error: Optional[RequestError] = None
 
 
-class MultiLoRAEngine:
-    """Serves many users' adapters in one batch (the static modes of the
-    JAX engine). ``mode="packed"`` decodes straight from packed codes;
-    ``mode="materialize"`` is the per-adapter fp reference; the JAX
-    default ``mode="continuous"`` raises until ROADMAP A7 ports it.
-    The engine runs on the device of ``base_params``."""
+@dataclasses.dataclass
+class _Row:
+    """One live batch row of the continuous scheduler. The row does not
+    cache its adapter's slot id: the page is pinned for the row's
+    lifetime, but its global id shifts when an earlier pool grows, so
+    decode re-reads ``memory.slot_of`` every step."""
 
-    MODES = ("packed", "materialize")
+    req: Request
+    start: int                  # left-pad count (first real cache index)
+    prompt_len: int
+    emitted: List[int]          # generated tokens so far (≥ 1 after prefill)
+    logits: Optional[List[np.ndarray]] = None   # per token, if kept
+
+
+class MultiLoRAEngine:
+    """Step-based continuous-batching scheduler over many users' adapters.
+
+    ``mode="continuous"`` (default): the engine owns ``max_rows`` batch
+    rows backed by one persistent decode cache. :meth:`step` admits
+    pending requests into free rows mid-decode (bursts of equal padded
+    length prefill as one batch, their cache rows copied into the
+    persistent cache), advances every active row by one greedy decode step
+    at a fixed ``max_rows`` shape (inactive rows fully masked), and retires
+    rows at ``max_new_tokens`` or ``eos_id``. Per-row adapter choice is the
+    per-step seg ids over the paged adapter memory
+    (:class:`~repro_torch.serving.memory.AdapterMemoryManager`): device
+    slots hold the hot adapters (seg ids are slot ids), the registry stays
+    in a host tier, and admission faults pages in, with the next wave
+    prefetched one step ahead. ``hbm_slots`` (or
+    ``store.hbm_budget_bytes``) bounds the pools; ``None`` keeps every
+    adapter resident.
+
+    ``mode="packed"``: all pending requests as one heterogeneous batch
+    straight from packed codes (prefill at ``tile_t = SEG_TILE``, decode at
+    ``tile_t = 1``). ``mode="materialize"``: the per-adapter loop over
+    dequantized fp trees (the reference). All three mask pad slots and use
+    real rotary positions, so they agree token for token. The engine runs
+    on the device of ``base_params``.
+    """
+
+    MODES = ("continuous", "packed", "materialize")
 
     def __init__(self, model, base_params, store: AdapterStore,
-                 cache_capacity: int = 512, mode: str = "packed"):
+                 cache_capacity: int = 512, mode: str = "continuous",
+                 max_rows: int = 8, hbm_slots: Optional[int] = None,
+                 hol_bypass: bool = True, stall_limit: int = 3):
         self._check_mode(mode)
         self.model = model
         self.params = base_params         # {"base", "lora"(template)}
         self.store = store
         self.capacity = cache_capacity
         self.mode = mode
-        self.pending: List[Request] = []
+        self.max_rows = max_rows
+        self.hbm_slots = hbm_slots
+        self.hol_bypass = hol_bypass
+        self.stall_limit = stall_limit
         self.device = base_params["base"]["final_norm"]["w"].device
+        self.clock = time.perf_counter
+        self.pending: List[Request] = []
+        # adapters quarantined at fault time: id -> store version then (a
+        # re-register bumps the version and clears it)
+        self.quarantined: Dict[str, Optional[int]] = {}
+        self._wave = 0                    # prefill groups (admission waves)
+        self._step_count = 0              # decode steps
+        self._stalled_steps = 0
+        self._rows: List[Optional[_Row]] = [None] * max_rows
+        self._caches = None               # persistent (max_rows)-row caches
+        self._memory = None               # paged adapter memory (lazy)
+        self._dec_groups = None           # decode-retiled view of the pools
+        self._dec_src = None              # the serving tree it was built from
 
     @staticmethod
     def _check_mode(mode: str):
-        if mode == "continuous":
-            raise NotImplementedError(
-                "mode='continuous' (the continuous-batching scheduler over "
-                "the paged adapter memory) is not ported yet (ROADMAP A7); "
-                "use mode='packed' or 'materialize'")
         if mode not in MultiLoRAEngine.MODES:
             raise ValueError(f"unknown serving mode {mode!r}")
+
+    # ----- request lifecycle -----
 
     def _finalize(self, req: Request, status: RequestStatus,
                   error: Optional[RequestError] = None) -> Request:
@@ -505,16 +586,57 @@ class MultiLoRAEngine:
             req.output = np.zeros((0,), np.int32)
         return req
 
-    def submit(self, req: Request) -> Request:
-        """Enqueue a request; an unknown adapter id is REJECTED at once with
-        :class:`UnknownAdapter`."""
+    def _quarantine(self, adapter_id: str):
+        self.quarantined[adapter_id] = self.store.version(adapter_id)
+
+    def _is_quarantined(self, adapter_id: str) -> bool:
+        """Quarantine is keyed to the registration version at fault time:
+        a re-register (fixed upload) bumps the version and clears it."""
+        if adapter_id not in self.quarantined:
+            return False
+        ver = self.store.version(adapter_id)
+        if ver is not None and ver != self.quarantined[adapter_id]:
+            del self.quarantined[adapter_id]
+            return False
+        return True
+
+    @staticmethod
+    def _queue_expired(req: Request,
+                       now: float) -> Optional[DeadlineExceeded]:
+        """Deadline check of a request still queued (no tokens yet): both
+        the TTFT and the total budget bound the wait."""
         if req.t_submit is None:
-            req.t_submit = time.perf_counter()
+            return None
+        waited_ms = (now - req.t_submit) * 1e3
+        for name, budget in (("ttft", req.ttft_deadline_ms),
+                             ("total", req.deadline_ms)):
+            if budget is not None and waited_ms > budget:
+                return DeadlineExceeded(
+                    f"request {req.request_id}: {name} deadline "
+                    f"({budget:g} ms) expired after {waited_ms:.1f} ms in "
+                    f"queue", adapter_id=req.adapter_id)
+        return None
+
+    def _unknown(self, req: Request) -> Request:
+        return self._finalize(req, RequestStatus.REJECTED, UnknownAdapter(
+            f"request {req.request_id}: adapter {req.adapter_id!r} is not "
+            f"registered in the AdapterStore", adapter_id=req.adapter_id))
+
+    def _poisoned(self, req: Request, why: str) -> Request:
+        return self._finalize(req, RequestStatus.FAILED, PoisonedAdapter(
+            f"request {req.request_id}: adapter {req.adapter_id!r} {why}",
+            adapter_id=req.adapter_id))
+
+    def submit(self, req: Request) -> Request:
+        """Enqueue a request. An unknown adapter id is REJECTED at once
+        (:class:`UnknownAdapter`), a quarantined one FAILS
+        (:class:`PoisonedAdapter`)."""
+        if req.t_submit is None:
+            req.t_submit = self.clock()
+        if self._is_quarantined(req.adapter_id):
+            return self._poisoned(req, "is quarantined")
         if req.adapter_id not in self.store.quantized:
-            return self._finalize(req, RequestStatus.REJECTED, UnknownAdapter(
-                f"request {req.request_id}: adapter {req.adapter_id!r} is "
-                f"not registered in the AdapterStore",
-                adapter_id=req.adapter_id))
+            return self._unknown(req)
         req.status = RequestStatus.PENDING
         self.pending.append(req)
         return req
@@ -528,6 +650,8 @@ class MultiLoRAEngine:
     def _tmax(self, reqs: Sequence[Request]) -> int:
         t = max(len(r.prompt) for r in reqs)
         return -(-t // SEG_TILE) * SEG_TILE
+
+    # ----- static paths (one batch, drained to completion) -----
 
     def _generate(self, params_prefill, params_decode,
                   reqs: Sequence[Request], tmax: int) -> None:
@@ -543,7 +667,7 @@ class MultiLoRAEngine:
             params_prefill, {"tokens": torch.as_tensor(toks, device=dev),
                              "start": starts}, self.capacity)
         last = torch.argmax(logits[:, -1, :], dim=-1)
-        now = time.perf_counter()
+        now = self.clock()
         for r in reqs:
             r.t_first = now
             r.status = RequestStatus.RUNNING
@@ -601,22 +725,344 @@ class MultiLoRAEngine:
             self._generate(params, params, seg_reqs, tmax)
         return reqs
 
+    # ----- continuous scheduler -----
+
+    @property
+    def memory(self):
+        """The paged adapter memory behind continuous mode (built on first
+        use, so a static-only engine never allocates a pool)."""
+        if self._memory is None:
+            from repro_torch.serving.memory import AdapterMemoryManager
+
+            self._memory = AdapterMemoryManager(
+                self.store, self.params["lora"], num_slots=self.hbm_slots,
+                tile_t=SEG_TILE, device=self.device)
+        return self._memory
+
+    def memory_stats(self) -> Dict[str, Any]:
+        """Hit / miss / swap / eviction counters and per-tier bytes of the
+        paged adapter memory (empty before the first continuous step)."""
+        return self._memory.stats() if self._memory is not None else {}
+
+    def stats(self) -> Dict[str, Any]:
+        """Live scheduler state: queue depth, active rows, quarantined
+        adapters, decode steps and prefill groups (admission waves) so
+        far."""
+        return {"pending": len(self.pending),
+                "active_rows": self.active_rows,
+                "quarantined": len(self.quarantined),
+                "decode_steps": self._step_count,
+                "admission_waves": self._wave}
+
+    def _tpad(self, req: Request) -> int:
+        return max(SEG_TILE, -(-len(req.prompt) // SEG_TILE) * SEG_TILE)
+
+    def _admit_group(self, reqs: List[Request], rows: List[int],
+                     slots: List[int]) -> List[_Row]:
+        """Prefill a group of same-padded-length requests as one batch and
+        copy their cache rows into the persistent batch cache. ``slots``
+        are the requests' (pinned) global slot ids, the SGMV seg ids; a
+        page swapped in for this group is ordered before the prefill on the
+        stream. One host synchronization: the first tokens' read."""
+        dev = self.device
+        tpad = self._tpad(reqs[0])
+        sidx = np.asarray(slots, np.int64)
+        starts = np.asarray([tpad - len(r.prompt) for r in reqs], np.int64)
+        toks = np.stack([np.pad(np.asarray(r.prompt), (tpad - len(r.prompt), 0))
+                         for r in reqs]).astype(np.int64)
+        self._wave += 1
+        # fetch the tree AFTER the acquires: this group's swap-ins are in it
+        packed = self.memory.serving_tree()
+        pre = {"base": self.params["base"],
+               "lora": {"groups": packed["groups"],
+                        "seg": upload(np.repeat(sidx, tpad), dev)}}
+        logits, grp = self.model.prefill(
+            pre, {"tokens": upload(toks, dev), "start": upload(starts, dev)},
+            self.capacity)
+        keep = any(r.keep_logits for r in reqs)
+        firsts = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy()
+        first_logits = logits[:, -1, :].float().cpu().numpy() if keep else None
+        now = self.clock()
+        # cache rows land on axis 1 of every (count, B, cap, KV, dh) leaf;
+        # the group's caches have this engine's capacity, so ring slots line
+        # up with the persistent cache's
+        idx = upload(np.asarray(rows, np.int64), dev)
+        for dst_block, src_block in zip(self._caches, grp):
+            for sub, dst in dst_block.items():
+                for name, t in dst.items():
+                    t.index_copy_(1, idx, src_block[sub][name].to(t.dtype))
+        out = []
+        for b, (req, row_idx) in enumerate(zip(reqs, rows)):
+            req.t_first = now
+            req.status = RequestStatus.RUNNING
+            row = _Row(req=req, start=int(starts[b]),
+                       prompt_len=len(req.prompt), emitted=[int(firsts[b])],
+                       logits=[first_logits[b]] if req.keep_logits else None)
+            self._rows[row_idx] = row
+            out.append(row)
+        return out
+
+    @staticmethod
+    def _row_done(row: _Row) -> bool:
+        r = row.req
+        return (len(row.emitted) >= r.max_new_tokens
+                or (r.eos_id is not None and row.emitted[-1] == r.eos_id))
+
+    def _retire(self, row_idx: int,
+                status: RequestStatus = RequestStatus.DONE,
+                error: Optional[RequestError] = None) -> Request:
+        row = self._rows[row_idx]
+        self._rows[row_idx] = None
+        self.memory.unpin(row.req.adapter_id)   # slot becomes evictable
+        # prefill always seeds one token; cap at the budget so that
+        # max_new_tokens <= 0 matches the static modes' empty output
+        n = max(row.req.max_new_tokens, 0)
+        row.req.output = np.asarray(row.emitted[:n], np.int32)
+        if row.logits is not None:
+            row.req.logits = np.stack(row.logits[:len(row.req.output)])
+        return self._finalize(row.req, status, error)
+
+    def _prefetch_upcoming(self):
+        """Stage the next admission wave's pages one step ahead: called
+        after this step's seg ids and decode view, before the decode."""
+        upcoming: List[str] = []
+        seen = set()
+        for r in self.pending[: self.max_rows]:
+            if (r.adapter_id not in seen
+                    and r.adapter_id in self.store.quantized
+                    and not self._is_quarantined(r.adapter_id)):
+                seen.add(r.adapter_id)
+                upcoming.append(r.adapter_id)
+        if upcoming:
+            self.memory.prefetch(upcoming)
+
+    def _select_admissions(self, n_free: int,
+                           finished: List[Request]) -> List[Request]:
+        """This step's admission group from the pending queue: FIFO, with
+        quarantined adapters FAILED and unregistered ones REJECTED (neither
+        takes a row); requests padding to another length than the group's
+        first wait for the next wave. ``memory.acquire`` pins each admitted
+        adapter's page: a poisoned page quarantines the adapter and FAILS
+        the request, a failed host read REJECTS it
+        (:class:`MemoryExhausted`), and an all-pinned pool stalls the wave
+        (with ``hol_bypass``, requests for resident adapters may pass the
+        stalled head). Slot ids are read after the whole group's acquires
+        (a later acquire may grow a pool and shift earlier global ids)."""
+        mgr = self.memory
+        group: List[Request] = []
+        rest: List[Request] = []
+        tpad0: Optional[int] = None
+        stalled = False
+        for k, r in enumerate(self.pending):
+            if len(group) >= n_free:
+                rest.extend(self.pending[k:])
+                break
+            if self._is_quarantined(r.adapter_id):
+                finished.append(self._poisoned(r, "is quarantined"))
+                continue
+            if r.adapter_id not in self.store.quantized:
+                finished.append(self._unknown(r))
+                continue
+            if tpad0 is not None and self._tpad(r) != tpad0:
+                rest.append(r)
+                continue
+            if stalled and not (self.hol_bypass
+                                and mgr.resident(r.adapter_id)):
+                rest.append(r)
+                continue
+            try:
+                slot = mgr.acquire(r.adapter_id)
+            except PoisonedAdapter as e:
+                self._quarantine(r.adapter_id)
+                finished.append(self._finalize(r, RequestStatus.FAILED, e))
+                continue
+            except HostReadError as e:
+                finished.append(self._finalize(
+                    r, RequestStatus.REJECTED, MemoryExhausted(
+                        str(e), adapter_id=r.adapter_id)))
+                continue
+            if slot is None:
+                stalled = True             # every slot pinned right now
+                rest.append(r)
+                continue
+            if tpad0 is None:
+                tpad0 = self._tpad(r)
+            group.append(r)
+        self.pending = rest
+        return group
+
+    def step(self) -> List[Request]:
+        """Advance the continuous scheduler by one decode step.
+
+        0. **Sweep**: queued requests past their TTFT or total deadline
+           retire TIMED_OUT; adapters whose pages failed the integrity
+           check are quarantined and their live rows retire FAILED; live
+           rows past their total deadline retire TIMED_OUT with their
+           partial output.
+        1. **Admit** pending requests into free rows
+           (:meth:`_select_admissions`; each group is one prefill; a
+           request done at admission frees its row at once). If nothing is
+           live to ever unpin a slot, ``stall_limit`` fruitless steps
+           reject the queue's head with :class:`MemoryExhausted`.
+        2. **Decode** one step for all ``max_rows`` rows: per-row cache
+           positions and validity, per-row global slot ids as seg ids,
+           inactive rows fully masked. The next wave's pages are prefetched
+           after the seg ids are read and before the decode is enqueued.
+           One host synchronization: the argmax read.
+        3. **Retire** rows at ``max_new_tokens`` / ``eos_id``: the row and
+           its adapter's pin are released.
+
+        Returns the requests that reached a terminal state in this step,
+        in completion order."""
+        finished: List[Request] = []
+        if not self.pending and all(r is None for r in self._rows):
+            return finished
+        mgr = self.memory
+        mgr.refresh()                      # reconcile store mutations
+        now = self.clock()
+        still: List[Request] = []
+        for r in self.pending:
+            err = self._queue_expired(r, now)
+            if err is not None:
+                finished.append(
+                    self._finalize(r, RequestStatus.TIMED_OUT, err))
+            else:
+                still.append(r)
+        self.pending = still
+        # drain the memory layer's integrity failures into quarantine,
+        # skipping adapters re-registered since, and fail their live rows
+        while mgr.poisoned:
+            aid, ver = mgr.poisoned.popitem()
+            if self.store.version(aid) == ver:
+                self.quarantined[aid] = ver
+        for i in range(self.max_rows):
+            row = self._rows[i]
+            if row is None:
+                continue
+            req = row.req
+            if self._is_quarantined(req.adapter_id):
+                finished.append(self._retire(
+                    i, RequestStatus.FAILED, PoisonedAdapter(
+                        f"request {req.request_id}: adapter "
+                        f"{req.adapter_id!r} was quarantined mid-decode",
+                        adapter_id=req.adapter_id)))
+                continue
+            if (req.deadline_ms is not None and req.t_submit is not None
+                    and (now - req.t_submit) * 1e3 > req.deadline_ms):
+                finished.append(self._retire(
+                    i, RequestStatus.TIMED_OUT, DeadlineExceeded(
+                        f"request {req.request_id}: total deadline "
+                        f"({req.deadline_ms:g} ms) expired mid-decode",
+                        adapter_id=req.adapter_id)))
+        if self._caches is None:
+            self._caches = self.model.init_cache(self.max_rows, self.capacity,
+                                                 device=self.device)
+        admitted_any = False
+        while self.pending:
+            free = [i for i in range(self.max_rows) if self._rows[i] is None]
+            if not free:
+                break
+            group = self._select_admissions(len(free), finished)
+            if not group:
+                break
+            admitted_any = True
+            slots = [mgr.slot_of(r.adapter_id) for r in group]
+            rows = free[:len(group)]
+            for row_idx, row in zip(rows,
+                                    self._admit_group(group, rows, slots)):
+                if self._row_done(row):
+                    finished.append(self._retire(row_idx))
+        active = [i for i in range(self.max_rows) if self._rows[i] is not None]
+        if not active:
+            if self.pending and not admitted_any and not finished:
+                # nothing live to ever unpin a slot: bounded patience, then
+                # shed the head so run() never spins forever
+                self._stalled_steps += 1
+                if self._stalled_steps >= self.stall_limit:
+                    head = self.pending.pop(0)
+                    finished.append(self._finalize(
+                        head, RequestStatus.REJECTED, MemoryExhausted(
+                            f"request {head.request_id}: no device slot "
+                            f"became available after {self._stalled_steps} "
+                            f"stalled steps (pool fully pinned)",
+                            adapter_id=head.adapter_id)))
+                    self._stalled_steps = 0
+            else:
+                self._stalled_steps = 0
+            self._prefetch_upcoming()
+            return finished
+        self._stalled_steps = 0
+        # rows of (tokens, pos, start, seg), one upload; inactive rows:
+        # start == capacity masks every cache slot, seg 0
+        inp = np.zeros((4, self.max_rows), np.int64)
+        inp[2] = self.capacity
+        for i in active:
+            row = self._rows[i]
+            inp[0, i] = row.emitted[-1]
+            inp[1, i] = row.start + row.prompt_len + len(row.emitted) - 1
+            inp[2, i] = row.start
+            # seg ids ARE global slot ids, re-read every step (an earlier
+            # pool's growth shifts them) and BEFORE the prefetch below
+            inp[3, i] = mgr.slot_of(row.req.adapter_id)
+        packed = mgr.serving_tree()
+        # the tile_t = 1 view is rebuilt only when the tree changed (a
+        # swap-in or resize drops the cached tree; the strong reference in
+        # _dec_src makes identity a safe key)
+        if self._dec_src is not packed:
+            self._dec_groups = retile_packed(packed, 1)["groups"]
+            self._dec_src = packed
+        buf = upload(inp, self.device)
+        dec = {"base": self.params["base"],
+               "lora": {"groups": self._dec_groups, "seg": buf[3]}}
+        # stage the next wave now: its page copies go on the stream before
+        # the decode and touch only slots no active row reads
+        self._prefetch_upcoming()
+        logits, self._caches = self.model.decode_step(
+            dec, buf[0][:, None], self._caches, buf[1], buf[2])
+        nxt = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy()
+        kept = None
+        if any(self._rows[i].logits is not None for i in active):
+            kept = logits[:, -1, :].float().cpu().numpy()
+        self._step_count += 1
+        for i in active:
+            row = self._rows[i]
+            row.emitted.append(int(nxt[i]))
+            if row.logits is not None:
+                row.logits.append(kept[i])
+            if self._row_done(row):
+                finished.append(self._retire(i))
+        return finished
+
+    @property
+    def active_rows(self) -> int:
+        return sum(r is not None for r in self._rows)
+
     def run(self, mode: Optional[str] = None) -> List[Request]:
         """Process all pending requests to a terminal state and return them
-        in submission order."""
+        (continuous mode in completion order, static modes in submission
+        order after any rejected ones)."""
         mode = mode or self.mode
         self._check_mode(mode)
-        reqs, self.pending = self.pending, []
         done: List[Request] = []
+        if mode == "continuous":
+            while self.pending or self.active_rows:
+                done.extend(self.step())
+            return done
+        if self.active_rows:
+            # a static run must not strand requests mid-decode in the
+            # scheduler's rows: drain them first, without admitting the
+            # pending batch, which belongs to the static run
+            held, self.pending = self.pending, []
+            while self.active_rows:
+                done.extend(self.step())
+            self.pending = held
+        reqs, self.pending = self.pending, []
         healthy = []
         for r in reqs:        # an adapter unregistered since submit
             if r.adapter_id in self.store.quantized:
                 healthy.append(r)
             else:
-                done.append(self._finalize(
-                    r, RequestStatus.REJECTED, UnknownAdapter(
-                        f"request {r.request_id}: adapter {r.adapter_id!r} "
-                        f"is not registered", adapter_id=r.adapter_id)))
+                done.append(self._unknown(r))
         if not healthy:
             return done
         if mode == "packed":

@@ -1,16 +1,18 @@
-"""The part of the serving failure contract that the static engine paths use
-(port of ``repro/serving/faults.py:43-118``, ``:344``).
+"""The part of the serving failure contract that the engine and the paged
+adapter memory use (port of ``repro/serving/faults.py:43-126``, ``:286-382``).
 
-Request lifecycle states, the structured per-request error base, the
-unknown-adapter rejection, and the onboarding screen for uploaded LoRA
-trees. Deadlines, queue backpressure, quarantine, the host transport and
-fault injection come with ROADMAP A8.
+Request lifecycle states, the structured per-request errors (unknown,
+poisoned and quarantined adapters, deadlines, exhausted adapter memory),
+the host tier's read path with its integrity check, and the onboarding
+screen for uploaded LoRA trees. Queue backpressure (``QueueFull``) and
+seeded fault injection (``FaultPlan``, ``named_plan``) come with ROADMAP
+A3.
 """
 
 from __future__ import annotations
 
 import enum
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -48,6 +50,79 @@ class UnknownAdapter(RequestError):
     registered in the AdapterStore."""
 
     kind = "unknown_adapter"
+
+
+class PoisonedAdapter(RequestError):
+    """The adapter's codes failed an integrity check (NaN/Inf scales). The
+    adapter is quarantined; its requests fail without touching co-batched
+    healthy rows."""
+
+    kind = "poisoned_adapter"
+
+
+class DeadlineExceeded(RequestError):
+    """The request's wall-clock budget (TTFT or total) expired, while
+    queued (no tokens) or mid-decode (partial output is kept)."""
+
+    kind = "deadline_exceeded"
+
+
+class MemoryExhausted(RequestError):
+    """The paged adapter memory could not produce a usable page: every slot
+    pinned with no prospect of progress, or the host tier failed with no
+    stale resident page to fall back to."""
+
+    kind = "memory_exhausted"
+
+
+class HostReadError(Exception):
+    """A host-tier page read failed after its retry budget. Internal to the
+    memory layer; the engine surfaces it as :class:`MemoryExhausted`."""
+
+    def __init__(self, adapter_id: str, attempts: int, cause: str = ""):
+        super().__init__(
+            f"host-tier read for adapter {adapter_id!r} failed after "
+            f"{attempts} attempt(s){': ' + cause if cause else ''}")
+        self.adapter_id = adapter_id
+        self.attempts = attempts
+
+
+class HostTransport:
+    """The host-tier page-read path the memory manager calls
+    (:meth:`read`). Without a fault plan a read is exactly one
+    ``builder()`` call; the reference's retry / timeout policy acts only
+    on injected faults, which come with ROADMAP A3."""
+
+    def __init__(self, faults=None):
+        if faults is not None:
+            raise NotImplementedError(
+                "fault injection (FaultPlan) is not ported yet (ROADMAP A3)")
+        self.faults = faults
+        self.reads = 0
+        self.retries = 0
+        self.timeouts = 0
+        self.failures = 0
+
+    def read(self, adapter_id: str, builder):
+        """Return ``builder()``; exceptions it raises propagate (they are
+        bugs, not transport weather)."""
+        self.reads += 1
+        return builder()
+
+    def stats(self) -> Dict[str, int]:
+        return {"reads": self.reads, "retries": self.retries,
+                "timeouts": self.timeouts, "failures": self.failures}
+
+
+def page_arrays_finite(arrays) -> bool:
+    """Integrity check of a host page's ``{path: {field: tensor}}``: every
+    float field (scales) must be finite. Integer code words cannot encode
+    NaN, so the float side-channel is where poison shows."""
+    for fields in arrays.values():
+        for arr in fields.values():
+            if arr.is_floating_point() and not bool(torch.isfinite(arr).all()):
+                return False
+    return True
 
 
 class AdapterValidationError(Exception):

@@ -87,7 +87,8 @@ def test_packed_tokens_match_reference_engine(served):
     _submit(jeng, JRequest, prompts)
     want = {r.request_id: r.output for r in jeng.run(mode="packed")}
 
-    teng = MultiLoRAEngine(tmodel, tparams, tstore, cache_capacity=64)
+    teng = MultiLoRAEngine(tmodel, tparams, tstore, cache_capacity=64,
+                           mode="packed")
     _submit(teng, Request, prompts)
     reset_launch_counts()
     got = {r.request_id: r.output for r in teng.run()}
@@ -160,9 +161,12 @@ def test_kept_logits_packed_equal_materialize(served):
 
 def test_engine_failure_contract(served):
     *_, tmodel, tparams, tstore = served
-    with pytest.raises(NotImplementedError, match="A7"):
-        MultiLoRAEngine(tmodel, tparams, tstore, mode="continuous")
+    assert MultiLoRAEngine(tmodel, tparams, tstore).mode == "continuous"
+    with pytest.raises(ValueError, match="unknown serving mode"):
+        MultiLoRAEngine(tmodel, tparams, tstore, mode="static")
     engine = MultiLoRAEngine(tmodel, tparams, tstore, cache_capacity=32)
+    with pytest.raises(ValueError, match="unknown serving mode"):
+        engine.run("static")
     r = engine.submit(Request(request_id=0, adapter_id="nobody",
                               prompt=np.arange(4, dtype=np.int32)))
     assert r.status is RequestStatus.REJECTED
