@@ -88,6 +88,28 @@ Phases (a failure raises and the script exits non-zero):
     In bf16 a second budgeted run (one engine step profiled) must repeat
     the first's tokens and paging; in fp32 the budgeted serve must give
     the all-resident serve's tokens and logits within ``LOGIT_RTOL``.
+16. Chaos storm: ``benchmarks/bench_chaos.py``'s stream (6 adapters
+    ``2@0.9``, 12 requests plus one with an impossible TTFT budget, 3
+    rows over 3 slots, an all-pinned episode) at full width in fp32,
+    under its ``FaultPlan`` (latency spikes, transient read failures,
+    ``user_1``'s pages corrupted) on a ``ManualClock``, and fault-free:
+    every healthy request's tokens identical, exact statuses, no
+    deadlock, virtual goodput within ``GOODPUT_BOUND``, both runs equal to
+    the reference's (``CHAOS_STORM``: statuses, injected faults, transport
+    and paging stats, schedule, virtual time), and exactly one
+    ``sgmv_fused`` per LoRA linear per live pool per forward. Real
+    tokens/s of both runs are reported.
+17. Telemetry: phase 13's bounded bf16 serve without and with
+    ``Telemetry()`` on the real clock, in the order off, on, on, off:
+    identical tokens and launches, each registry's
+    ``pallas_launches_total{kernel="sgmv_fused"}`` equal to the launches
+    (4704), every request's submit → admit → first_token → retire in the
+    event log under ``EVENT_SCHEMA``, the three exports parse; TTFT / E2E
+    / queue-wait / step percentiles, tokens/s and the engine step per
+    run, and the launch sink's host time per call are reported. Then
+    ``repro_torch.launch.serve.main`` at full width with ``--inject
+    storm``, a queue limit, ``shed_oldest``, a deadline, ``--stats-every``
+    and the three exports: the files parse and ``user_1`` is quarantined.
 
 The phases' total time is logged last. The last three lines are the card (nvidia-smi), a ``{"kernels": [...]}``
 summary and ``{"ok": true, "device": {...}}``.
@@ -1167,19 +1189,21 @@ def count_forwards():
 
 def run_stream(model, params, store, ids, prompts, vocab, *, slots=None,
                mode="continuous", keep_logits=False, shift=0,
-               device="cuda", profile=False):
+               device="cuda", profile=False, telemetry=None):
     """Serve the stream through ``MultiLoRAEngine`` (``CONT_ROWS`` rows,
-    ``slots`` device slots); request r meets adapter ``ids[r] + shift``.
-    Checks the outputs and that the kernel launches are exactly one
-    ``sgmv_fused`` per LoRA linear per bucket per forward (none for
-    ``materialize``). Returns the requests in id order and the run's
-    numbers."""
+    ``slots`` device slots, ``telemetry`` if given); request r meets
+    adapter ``ids[r] + shift``. Checks the outputs and that the kernel
+    launches are exactly one ``sgmv_fused`` per LoRA linear per bucket per
+    forward (none for ``materialize``). Returns the requests in id order
+    and the run's numbers (continuous mode: each engine step's host time,
+    which ends in the step's host synchronization)."""
     from repro_torch.kernels.quant_matmul import reset_launch_counts
     from repro_torch.serving import MultiLoRAEngine, Request
 
     engine = MultiLoRAEngine(model, params, store,
                              cache_capacity=CACHE_CAPACITY, mode=mode,
-                             max_rows=CONT_ROWS, hbm_slots=slots)
+                             max_rows=CONT_ROWS, hbm_slots=slots,
+                             telemetry=telemetry)
     for rid, (aid, p) in enumerate(zip(ids, prompts)):
         aid = f"user_{(int(aid.split('_')[1]) + shift) % N_ADAPTERS}"
         engine.submit(Request(request_id=rid, adapter_id=aid, prompt=p,
@@ -1189,9 +1213,17 @@ def run_stream(model, params, store, ids, prompts, vocab, *, slots=None,
             else contextlib.nullcontext({}))
     sync(device)
     reset_launch_counts()
+    step_s = []
     with count_forwards() as forwards, prof as window:
         t0 = time.perf_counter()
-        done = engine.run()
+        if mode == "continuous":
+            done = []
+            while engine.pending or engine.active_rows:
+                t = time.perf_counter()
+                done += engine.step()
+                step_s.append(time.perf_counter() - t)
+        else:
+            done = engine.run()
         sync(device)
         dt = time.perf_counter() - t0
     counts = launch_counts(device)
@@ -1210,7 +1242,7 @@ def run_stream(model, params, store, ids, prompts, vocab, *, slots=None,
     return sorted(done, key=lambda r: r.request_id), {
         "s": dt, "tok_s": sum(len(r.output) for r in done) / dt,
         "counts": counts, "forwards": forwards, "engine": engine,
-        "stats": st, "window": window}
+        "stats": st, "window": window, "step_s": step_s}
 
 
 LAYERS_OF = {"cuda": LAYERS, "cpu": 2}     # full width; the smoke rehearsal
@@ -1450,6 +1482,458 @@ def phase_mixed_continuous(vocab, device="cuda", preset="full"):
     return res
 
 
+# --------------------------------------------------------------------------
+# faults and telemetry on the continuous path (phases 16-17)
+# --------------------------------------------------------------------------
+
+# benchmarks/bench_chaos.py's storm, unchanged: 6 adapters 2@0.9, 12
+# requests with a generous total deadline plus one with an impossible TTFT
+# budget, 3 rows over 3 device slots, an all-pinned episode at step 3 for
+# 2 steps, virtual time (a ManualClock advanced STEP_S per step and by the
+# transport's injected sleeps)
+CHAOS_ADAPTERS = 6
+CHAOS_REQUESTS = 12
+CHAOS_PROMPT = 8
+CHAOS_NEW = 4
+CHAOS_SLOTS = 3
+CHAOS_ROWS = 3
+CHAOS_BAD = "user_1"          # the storm corrupts this adapter's pages
+CHAOS_DEADLINE_MS = 120_000.0
+CHAOS_PIN_AT, CHAOS_PIN_STEPS = 3, 2
+CHAOS_STEP_CAP = 500          # deadlock tripwire
+CHAOS_STEP_S = 0.05           # virtual seconds of compute per step
+CHAOS_CAPACITY = 64
+GOODPUT_BOUND = 0.5           # storm goodput >= bound x baseline goodput
+# The reference engine's run of that stream (statuses, injected faults,
+# transport, paging, schedule, virtual time): without EOS it depends on
+# neither width nor depth nor the codes; tests/test_torch_faults.py holds
+# JAX's bench_chaos run to it.
+CHAOS_STORM = {
+    "baseline": {
+        "statuses": ["done"] * 12 + ["timed_out"],
+        "faults": {},
+        "transport": {"reads": 6, "retries": 0, "timeouts": 0, "failures": 0},
+        "paging": {"hits": 6, "misses": 6, "evictions": 3, "swap_ins": 6,
+                   "stale_serves": 0, "poisoned": 0,
+                   "prefetch": {"hit": 9, "staged": 0, "failed": 0,
+                                "no_slot": 18}},
+        "schedule": {"steps": 12, "decode_steps": 12, "admission_waves": 4,
+                     "recovery_steps": 1},
+        "wall": 0.6},
+    "storm": {
+        "statuses": ["done", "failed", "done", "done", "done", "done",
+                     "done", "failed", "done", "done", "done", "done",
+                     "timed_out"],
+        "faults": {"read_latency": 3, "read_fail_transient": 2,
+                   "page_corruption": 1},
+        "transport": {"reads": 6, "retries": 2, "timeouts": 0, "failures": 0},
+        "paging": {"hits": 5, "misses": 6, "evictions": 2, "swap_ins": 5,
+                   "stale_serves": 0, "poisoned": 0,
+                   "prefetch": {"hit": 6, "staged": 0, "failed": 0,
+                                "no_slot": 12}},
+        "schedule": {"steps": 12, "decode_steps": 12, "admission_waves": 4,
+                     "recovery_steps": 1},
+        "wall": 0.6110000000000001},
+}
+
+
+def chaos_plan():
+    from repro_torch.serving import FaultPlan
+
+    return FaultPlan(seed=29, read_latency_s=0.003, read_latency_prob=0.3,
+                     transient_fail_prob=0.3,
+                     corrupt_adapters=frozenset({CHAOS_BAD}))
+
+
+def chaos_requests(vocab: int):
+    """bench_chaos's stream: prompts from ``default_rng(23)``."""
+    import numpy as np
+    from repro_torch.serving import Request
+
+    rng = np.random.default_rng(23)
+    reqs = [Request(request_id=rid, adapter_id=f"user_{rid % CHAOS_ADAPTERS}",
+                    prompt=rng.integers(0, vocab, size=CHAOS_PROMPT
+                                        ).astype(np.int32),
+                    max_new_tokens=CHAOS_NEW, deadline_ms=CHAOS_DEADLINE_MS)
+            for rid in range(CHAOS_REQUESTS)]
+    reqs.append(Request(request_id=CHAOS_REQUESTS, adapter_id="user_0",
+                        prompt=rng.integers(0, vocab, size=CHAOS_PROMPT
+                                            ).astype(np.int32),
+                        max_new_tokens=CHAOS_NEW, ttft_deadline_ms=1e-3))
+    return reqs
+
+
+def chaos_drive(model, params, store, vocab, faults, device="cuda"):
+    """One bench_chaos run on the port: submit the stream, step to the end
+    with the all-pinned episode, on a ManualClock shared by the engine and
+    the transport (``HostTransport(max_retries=6, sleep=clock.sleep)``).
+    Returns the requests, the schedule, virtual time and step latencies,
+    the paging and transport stats, and the real wall time."""
+    import numpy as np
+    from repro_torch.serving import (HostTransport, ManualClock,
+                                     MultiLoRAEngine, RequestStatus)
+
+    clock = ManualClock()
+    transport = (HostTransport(faults=faults, max_retries=6,
+                               sleep=clock.sleep)
+                 if faults is not None else None)
+    eng = MultiLoRAEngine(model, params, store,
+                          cache_capacity=CHAOS_CAPACITY, max_rows=CHAOS_ROWS,
+                          hbm_slots=CHAOS_SLOTS, faults=faults,
+                          transport=transport, clock=clock)
+    reqs = chaos_requests(vocab)
+    for r in reqs:
+        eng.submit(r)
+    mgr = eng.memory
+    lats, done, steps = [], [], 0
+    pinned, episode_end, recovery = [], None, None
+    sync(device)
+    t_wall = time.perf_counter()
+    while eng.pending or eng.active_rows or eng._terminated:
+        if steps == CHAOS_PIN_AT:               # pin every slot externally
+            pinned = list(mgr._where)
+            for aid in pinned:
+                mgr.pin(aid)
+        if steps == CHAOS_PIN_AT + CHAOS_PIN_STEPS and pinned:
+            for aid in pinned:
+                mgr.unpin(aid)
+            pinned, episode_end = [], steps
+        ts = clock()
+        fin = eng.step()                        # injected sleeps advance it
+        clock.advance(CHAOS_STEP_S)
+        lats.append(clock() - ts)
+        done += fin
+        steps += 1
+        if (episode_end is not None and recovery is None
+                and any(r.status is RequestStatus.DONE for r in fin)):
+            recovery = steps - episode_end
+        if steps >= CHAOS_STEP_CAP:
+            break
+    sync(device)
+    return {"reqs": reqs, "done": done, "steps": steps, "wall": clock(),
+            "lats": np.asarray(lats), "recovery_steps": recovery,
+            "mem": eng.memory_stats(), "stats": eng.stats(), "eng": eng,
+            "transport": mgr.transport.stats(),
+            "real_s": time.perf_counter() - t_wall}
+
+
+def chaos_goodput(run) -> float:
+    """Tokens of DONE requests per virtual second."""
+    from repro_torch.serving import RequestStatus
+
+    return sum(len(r.output) for r in run["reqs"]
+               if r.status is RequestStatus.DONE) / run["wall"]
+
+
+def chaos_checks(base, storm) -> dict:
+    """bench_chaos's four checks; raises on any failure. ``RequestStatus``
+    is compared by value so a reference run checks the same way."""
+    parity, statuses = True, True
+    by_id = {r.request_id: r for r in base["reqs"]}
+    for r in storm["reqs"]:
+        b = by_id[r.request_id]
+        if r.adapter_id == CHAOS_BAD:
+            statuses &= (r.status.value == "failed"
+                         and r.error.kind == "poisoned_adapter"
+                         and b.status.value == "done")
+        elif r.ttft_deadline_ms is not None:
+            statuses &= (r.status.value == "timed_out"
+                         and b.status.value == "timed_out")
+        else:
+            statuses &= r.status.value == "done" and b.status.value == "done"
+            parity &= r.output.tolist() == b.output.tolist()
+    no_deadlock = (base["steps"] < CHAOS_STEP_CAP
+                   and storm["steps"] < CHAOS_STEP_CAP
+                   and not storm["eng"].pending
+                   and storm["eng"].active_rows == 0)
+    goodput = chaos_goodput(storm) >= GOODPUT_BOUND * chaos_goodput(base)
+    checks = {"healthy_token_parity": parity, "statuses_correct": statuses,
+              "no_deadlock": no_deadlock, "goodput_within_bound": goodput}
+    if not all(checks.values()):
+        raise AssertionError(f"chaos checks failed: {checks}")
+    return checks
+
+
+def chaos_summary(run, plan) -> dict:
+    """What ``CHAOS_STORM`` holds of one run: statuses, the plan's injected
+    faults, the transport's stats, paging, schedule and virtual time."""
+    mem = run["mem"]
+    return {
+        "statuses": [r.status.value for r in run["reqs"]],
+        "faults": plan.stats() if plan is not None else {},
+        "transport": dict(run["transport"]),
+        "paging": {k: mem[k] for k in ("hits", "misses", "evictions",
+                                       "swap_ins", "stale_serves",
+                                       "poisoned", "prefetch")},
+        "schedule": {"steps": run["steps"],
+                     "decode_steps": run["stats"]["decode_steps"],
+                     "admission_waves": run["stats"]["admission_waves"],
+                     "recovery_steps": run["recovery_steps"]},
+        "wall": run["wall"],
+    }
+
+
+def chaos_fleet(device="cuda", preset="full"):
+    """llama3.2-3b in fp32 (params from seed 0) and bench_chaos's 6
+    adapters ``2@0.9`` (generator seed 40, scale 0.05), quantized once."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import LoRAQuantConfig
+    from repro_torch.launch.serve import random_trained_lora
+    from repro_torch.models import build_model
+    from repro_torch.serving import AdapterStore
+
+    model = build_model(dataclasses.replace(
+        get_config("llama3.2-3b", preset), dtype=torch.float32))
+    params = model.init(seed=0, device=device)
+    store = AdapterStore(LoRAQuantConfig(rho=0.9, bits_high=2))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(40)
+    store.register_many({
+        f"user_{i}": random_trained_lora(params["lora"], gen, scale=0.05)
+        for i in range(CHAOS_ADAPTERS)})
+    return model, params, store
+
+
+def phase_chaos(vocab, device="cuda", preset="full"):
+    """Phase 16: bench_chaos's storm and its fault-free baseline at full
+    width in fp32: healthy tokens identical, exact statuses, no deadlock,
+    goodput within ``GOODPUT_BOUND``, the reference's run
+    (``CHAOS_STORM``), and exactly one ``sgmv_fused`` per LoRA linear per
+    live pool per forward."""
+    import numpy as np
+    from repro_torch.kernels.quant_matmul import reset_launch_counts
+
+    t0 = time.perf_counter()
+    model, params, store = chaos_fleet(device, preset)
+    sync(device)
+    log(f"chaos phase: fp32 model and {CHAOS_ADAPTERS} adapters in "
+        f"{time.perf_counter() - t0:.1f}s")
+    runs, plan = {}, None
+    for name in ("baseline", "storm"):
+        plan = chaos_plan() if name == "storm" else None
+        reset_launch_counts()
+        with count_forwards() as forwards:
+            run = chaos_drive(model, params, store, vocab, plan, device)
+        counts = launch_counts(device)
+        want = {"sgmv_fused": LAYERS_OF[device] * len(LINEARS)
+                * sum(forwards)}
+        st = run["stats"]
+        if counts != want or len(forwards) != (st["decode_steps"]
+                                               + st["admission_waves"]):
+            raise AssertionError(f"chaos {name}: launched {counts} over "
+                                 f"{len(forwards)} forwards, want {want}; "
+                                 f"engine {st}")
+        run.update(counts=counts, summary=chaos_summary(run, plan))
+        runs[name] = run
+    checks = chaos_checks(runs["baseline"], runs["storm"])
+    got = {name: runs[name]["summary"] for name in runs}
+    if got != CHAOS_STORM:
+        raise AssertionError(f"chaos runs {got}, the reference's "
+                             f"{CHAOS_STORM}")
+    for name, run in runs.items():
+        toks = sum(len(r.output) for r in run["reqs"]
+                   if r.status.value == "done")
+        log(f"chaos {name}: {run['steps']} steps "
+            f"({run['stats']['admission_waves']} prefill groups + "
+            f"{run['stats']['decode_steps']} decode steps, "
+            f"{run['counts']['sgmv_fused']} sgmv_fused launches); virtual "
+            f"goodput {chaos_goodput(run):.3f} tokens/s, p99 step "
+            f"{float(np.percentile(run['lats'], 99)) * 1e3:.1f} ms "
+            f"(virtual); real wall {run['real_s']:.3f}s, "
+            f"{toks / run['real_s']:.1f} tokens/s; statuses "
+            f"{run['summary']['statuses']}; transport {run['transport']}")
+    log(f"chaos storm: injected {plan.stats()}; recovery "
+        f"{runs['storm']['recovery_steps']} steps after the all-pinned "
+        f"episode; checks {checks}; the run equals CHAOS_STORM")
+    res = {"launches": runs["storm"]["counts"]["sgmv_fused"],
+           "tok_s": {name: sum(len(r.output) for r in run["reqs"]
+                               if r.status.value == "done") / run["real_s"]
+                     for name, run in runs.items()}}
+    del model, params, store, runs
+    if device == "cuda":
+        import torch
+
+        torch.cuda.empty_cache()
+    return res
+
+
+def check_exports(tel, tmp: Path) -> dict:
+    """Write the three exports of ``tel`` under ``tmp`` and parse them:
+    Prometheus text (every sample line ``name value``), Chrome-trace JSON
+    with spans of non-negative time, JSONL of one object per event."""
+    paths = {"metrics": tmp / "metrics.prom", "trace": tmp / "trace.json",
+             "events": tmp / "events.jsonl"}
+    tel.write_prometheus(str(paths["metrics"]))
+    tel.write_chrome_trace(str(paths["trace"]))
+    tel.write_jsonl(str(paths["events"]))
+    return parse_exports(paths)
+
+
+def parse_exports(paths) -> dict:
+    samples = 0
+    for line in paths["metrics"].read_text().strip().splitlines():
+        if not line.startswith("#"):
+            _, value = line.rsplit(" ", 1)
+            float(value)
+            samples += 1
+    doc = json.loads(paths["trace"].read_text())
+    spans = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    if not spans or any(e["dur"] < 0 or e["ts"] < 0 for e in spans):
+        raise AssertionError("chrome trace: no spans or a negative span")
+    events = [json.loads(line)
+              for line in paths["events"].read_text().splitlines()]
+    if samples == 0 or not events:
+        raise AssertionError(f"exports: {samples} samples, "
+                             f"{len(events)} events")
+    return {"samples": samples, "spans": len(spans), "events": events}
+
+
+def check_lifecycles(events, n_req: int):
+    """Every request has submit → admit → first_token → retire, in that
+    order, and every event has exactly its ``EVENT_SCHEMA`` fields."""
+    from repro_torch.serving.telemetry import EVENT_SCHEMA
+
+    seqs = {}
+    for ev in events:
+        fields = set(ev) - {"ts", "event"}
+        if set(EVENT_SCHEMA[ev["event"]]) != fields:
+            raise AssertionError(f"event {ev} breaks EVENT_SCHEMA")
+        if "request_id" in ev:
+            seqs.setdefault(ev["request_id"], []).append(ev["event"])
+    want = ["submit", "admit", "first_token", "retire"]
+    bad = {rid: seq for rid, seq in seqs.items() if seq != want}
+    if bad or len(seqs) != n_req:
+        raise AssertionError(f"request lifecycles {bad or seqs}")
+
+
+def pct_ms(values) -> dict:
+    """p50 / p99 in ms of a list of seconds (numpy's linear percentiles:
+    exact, where the registry's histograms interpolate in buckets)."""
+    import numpy as np
+
+    return {q: float(np.percentile(values, int(q[1:]))) * 1e3
+            for q in ("p50", "p99")}
+
+
+def phase_telemetry(vocab, device="cuda", preset="full"):
+    """Phase 17: phase 13's bounded bf16 serve without and with
+    ``Telemetry()`` on the real clock, in the order off, on, on, off
+    (identical tokens and launches; each registry's launch series equals
+    its run's launches; every request's lifecycle logged; the three
+    exports parse; latencies and engine steps reported per condition, and
+    the launch sink's host cost per call), then the serve driver at full
+    width with every fault and telemetry flag."""
+    import io
+    import tempfile
+
+    import torch
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.serving import Telemetry
+
+    ids, prompts = zipf_stream(vocab)
+    model, params, store = fleet(torch.bfloat16, device=device,
+                                 preset=preset)
+    order = ("off", "on", "on", "off")
+    runs = {"off": [], "on": []}
+    first = None
+    for cond in order:
+        tel = Telemetry() if cond == "on" else None
+        try:
+            done, r = run_stream(model, params, store, ids, prompts, vocab,
+                                 slots=CONT_SLOTS, device=device,
+                                 telemetry=tel)
+        finally:
+            if tel is not None:
+                tel.uninstall_kernel_counter()
+        if first is None:
+            first = (done, r["counts"])
+        same_tokens(first[0], done, f"telemetry {cond} vs off")
+        series = (tel.registry.value("pallas_launches_total",
+                                     kernel="sgmv_fused")
+                  if tel is not None else r["counts"]["sgmv_fused"])
+        if r["counts"] != first[1] or series != r["counts"]["sgmv_fused"] \
+                or (tel is not None and len(tel.registry.series(
+                    "pallas_launches_total")) != 1):
+            raise AssertionError(f"launches {r['counts']} ({cond}), first "
+                                 f"run {first[1]}, registry {series}")
+        runs[cond].append({"tel": tel, "step_s": r["step_s"],
+                           "tok_s": r["tok_s"]})
+        del done, r
+    tel = runs["on"][0]["tel"]
+    with tempfile.TemporaryDirectory() as tmp:
+        parsed = check_exports(tel, Path(tmp))
+    check_lifecycles(parsed["events"], N_REQ)
+    traces = [tr for run in runs["on"] for tr in run["tel"].traces.values()]
+    lat = {name: pct_ms([getattr(tr, f"{name}_s") for tr in traces])
+           for name in ("ttft", "e2e", "queue_wait")}
+    for cond, rs in runs.items():
+        lat[f"step_{cond}"] = pct_ms([t for run in rs for t in run["step_s"]])
+    probe = Telemetry()                 # the sink's own host cost per call
+    probe.install_kernel_counter()
+    n = 20000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        probe._kernel_sink("sgmv_fused")
+    sink_us = (time.perf_counter() - t0) / n * 1e6
+    probe.uninstall_kernel_counter()
+    log(f"telemetry serve (bf16, {CONT_SLOTS} slots), off, on, on, off: "
+        f"tokens and launches identical ({first[1]} per run); "
+        f"pallas_launches_total{{kernel=\"sgmv_fused\"}} "
+        f"{first[1]['sgmv_fused']} in each on run; exports parse "
+        f"({parsed['samples']} samples, {parsed['spans']} spans, "
+        f"{len(parsed['events'])} events)")
+    log("telemetry latencies (ms; requests of both on runs, the engine "
+        "steps of both runs per condition): "
+        + "; ".join(f"{k} p50 {v['p50']:.2f} / p99 {v['p99']:.2f}"
+                    for k, v in lat.items()))
+    seq = [(cond, runs[cond][order[:i].count(cond)])
+           for i, cond in enumerate(order)]
+    log("telemetry host cost, in run order: tokens/s "
+        + ", ".join(f"{cond} {run['tok_s']:.1f}" for cond, run in seq)
+        + "; median engine step "
+        + ", ".join(f"{cond} {pct_ms(run['step_s'])['p50']:.2f} ms"
+                    for cond, run in seq)
+        + f"; the launch sink {sink_us:.2f} us per call")
+    res = {"launches": first[1]["sgmv_fused"], "lat": lat,
+           "sink_us": sink_us}
+    del model, params, store, runs, seq, first, tel, traces
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # the serve driver with every fault and telemetry flag
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {"metrics": Path(tmp) / "metrics.prom",
+                 "trace": Path(tmp) / "trace.json",
+                 "events": Path(tmp) / "events.jsonl"}
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            done = serve_mod.main([
+                "--arch", "llama3.2-3b", "--preset", preset,
+                "--device", device, "--inject", "storm",
+                "--queue-limit", "12", "--queue-policy", "shed_oldest",
+                "--deadline-ms", "600000", "--stats-every", "4",
+                "--metrics-out", str(paths["metrics"]),
+                "--trace-out", str(paths["trace"]),
+                "--events-out", str(paths["events"])])
+        parsed = parse_exports(paths)
+    text = out.getvalue()
+    for line in text.splitlines():
+        log(f"  {line}")
+    if "[serve] quarantined adapters: ['user_1']" not in text:
+        raise AssertionError("the serve driver did not quarantine user_1")
+    bad = {r.request_id: r.status.value for r in done
+           if (r.adapter_id == "user_1") != (r.status.value == "failed")}
+    if bad:
+        raise AssertionError(f"serve driver statuses {bad}")
+    log(f"serve driver with --inject storm: {len(done)} requests, exports "
+        f"parse ({parsed['samples']} samples, {parsed['spans']} spans, "
+        f"{len(parsed['events'])} events)")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1627,6 +2111,16 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_mixed_continuous(vocab)
     log(f"mixed continuous phase {time.perf_counter() - t0:.1f}s")
+
+    # ---- 16. chaos storm at full width, fp32 --------------------------------
+    t0 = time.perf_counter()
+    phase_chaos(vocab)
+    log(f"chaos phase {time.perf_counter() - t0:.1f}s")
+
+    # ---- 17. telemetry on the card; the serve driver's fault flags ----------
+    t0 = time.perf_counter()
+    phase_telemetry(vocab)
+    log(f"telemetry phase {time.perf_counter() - t0:.1f}s")
     log(f"total {time.perf_counter() - t_start:.1f}s")
 
     # ---- summary -------------------------------------------------------------

@@ -27,6 +27,13 @@ the same checks, so the CPU tests hold the layouts the card accepts.
 package's counter: one per CUDA launch and nowhere else. ``PLAIN_CALLS``
 counts the wrapper's CPU calls, so the CPU tests can check how often the
 model reaches the wrapper.
+
+Launch sinks (:func:`add_launch_sink`) observe the same stream: each is
+called with the kernel's name at every CUDA launch and, on the CPU, at
+every plain call. The semantics differ from the JAX package's sinks, which
+run once per *trace* of a ``pallas_call`` (a jitted step replays without
+recording); here every real launch is recorded. The serving telemetry
+exports them as ``pallas_launches_total{kernel=...}``.
 """
 
 from __future__ import annotations
@@ -62,9 +69,37 @@ OUT_BLOCKS = 2 * TARGET_BLOCKS  # an out call's plain blocks at most: about
                                 # two per SM, so a prefill runs in one wave
 
 
+# Registered observers, each called with the kernel name at every launch
+# (and every plain call): they must be cheap and must not raise.
+_LAUNCH_SINKS: list = []
+
+
 def reset_launch_counts() -> None:
     LAUNCH_COUNTS.clear()
     PLAIN_CALLS.clear()
+
+
+def add_launch_sink(sink) -> None:
+    """Register a ``sink(name)`` callable observing every kernel launch and
+    plain call (idempotent: re-adding a registered sink is a no-op)."""
+    if sink not in _LAUNCH_SINKS:
+        _LAUNCH_SINKS.append(sink)
+
+
+def remove_launch_sink(sink) -> None:
+    if sink in _LAUNCH_SINKS:
+        _LAUNCH_SINKS.remove(sink)
+
+
+def _notify(name: str) -> None:
+    for sink in _LAUNCH_SINKS:
+        sink(name)
+
+
+def _plain_call(name: str) -> None:
+    """Count a wrapper's CPU call (the plain version runs instead)."""
+    PLAIN_CALLS[name] += 1
+    _notify(name)
 
 
 def _per_word(bits: int) -> int:
@@ -275,6 +310,7 @@ def _launch(name: str, dev: torch.device, fn, *args) -> None:
         msg = load_library().quant_matmul_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
     LAUNCH_COUNTS[name] += 1
+    _notify(name)
 
 
 def matmul_rhs(x, codes, scale, zero, *, bits: int, binary: bool,
@@ -290,7 +326,7 @@ def matmul_rhs(x, codes, scale, zero, *, bits: int, binary: bool,
     ng, wpg = _check_side("A", codes, scale, zero, (r,), bits, group, k)
     dev = _device_of("matmul_rhs", (x, codes, scale, zero))
     if dev.type == "cpu":
-        PLAIN_CALLS["matmul_rhs"] += 1
+        _plain_call("matmul_rhs")
         return matmul_rhs_ref(x, codes, scale, zero, bits=bits,
                               binary=binary, group=group)
     if r > MAX_SLOTS:
@@ -322,7 +358,7 @@ def matmul_out(h, codes, scale, zero, *, bits: int, binary: bool,
     ng, wpg = _check_side("B", codes, scale, zero, (r,), bits, group, mp)
     dev = _device_of("matmul_out", (h, codes, scale, zero))
     if dev.type == "cpu":
-        PLAIN_CALLS["matmul_out"] += 1
+        _plain_call("matmul_out")
         return matmul_out_ref(h, codes, scale, zero, bits=bits,
                               binary=binary, group=group)
     if r > MAX_SLOTS:
@@ -371,7 +407,7 @@ def fused_lora(x, a_hi, b_hi, a_lo=None, b_lo=None, *, m: int,
     tensors = (x,) + tuple(a for s in sides for a in (*s[1], *s[2]))
     dev = _device_of("fused_lora", tensors)
     if dev.type == "cpu":
-        PLAIN_CALLS["fused_lora"] += 1
+        _plain_call("fused_lora")
         return fused_lora_ref(
             x, a_hi, b_hi, a_lo, b_lo, m=m, bits_hi=bits_hi,
             binary_hi=binary_hi, bits_lo=bits_lo, binary_lo=binary_lo,
@@ -436,7 +472,7 @@ def sgmv_rhs(x, codes, scale, zero, seg_map, *, bits: int, binary: bool,
     dev = _device_of("sgmv_rhs", [v for v in (x, codes, scale, zero, seg_map)
                                   if v is not None])
     if dev.type == "cpu":
-        PLAIN_CALLS["sgmv_rhs"] += 1
+        _plain_call("sgmv_rhs")
         return sgmv_rhs_ref(x, codes, scale, zero, seg_map, bits=bits,
                             binary=binary, group=group, tile_t=tile_t)
     if r > MAX_SLOTS:
@@ -475,7 +511,7 @@ def sgmv_out(h, codes, scale, zero, seg_map, *, bits: int, binary: bool,
     dev = _device_of("sgmv_out", [v for v in (h, codes, scale, zero, seg_map)
                                   if v is not None])
     if dev.type == "cpu":
-        PLAIN_CALLS["sgmv_out"] += 1
+        _plain_call("sgmv_out")
         return sgmv_out_ref(h, codes, scale, zero, seg_map, bits=bits,
                             binary=binary, group=group, m=m, tile_t=tile_t)
     if r > MAX_SLOTS:
@@ -539,7 +575,7 @@ def sgmv_fused(x, a_codes, a_scale, a_zero, b_codes, b_scale, b_zero,
     tensors = [x, seg_map] + [v for s in sides for v in s[1] if v is not None]
     dev = _device_of("sgmv_fused", tensors)
     if dev.type == "cpu":
-        PLAIN_CALLS["sgmv_fused"] += 1
+        _plain_call("sgmv_fused")
         return sgmv_fused_ref(
             x, a_codes, a_scale, a_zero, b_codes, b_scale, b_zero, seg_map,
             bits_a=bits_a, binary_a=binary_a, group_a=group_a,

@@ -15,6 +15,14 @@ page size; the rest page in from the host tier on demand.
 recipe, so a batch may mix packed layouts; ``--target-bits`` fits the
 default recipe to an average-bits budget on the first upload.
 
+The failure contract: ``--deadline-ms`` (a total budget per request),
+``--queue-limit`` / ``--queue-policy`` (backpressure) and ``--inject``
+(a named fault plan: ``latency``, ``transient``, ``poison``, ``storm``).
+Every run records telemetry: per-status TTFT / E2E percentiles are
+printed, ``--metrics-out`` / ``--trace-out`` / ``--events-out`` write the
+Prometheus exposition, a Chrome trace and the JSONL event log, and
+``--stats-every N`` prints a snapshot every N continuous steps.
+
 Runs on the card (``--device cuda``, the default) unless asked for the CPU.
 ``main(argv)`` returns the finished requests.
 """
@@ -34,9 +42,36 @@ from repro_torch.configs import get_config
 from repro_torch.core import LoRAQuantConfig
 from repro_torch.models import build_model
 from repro_torch.serving.engine import AdapterStore, MultiLoRAEngine, Request
-from repro_torch.serving.faults import RequestStatus
+from repro_torch.serving.faults import RequestStatus, named_plan
+from repro_torch.serving.telemetry import Telemetry
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _fmt_ms(v) -> str:
+    return "-" if v is None else f"{v * 1e3:.1f}ms"
+
+
+def print_latency_summary(telemetry: Telemetry, prefix: str = "[serve]"):
+    """Per-terminal-status p50/p95/p99 TTFT and E2E lines from the
+    telemetry histograms (one line per status seen)."""
+    reg = telemetry.registry
+    statuses = sorted({dict(m.labels).get("status", "")
+                       for m in reg.series("serving_e2e_seconds")})
+    for status in statuses:
+        parts = []
+        for title, name in (("ttft", "serving_ttft_seconds"),
+                            ("e2e", "serving_e2e_seconds")):
+            hs = [m for m in reg.series(name)
+                  if dict(m.labels).get("status") == status]
+            if not hs or not any(h.count for h in hs):
+                continue
+            h = hs[0]
+            parts.append(f"{title} p50={_fmt_ms(h.percentile(50))} "
+                         f"p95={_fmt_ms(h.percentile(95))} "
+                         f"p99={_fmt_ms(h.percentile(99))} (n={h.count})")
+        if parts:
+            print(f"{prefix} latency[{status}]: {' | '.join(parts)}")
 
 
 def parse_variant(s: str) -> LoRAQuantConfig:
@@ -113,6 +148,33 @@ def main(argv=None):
                    help="alternative to --slots: device budget of the slot "
                         "pools in MB, each slot priced at its recipe's page "
                         "bytes (--slots wins if both are given)")
+    p.add_argument("--no-quant", action="store_true",
+                   help="serve unquantized adapters: not supported (the "
+                        "reference's flag crashes in its quantizer, ROADMAP "
+                        "C7); raises")
+    p.add_argument("--deadline-ms", type=float, default=None,
+                   help="total deadline per request: requests still running "
+                        "past it retire TIMED_OUT with their partial output")
+    p.add_argument("--queue-limit", type=int, default=None,
+                   help="bounded pending queue: submits past this depth hit "
+                        "backpressure (--queue-policy)")
+    p.add_argument("--queue-policy", default="reject",
+                   choices=("reject", "shed_oldest"),
+                   help="what a full queue does: reject the new request, or "
+                        "shed the oldest pending one to make room")
+    p.add_argument("--inject", default=None, metavar="PLAN",
+                   help="named fault plan (none|latency|transient|poison|"
+                        "storm) injected into host reads and uploads")
+    p.add_argument("--metrics-out", default=None, metavar="PATH",
+                   help="write the final Prometheus metrics exposition here")
+    p.add_argument("--trace-out", default=None, metavar="PATH",
+                   help="write a Chrome-trace JSON of request and scheduler "
+                        "spans here (Perfetto / chrome://tracing)")
+    p.add_argument("--events-out", default=None, metavar="PATH",
+                   help="write the JSONL lifecycle event log here")
+    p.add_argument("--stats-every", type=int, default=0, metavar="N",
+                   help="continuous mode: print a one-line stats snapshot "
+                        "every N scheduler steps (0 = off)")
     p.add_argument("--keep-logits", action="store_true",
                    help="keep each request's per-step logits on the returned "
                         "requests (parity checks between modes)")
@@ -122,6 +184,13 @@ def main(argv=None):
                    help="base-model dtype (default: float32 for the smoke "
                         "preset, the config's dtype otherwise)")
     args = p.parse_args(argv)
+    if args.no_quant:
+        # the reference sets bits_high=16, which its quantizer cannot pack
+        raise ValueError("--no-quant is not supported: the reference's "
+                         "serve driver crashes on it with 'unsupported "
+                         "bitwidth 16' (ROADMAP C7), so the port serves "
+                         "quantized adapters only")
+    plan = named_plan(args.inject) if args.inject else None
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, args.preset)
@@ -134,7 +203,7 @@ def main(argv=None):
     qcfg = parse_variant(args.variant)
     budget = (int(args.hbm_budget * 1e6)
               if args.hbm_budget is not None else None)
-    store = AdapterStore(qcfg, hbm_budget_bytes=budget)
+    store = AdapterStore(qcfg, hbm_budget_bytes=budget, faults=plan)
     recipes = dict(parse_recipe_override(r) for r in args.recipe)
     unknown = sorted(set(recipes) - {f"user_{i}"
                                      for i in range(args.adapters)})
@@ -157,14 +226,22 @@ def main(argv=None):
         store.default_recipe = qcfg
         print(f"[serve] fitted default recipe for {args.target_bits} avg "
               f"bits: {qcfg.variant_name}")
-    store.register_many(uploads, recipes=recipes)
+    store.register_many(uploads, recipes=recipes,
+                        on_error="skip" if plan else "raise")
+    if store.onboard_errors:
+        print(f"[serve] rejected uploads: {store.onboard_errors}")
     _sync(dev)
     t_reg = time.perf_counter() - t0
     print(f"[serve] quantized in {t_reg:.2f}s; store stats: {store.stats()}")
 
+    telemetry = Telemetry()
     engine = MultiLoRAEngine(model, params, store, cache_capacity=128,
                              mode=args.mode, max_rows=args.max_rows,
-                             hbm_slots=args.slots)
+                             hbm_slots=args.slots,
+                             queue_limit=args.queue_limit,
+                             queue_policy=args.queue_policy,
+                             default_deadline_ms=args.deadline_ms,
+                             faults=plan, telemetry=telemetry)
     drng = np.random.default_rng(args.seed)
     for rid in range(args.requests):
         engine.submit(Request(
@@ -175,14 +252,27 @@ def main(argv=None):
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    done = engine.run()
+    try:
+        done = _drive(engine, args)
+    finally:
+        telemetry.uninstall_kernel_counter()
     _sync(dev)
     dt = time.perf_counter() - t0
     ok = [r for r in done if r.status is RequestStatus.DONE]
     total_tokens = sum(len(r.output) for r in ok)
-    print(f"[serve] mode={args.mode}: {len(done)} requests ({len(ok)} done), "
+    by_status = {}
+    for r in done:
+        by_status[r.status.value] = by_status.get(r.status.value, 0) + 1
+    print(f"[serve] mode={args.mode}: {len(done)} requests "
+          f"({', '.join(f'{k}={v}' for k, v in sorted(by_status.items()))}), "
           f"{total_tokens} tokens in {dt:.3f}s ({total_tokens / dt:.1f} "
           f"tok/s); fp-resident LoRA bytes: {store.fp_resident_bytes()}")
+    for r in [r for r in done if r.status is not RequestStatus.DONE][:8]:
+        print(f"[serve]   request {r.request_id} ({r.adapter_id}): "
+              f"{r.status.value} — {r.error}")
+    if engine.quarantined:
+        print(f"[serve] quarantined adapters: {sorted(engine.quarantined)}")
+    print_latency_summary(telemetry)
     if dev.type == "cuda":
         print(f"[serve] peak device memory while serving: "
               f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
@@ -214,6 +304,37 @@ def main(argv=None):
     if ok:
         print(f"[serve] sample output (req {ok[0].request_id}): "
               f"{ok[0].output.tolist()}")
+    if args.metrics_out:
+        telemetry.write_prometheus(args.metrics_out)
+        print(f"[serve] wrote metrics exposition to {args.metrics_out}")
+    if args.trace_out:
+        telemetry.write_chrome_trace(args.trace_out)
+        print(f"[serve] wrote Chrome trace to {args.trace_out}")
+    if args.events_out:
+        telemetry.write_jsonl(args.events_out)
+        print(f"[serve] wrote {len(telemetry.events)} lifecycle events "
+              f"to {args.events_out}")
+    return done
+
+
+def _drive(engine: MultiLoRAEngine, args):
+    """Run the engine to completion; in continuous mode with
+    ``--stats-every N``, step by step with a snapshot every N steps."""
+    if args.mode != "continuous" or args.stats_every <= 0:
+        return engine.run()
+    done = []
+    while engine.pending or engine.active_rows or engine._terminated:
+        done.extend(engine.step())
+        if engine._step_count % args.stats_every == 0:
+            st = engine.stats()
+            mem = engine.memory_stats()
+            print(f"[serve] step {st['decode_steps']}: "
+                  f"active={st['active_rows']}/{args.max_rows} "
+                  f"pending={st['pending']} "
+                  f"finished={sum(st.get('finished', {}).values())} "
+                  f"tokens={st.get('tokens', 0)} "
+                  f"mem hits/misses={mem.get('hits', 0)}/"
+                  f"{mem.get('misses', 0)}")
     return done
 
 

@@ -21,8 +21,13 @@
   as references. All modes mask pad slots and use real rotary positions,
   so they agree token for token.
 
-Not ported yet (ROADMAP A3): queue limits, the static modes' integrity
-screen, fault injection and telemetry.
+The engine honours the reference's failure contract
+(``repro_torch.serving.faults``): deadlines, a bounded queue with
+``reject`` / ``shed_oldest`` backpressure, quarantine of poisoned
+adapters (the paged memory's page check in continuous mode, the store's
+integrity screen in the static modes) and seeded fault injection. With a
+:class:`~repro_torch.serving.telemetry.Telemetry` it records request
+traces, latency histograms and kernel launches.
 """
 
 from __future__ import annotations
@@ -52,15 +57,19 @@ from repro_torch.kernels import (
 from repro_torch.serving.faults import (
     AdapterValidationError,
     DeadlineExceeded,
+    FaultPlan,
     HostReadError,
+    HostTransport,
     MemoryExhausted,
     PoisonedAdapter,
+    QueueFull,
     RequestError,
     RequestStatus,
     UnknownAdapter,
     validate_lora_tree,
 )
 from repro_torch.serving.memory import upload
+from repro_torch.serving.telemetry import Telemetry
 
 # Prefill token-tile rows: prompts are padded to a multiple of this so every
 # tile holds one adapter; it is the most rows one sgmv_fused block holds.
@@ -200,6 +209,17 @@ def _leaf_folds(template) -> Dict[str, int]:
     return folds
 
 
+def _float_leaves(q: QuantizedLoRA):
+    """The float tensors of one quantized entry (its sides' scales)."""
+    for side in (q.b_high, q.a_high, q.b_low, q.a_low):
+        if side is None:
+            continue
+        for f in dataclasses.fields(side):
+            v = getattr(side, f.name)
+            if isinstance(v, torch.Tensor) and v.is_floating_point():
+                yield v
+
+
 def _tree_bytes(tree) -> int:
     if isinstance(tree, torch.Tensor):
         return tree.nbytes
@@ -232,7 +252,8 @@ class AdapterStore:
     def __init__(self, default_recipe: Optional[QuantRecipe] = None,
                  fp_cache_bytes: int = 1 << 30,
                  batched_quantize: bool = True,
-                 hbm_budget_bytes: Optional[int] = None):
+                 hbm_budget_bytes: Optional[int] = None,
+                 faults: Optional[FaultPlan] = None):
         self.default_recipe = (default_recipe if default_recipe is not None
                                else QuantRecipe())
         self.quantized: Dict[str, QuantizedAdapter] = {}
@@ -245,6 +266,8 @@ class AdapterStore:
         self._batch_cache: Dict[tuple, Any] = {}
         self._versions: Dict[str, int] = {}
         self._mutations = 0
+        self.faults = faults               # onboarding fault injection
+        self._integrity: Dict[str, Tuple[int, bool]] = {}   # aid -> (ver, ok)
         self.onboard_errors: Dict[str, str] = {}   # last register_many skips
 
     def _invalidate(self, adapter_id: str):
@@ -279,8 +302,11 @@ class AdapterStore:
                  validate: bool = True) -> QuantizedAdapter:
         """Quantize and register one adapter under ``recipe`` (default: the
         store's). ``validate`` screens the upload first (NaN/Inf, rank
-        mismatch → :class:`AdapterValidationError`)."""
+        mismatch, an injected onboarding fault →
+        :class:`AdapterValidationError`)."""
         if validate:
+            if self.faults is not None:
+                self.faults.check_onboard(adapter_id)
             validate_lora_tree(lora_tree, adapter_id)
         qa = quantize_adapter_tree(lora_tree, recipe or self.default_recipe,
                                    batched=self.batched_quantize)
@@ -320,6 +346,8 @@ class AdapterStore:
             accepted = []
             for adapter_id in trees:
                 try:
+                    if self.faults is not None:
+                        self.faults.check_onboard(adapter_id)
                     validate_lora_tree(trees[adapter_id], adapter_id)
                 except AdapterValidationError as e:
                     if on_error == "raise":
@@ -350,6 +378,22 @@ class AdapterStore:
         for adapter_id in accepted:                  # preserve upload order
             self.register_quantized(adapter_id, out[adapter_id])
         return out
+
+    def check_integrity(self, adapter_id: str) -> bool:
+        """True iff the adapter's quantized entries are finite (the float
+        fields, scales: integer codes cannot encode NaN). Reduced where
+        the entries live and read once per adapter, cached per
+        registration version: one scan per (re-)register, not per step."""
+        ver = self._versions.get(adapter_id, -1)
+        cached = self._integrity.get(adapter_id)
+        if cached is not None and cached[0] == ver:
+            return cached[1]
+        finite = [torch.isfinite(t).all()
+                  for qs in self.quantized[adapter_id].entries.values()
+                  for q in qs for t in _float_leaves(q)]
+        ok = not finite or bool(torch.stack(finite).all())
+        self._integrity[adapter_id] = (ver, ok)
+        return ok
 
     def materialize(self, adapter_id: str, like_tree) -> Any:
         if adapter_id in self._lru:
@@ -538,6 +582,16 @@ class MultiLoRAEngine:
     dequantized fp trees (the reference). All three mask pad slots and use
     real rotary positions, so they agree token for token. The engine runs
     on the device of ``base_params``.
+
+    **Failure contract.** ``queue_limit`` bounds the pending queue
+    (``queue_policy``: ``"reject"`` the new arrival or ``"shed_oldest"``
+    queued request, with :class:`QueueFull`); ``default_deadline_ms`` is
+    the total budget of requests that name none; ``faults`` /
+    ``transport`` inject host-read faults and page corruption into the
+    paged memory. ``telemetry`` records every lifecycle event, and
+    ``clock`` (default: the telemetry's clock, else ``perf_counter``) is
+    the one clock of deadlines and traces. Timestamps are taken after the
+    step's host synchronization, so they include the device work.
     """
 
     MODES = ("continuous", "packed", "materialize")
@@ -545,8 +599,18 @@ class MultiLoRAEngine:
     def __init__(self, model, base_params, store: AdapterStore,
                  cache_capacity: int = 512, mode: str = "continuous",
                  max_rows: int = 8, hbm_slots: Optional[int] = None,
-                 hol_bypass: bool = True, stall_limit: int = 3):
+                 queue_limit: Optional[int] = None,
+                 queue_policy: str = "reject",
+                 hol_bypass: bool = True, stall_limit: int = 3,
+                 default_deadline_ms: Optional[float] = None,
+                 faults: Optional[FaultPlan] = None,
+                 transport: Optional[HostTransport] = None,
+                 telemetry: Optional[Telemetry] = None,
+                 clock=None):
         self._check_mode(mode)
+        if queue_policy not in ("reject", "shed_oldest"):
+            raise ValueError(f"queue_policy must be 'reject' or "
+                             f"'shed_oldest', got {queue_policy!r}")
         self.model = model
         self.params = base_params         # {"base", "lora"(template)}
         self.store = store
@@ -554,14 +618,30 @@ class MultiLoRAEngine:
         self.mode = mode
         self.max_rows = max_rows
         self.hbm_slots = hbm_slots
+        self.queue_limit = queue_limit
+        self.queue_policy = queue_policy
         self.hol_bypass = hol_bypass
         self.stall_limit = stall_limit
+        self.default_deadline_ms = default_deadline_ms
+        self.faults = faults
+        self.transport = transport
+        self.telemetry = telemetry
         self.device = base_params["base"]["final_norm"]["w"].device
-        self.clock = time.perf_counter
+        if clock is not None:
+            self.clock = clock
+        elif telemetry is not None:
+            self.clock = telemetry.clock
+        else:
+            self.clock = time.perf_counter
+        if telemetry is not None:
+            telemetry.install_kernel_counter()
         self.pending: List[Request] = []
         # adapters quarantined at fault time: id -> store version then (a
         # re-register bumps the version and clears it)
         self.quarantined: Dict[str, Optional[int]] = {}
+        # requests terminated outside step() (queue shedding), returned by
+        # the next step so callers see every terminal request
+        self._terminated: List[Request] = []
         self._wave = 0                    # prefill groups (admission waves)
         self._step_count = 0              # decode steps
         self._stalled_steps = 0
@@ -580,10 +660,17 @@ class MultiLoRAEngine:
 
     def _finalize(self, req: Request, status: RequestStatus,
                   error: Optional[RequestError] = None) -> Request:
+        """Move a request to a terminal state (with ``output`` set, possibly
+        empty): the one place every terminal transition, and so the
+        telemetry's retire event, goes through."""
         req.status = status
         req.error = error
         if req.output is None:
             req.output = np.zeros((0,), np.int32)
+        if self.telemetry is not None:
+            cause = error.kind if error is not None else "ok"
+            self.telemetry.on_retire(req.request_id, status.name.lower(),
+                                     cause, len(req.output))
         return req
 
     def _quarantine(self, adapter_id: str):
@@ -627,16 +714,43 @@ class MultiLoRAEngine:
             f"request {req.request_id}: adapter {req.adapter_id!r} {why}",
             adapter_id=req.adapter_id))
 
-    def submit(self, req: Request) -> Request:
-        """Enqueue a request. An unknown adapter id is REJECTED at once
-        (:class:`UnknownAdapter`), a quarantined one FAILS
-        (:class:`PoisonedAdapter`)."""
-        if req.t_submit is None:
-            req.t_submit = self.clock()
+    def _reject_now(self, req: Request) -> Optional[Request]:
+        """Submit-time screening: a quarantined adapter FAILS, an unknown
+        one is REJECTED; neither is enqueued."""
         if self._is_quarantined(req.adapter_id):
             return self._poisoned(req, "is quarantined")
         if req.adapter_id not in self.store.quantized:
             return self._unknown(req)
+        return None
+
+    def submit(self, req: Request) -> Request:
+        """Enqueue a request, returning it with its (possibly already
+        terminal) status. An unknown adapter id is REJECTED at once
+        (:class:`UnknownAdapter`), a quarantined one FAILS
+        (:class:`PoisonedAdapter`). With ``queue_limit`` a full queue
+        rejects the new arrival (``"reject"``) or the oldest queued
+        request (``"shed_oldest"``, returned by the next :meth:`step`)
+        with :class:`QueueFull`."""
+        if req.t_submit is None:
+            req.t_submit = self.clock()
+        if req.deadline_ms is None:
+            req.deadline_ms = self.default_deadline_ms
+        if self.telemetry is not None:
+            self.telemetry.on_submit(req.request_id, req.adapter_id)
+        if self._reject_now(req) is not None:
+            return req
+        if (self.queue_limit is not None
+                and len(self.pending) >= self.queue_limit):
+            if self.queue_policy == "reject":
+                return self._finalize(req, RequestStatus.REJECTED, QueueFull(
+                    f"request {req.request_id}: pending queue full "
+                    f"({self.queue_limit})", adapter_id=req.adapter_id))
+            shed = self.pending.pop(0)           # shed_oldest
+            self._terminated.append(self._finalize(
+                shed, RequestStatus.REJECTED, QueueFull(
+                    f"request {shed.request_id}: shed by newer arrival "
+                    f"under shed_oldest backpressure",
+                    adapter_id=shed.adapter_id)))
         req.status = RequestStatus.PENDING
         self.pending.append(req)
         return req
@@ -667,10 +781,16 @@ class MultiLoRAEngine:
             params_prefill, {"tokens": torch.as_tensor(toks, device=dev),
                              "start": starts}, self.capacity)
         last = torch.argmax(logits[:, -1, :], dim=-1)
+        if self.telemetry is not None and dev.type == "cuda":
+            # TTFT is the first token's, not its enqueue's: the static
+            # loop has no host read until the end
+            torch.cuda.current_stream(dev).synchronize()
         now = self.clock()
         for r in reqs:
             r.t_first = now
             r.status = RequestStatus.RUNNING
+            if self.telemetry is not None:
+                self.telemetry.on_first_token(r.request_id)
         n_new = max(r.max_new_tokens for r in reqs)
         keep = [i for i, r in enumerate(reqs) if r.keep_logits]
         outs = [last]
@@ -736,7 +856,9 @@ class MultiLoRAEngine:
 
             self._memory = AdapterMemoryManager(
                 self.store, self.params["lora"], num_slots=self.hbm_slots,
-                tile_t=SEG_TILE, device=self.device)
+                tile_t=SEG_TILE, device=self.device,
+                transport=self.transport, faults=self.faults,
+                telemetry=self.telemetry)
         return self._memory
 
     def memory_stats(self) -> Dict[str, Any]:
@@ -745,14 +867,37 @@ class MultiLoRAEngine:
         return self._memory.stats() if self._memory is not None else {}
 
     def stats(self) -> Dict[str, Any]:
-        """Live scheduler state: queue depth, active rows, quarantined
-        adapters, decode steps and prefill groups (admission waves) so
-        far."""
-        return {"pending": len(self.pending),
-                "active_rows": self.active_rows,
-                "quarantined": len(self.quarantined),
-                "decode_steps": self._step_count,
-                "admission_waves": self._wave}
+        """Scheduler counters as a view over the telemetry registry.
+
+        Always the live state: queue depth, active rows, quarantined
+        adapters, decode steps and prefill groups (admission waves) so far.
+        With a :class:`Telemetry` also the submitted and token totals,
+        terminal counts by status and by cause, and the p50/p95/p99
+        summaries of TTFT, E2E and queue wait (``None`` percentiles while a
+        histogram is empty); the engine keeps no shadow counters."""
+        out: Dict[str, Any] = {
+            "pending": len(self.pending),
+            "active_rows": self.active_rows,
+            "quarantined": len(self.quarantined),
+            "decode_steps": self._step_count,
+            "admission_waves": self._wave,
+        }
+        if self.telemetry is None:
+            return out
+        reg = self.telemetry.registry
+        out["submitted"] = int(reg.value("serving_requests_submitted_total"))
+        out["tokens"] = int(reg.value("serving_tokens_total"))
+        by_status: Dict[str, int] = {}
+        by_cause: Dict[str, int] = {}
+        for m in reg.series("serving_requests_total"):
+            labels = dict(m.labels)
+            st, cause = labels.get("status", ""), labels.get("cause", "")
+            by_status[st] = by_status.get(st, 0) + int(m.value)
+            by_cause[cause] = by_cause.get(cause, 0) + int(m.value)
+        out["finished"] = by_status
+        out["retire_causes"] = by_cause
+        out["latency"] = self.telemetry.latency_summary()
+        return out
 
     def _tpad(self, req: Request) -> int:
         return max(SEG_TILE, -(-len(req.prompt) // SEG_TILE) * SEG_TILE)
@@ -771,6 +916,11 @@ class MultiLoRAEngine:
         toks = np.stack([np.pad(np.asarray(r.prompt), (tpad - len(r.prompt), 0))
                          for r in reqs]).astype(np.int64)
         self._wave += 1
+        tel = self.telemetry
+        if tel is not None:
+            for req, row_idx in zip(reqs, rows):
+                tel.on_admit(req.request_id, self._wave, row_idx)
+        t_pre = self.clock()
         # fetch the tree AFTER the acquires: this group's swap-ins are in it
         packed = self.memory.serving_tree()
         pre = {"base": self.params["base"],
@@ -783,6 +933,9 @@ class MultiLoRAEngine:
         firsts = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy()
         first_logits = logits[:, -1, :].float().cpu().numpy() if keep else None
         now = self.clock()
+        if tel is not None:
+            tel.on_prefill(self._wave, [r.request_id for r in reqs],
+                           int(tpad), now - t_pre)
         # cache rows land on axis 1 of every (count, B, cap, KV, dh) leaf;
         # the group's caches have this engine's capacity, so ring slots line
         # up with the persistent cache's
@@ -795,6 +948,8 @@ class MultiLoRAEngine:
         for b, (req, row_idx) in enumerate(zip(reqs, rows)):
             req.t_first = now
             req.status = RequestStatus.RUNNING
+            if tel is not None:
+                tel.on_first_token(req.request_id)
             row = _Row(req=req, start=int(starts[b]),
                        prompt_len=len(req.prompt), emitted=[int(firsts[b])],
                        logits=[first_logits[b]] if req.keep_logits else None)
@@ -894,11 +1049,11 @@ class MultiLoRAEngine:
     def step(self) -> List[Request]:
         """Advance the continuous scheduler by one decode step.
 
-        0. **Sweep**: queued requests past their TTFT or total deadline
-           retire TIMED_OUT; adapters whose pages failed the integrity
-           check are quarantined and their live rows retire FAILED; live
-           rows past their total deadline retire TIMED_OUT with their
-           partial output.
+        0. **Sweep**: requests shed at submit time are returned; queued
+           requests past their TTFT or total deadline retire TIMED_OUT;
+           adapters whose pages failed the integrity check are quarantined
+           and their live rows retire FAILED; live rows past their total
+           deadline retire TIMED_OUT with their partial output.
         1. **Admit** pending requests into free rows
            (:meth:`_select_admissions`; each group is one prefill; a
            request done at admission frees its row at once). If nothing is
@@ -914,12 +1069,13 @@ class MultiLoRAEngine:
 
         Returns the requests that reached a terminal state in this step,
         in completion order."""
-        finished: List[Request] = []
+        finished: List[Request] = list(self._terminated)
+        self._terminated = []
         if not self.pending and all(r is None for r in self._rows):
             return finished
         mgr = self.memory
         mgr.refresh()                      # reconcile store mutations
-        now = self.clock()
+        t_step = now = self.clock()
         still: List[Request] = []
         for r in self.pending:
             err = self._queue_expired(r, now)
@@ -1024,6 +1180,11 @@ class MultiLoRAEngine:
         if any(self._rows[i].logits is not None for i in active):
             kept = logits[:, -1, :].float().cpu().numpy()
         self._step_count += 1
+        if self.telemetry is not None:
+            self.telemetry.on_decode_step(
+                self._step_count, self.clock() - t_step, len(active),
+                self.max_rows, len(self.pending),
+                request_ids=[self._rows[i].req.request_id for i in active])
         for i in active:
             row = self._rows[i]
             row.emitted.append(int(nxt[i]))
@@ -1037,17 +1198,49 @@ class MultiLoRAEngine:
     def active_rows(self) -> int:
         return sum(r is not None for r in self._rows)
 
+    def _screen_static(self, reqs: List[Request],
+                       done: List[Request]) -> List[Request]:
+        """The failure contract of a static batch, before decoding: unknown
+        adapters REJECT, quarantined ones FAIL, expired deadlines TIME OUT;
+        and, since the static paths read codes straight from the store (no
+        page check), each adapter's codes are integrity-screened once: a
+        poisoned adapter is quarantined and its requests FAIL without
+        touching the rest of the batch."""
+        now = self.clock()
+        healthy: List[Request] = []
+        for r in reqs:
+            if self._reject_now(r) is not None:
+                done.append(r)
+                continue
+            err = self._queue_expired(r, now)
+            if err is not None:
+                done.append(self._finalize(r, RequestStatus.TIMED_OUT, err))
+                continue
+            healthy.append(r)
+        for aid in sorted({r.adapter_id for r in healthy}):
+            if not self.store.check_integrity(aid):
+                self._quarantine(aid)
+        out: List[Request] = []
+        for r in healthy:
+            if self._is_quarantined(r.adapter_id):
+                done.append(self._poisoned(r, "failed the integrity screen"))
+            else:
+                out.append(r)
+        return out
+
     def run(self, mode: Optional[str] = None) -> List[Request]:
         """Process all pending requests to a terminal state and return them
         (continuous mode in completion order, static modes in submission
-        order after any rejected ones)."""
+        order after the screened-out ones)."""
         mode = mode or self.mode
         self._check_mode(mode)
         done: List[Request] = []
         if mode == "continuous":
-            while self.pending or self.active_rows:
+            while self.pending or self.active_rows or self._terminated:
                 done.extend(self.step())
             return done
+        done.extend(self._terminated)      # queue-shed before a static run
+        self._terminated = []
         if self.active_rows:
             # a static run must not strand requests mid-decode in the
             # scheduler's rows: drain them first, without admitting the
@@ -1057,12 +1250,7 @@ class MultiLoRAEngine:
                 done.extend(self.step())
             self.pending = held
         reqs, self.pending = self.pending, []
-        healthy = []
-        for r in reqs:        # an adapter unregistered since submit
-            if r.adapter_id in self.store.quantized:
-                healthy.append(r)
-            else:
-                done.append(self._unknown(r))
+        healthy = self._screen_static(reqs, done)
         if not healthy:
             return done
         if mode == "packed":

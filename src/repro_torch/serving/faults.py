@@ -1,19 +1,35 @@
-"""The part of the serving failure contract that the engine and the paged
-adapter memory use (port of ``repro/serving/faults.py:43-126``, ``:286-382``).
+"""Failure contract and fault-injection harness of multi-LoRA serving
+(port of ``repro/serving/faults.py``).
 
-Request lifecycle states, the structured per-request errors (unknown,
-poisoned and quarantined adapters, deadlines, exhausted adapter memory),
-the host tier's read path with its integrity check, and the onboarding
-screen for uploaded LoRA trees. Queue backpressure (``QueueFull``) and
-seeded fault injection (``FaultPlan``, ``named_plan``) come with ROADMAP
-A3.
+* :class:`RequestStatus` — the request lifecycle: every request ends in
+  exactly one terminal state (DONE / REJECTED / TIMED_OUT / FAILED) and
+  carries the tokens it produced so far, and, unless DONE, a structured
+  :class:`RequestError` (:class:`UnknownAdapter`, :class:`PoisonedAdapter`,
+  :class:`DeadlineExceeded`, :class:`QueueFull`, :class:`MemoryExhausted`).
+* :class:`AdapterValidationError` — onboarding screen failures (NaN/Inf
+  weights, rank-mismatched factors, injected upload errors).
+* :class:`HostTransport` — the host tier's page-read path with a timeout,
+  bounded exponential-backoff retry and fault injection; without a
+  :class:`FaultPlan` a straight pass-through.
+* :class:`FaultPlan` — seeded, **deterministic** injection of host-read
+  latency, transient and permanent read failures, page corruption and
+  onboarding errors. Every draw comes from an RNG keyed by ``(seed,
+  adapter_id, op, event_index)`` through numpy, as in the reference, so
+  the same plan and call sequence inject exactly the reference's faults.
+
+Nothing here imports the engine or the memory manager at module level:
+both import this module.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import enum
-from typing import Dict, Optional
+import hashlib
+import time
+from typing import Callable, Dict, FrozenSet, Optional, Tuple
 
+import numpy as np
 import torch
 
 
@@ -67,6 +83,14 @@ class DeadlineExceeded(RequestError):
     kind = "deadline_exceeded"
 
 
+class QueueFull(RequestError):
+    """Backpressure: the bounded pending queue was full at submit time
+    (``reject`` rejects the new arrival, ``shed_oldest`` the oldest queued
+    request instead)."""
+
+    kind = "queue_full"
+
+
 class MemoryExhausted(RequestError):
     """The paged adapter memory could not produce a usable page: every slot
     pinned with no prospect of progress, or the host tier failed with no
@@ -87,27 +111,191 @@ class HostReadError(Exception):
         self.attempts = attempts
 
 
-class HostTransport:
-    """The host-tier page-read path the memory manager calls
-    (:meth:`read`). Without a fault plan a read is exactly one
-    ``builder()`` call; the reference's retry / timeout policy acts only
-    on injected faults, which come with ROADMAP A3."""
+def _stable_rng(seed: int, *key) -> np.random.Generator:
+    """An RNG keyed by (seed, *key), stable across processes (md5, not
+    Python's salted ``hash``), so fault plans replay identically."""
+    digest = hashlib.md5(
+        ("|".join(str(k) for k in (seed,) + key)).encode()).digest()
+    return np.random.default_rng(int.from_bytes(digest[:8], "little"))
 
-    def __init__(self, faults=None):
-        if faults is not None:
-            raise NotImplementedError(
-                "fault injection (FaultPlan) is not ported yet (ROADMAP A3)")
+
+@dataclasses.dataclass
+class FaultPlan:
+    """Seeded deterministic fault injection for the serving stack. Every
+    knob defaults to "no faults".
+
+    Host-read faults (drawn by :class:`HostTransport` per *attempt*):
+
+    * ``read_latency_s`` with probability ``read_latency_prob``: an
+      injected sleep before the read (slower than the transport's
+      ``timeout_s``: a failed attempt).
+    * ``transient_fail_prob``: each attempt fails independently; retries
+      draw again.
+    * ``fail_adapters``: these ids fail every attempt.
+    * ``fail_reads_from``: id → k: the id's k-th and later read events
+      fail (a host copy that goes bad mid-serve).
+
+    ``corrupt_adapters``: these ids' pages come back with NaN scales (the
+    memory layer applies it after a successful read). ``onboard_fail``:
+    registering these ids raises :class:`AdapterValidationError`.
+
+    Draws are keyed by ``(seed, adapter_id, op, event_index)``, with
+    ``event_index`` a per-(id, op) call counter.
+    """
+
+    seed: int = 0
+    read_latency_s: float = 0.0
+    read_latency_prob: float = 0.0
+    transient_fail_prob: float = 0.0
+    fail_adapters: FrozenSet[str] = frozenset()
+    fail_reads_from: Optional[Dict[str, int]] = None
+    corrupt_adapters: FrozenSet[str] = frozenset()
+    onboard_fail: FrozenSet[str] = frozenset()
+
+    def __post_init__(self):
+        self.fail_adapters = frozenset(self.fail_adapters)
+        self.corrupt_adapters = frozenset(self.corrupt_adapters)
+        self.onboard_fail = frozenset(self.onboard_fail)
+        self._counters: Dict[Tuple[str, str], int] = {}
+        self.injected: Dict[str, int] = {}     # op -> injected events
+
+    def _event(self, adapter_id: str, op: str) -> int:
+        n = self._counters.get((adapter_id, op), 0)
+        self._counters[(adapter_id, op)] = n + 1
+        return n
+
+    def _note(self, op: str):
+        self.injected[op] = self.injected.get(op, 0) + 1
+
+    def host_read(self, adapter_id: str, attempt: int) -> Tuple[bool, float]:
+        """Outcome of one read attempt: ``(ok, injected_latency_s)``,
+        called by the transport once per attempt (retries included)."""
+        event = self._event(adapter_id, "read")
+        latency = 0.0
+        if self.read_latency_prob > 0.0:
+            rng = _stable_rng(self.seed, adapter_id, "latency", event)
+            if rng.random() < self.read_latency_prob:
+                latency = self.read_latency_s
+                self._note("read_latency")
+        if adapter_id in self.fail_adapters:
+            self._note("read_fail_permanent")
+            return False, latency
+        start = (self.fail_reads_from or {}).get(adapter_id)
+        if start is not None and event >= start:
+            self._note("read_fail_permanent")
+            return False, latency
+        if self.transient_fail_prob > 0.0:
+            rng = _stable_rng(self.seed, adapter_id, "transient", event,
+                              attempt)
+            if rng.random() < self.transient_fail_prob:
+                self._note("read_fail_transient")
+                return False, latency
+        return True, latency
+
+    def corrupt_page(self, adapter_id: str, arrays):
+        """For ids in ``corrupt_adapters``, a copy of the just-read host
+        page ``{path: {field: tensor}}`` whose first float field per path
+        has a NaN first element; ``arrays`` itself otherwise. The page is
+        never modified in place."""
+        if adapter_id not in self.corrupt_adapters:
+            return arrays
+        self._note("page_corruption")
+        out = {}
+        for path, fields in arrays.items():
+            out[path] = dict(fields)
+            for name, arr in fields.items():
+                if arr.is_floating_point():
+                    bad = arr.clone()
+                    bad.view(-1)[0] = float("nan")
+                    out[path][name] = bad
+                    break                      # one NaN per path is plenty
+        return out
+
+    def check_onboard(self, adapter_id: str):
+        """Raise the injected onboarding error for ids in ``onboard_fail``
+        (called by ``AdapterStore.register``)."""
+        if adapter_id in self.onboard_fail:
+            self._note("onboard_fail")
+            raise AdapterValidationError(
+                f"injected onboarding failure for adapter {adapter_id!r}")
+
+    def stats(self) -> Dict[str, int]:
+        """Injected events by op (``read_latency``, ``read_fail_transient``,
+        ``read_fail_permanent``, ``page_corruption``, ``onboard_fail``)."""
+        return dict(self.injected)
+
+
+def named_plan(name: str, **overrides) -> Optional[FaultPlan]:
+    """The named fault plans of ``launch/serve.py --inject`` and the chaos
+    storm; ``none`` → ``None`` (no injection layer at all)."""
+    presets: Dict[str, dict] = {
+        "none": None,
+        "latency": dict(read_latency_s=0.005, read_latency_prob=0.5),
+        "transient": dict(transient_fail_prob=0.4),
+        "poison": dict(corrupt_adapters=frozenset({"user_1"})),
+        "storm": dict(read_latency_s=0.003, read_latency_prob=0.3,
+                      transient_fail_prob=0.3,
+                      corrupt_adapters=frozenset({"user_1"})),
+    }
+    if name not in presets:
+        raise ValueError(f"unknown fault plan {name!r}; "
+                         f"choose from {sorted(presets)}")
+    if presets[name] is None:
+        return None
+    return FaultPlan(**{**presets[name], **overrides})
+
+
+class HostTransport:
+    """The host tier's page-read path: timeout and bounded
+    exponential-backoff retry around the memory manager's page builder,
+    with :class:`FaultPlan` injection. The memory manager only calls
+    :meth:`read`, so a subclass can back the host tier with another store.
+
+    With ``faults=None`` a read is exactly one ``builder()`` call. Real
+    exceptions raised by the builder propagate at once (they are bugs, not
+    transport weather); only injected faults consume the retry budget.
+    ``sleep`` takes the injected latency and backoff (a
+    ``ManualClock.sleep`` makes them virtual time)."""
+
+    def __init__(self, faults: Optional[FaultPlan] = None,
+                 timeout_s: float = 0.25, max_retries: int = 3,
+                 backoff_s: float = 1e-3, backoff_mult: float = 2.0,
+                 sleep: Callable[[float], None] = time.sleep):
         self.faults = faults
+        self.timeout_s = timeout_s
+        self.max_retries = max_retries
+        self.backoff_s = backoff_s
+        self.backoff_mult = backoff_mult
+        self.sleep = sleep
         self.reads = 0
         self.retries = 0
         self.timeouts = 0
         self.failures = 0
 
     def read(self, adapter_id: str, builder):
-        """Return ``builder()``; exceptions it raises propagate (they are
-        bugs, not transport weather)."""
+        """Return ``builder()`` under the retry / timeout policy; raise
+        :class:`HostReadError` once the retry budget is spent."""
         self.reads += 1
-        return builder()
+        if self.faults is None:
+            return builder()
+        delay = self.backoff_s
+        cause = ""
+        for attempt in range(self.max_retries + 1):
+            ok, latency = self.faults.host_read(adapter_id, attempt)
+            if latency > 0.0:
+                if latency > self.timeout_s:
+                    ok, cause = False, "timeout"
+                    self.timeouts += 1
+                else:
+                    self.sleep(latency)
+            if ok:
+                return builder()
+            if attempt < self.max_retries:
+                self.retries += 1
+                self.sleep(delay)
+                delay *= self.backoff_mult
+        self.failures += 1
+        raise HostReadError(adapter_id, self.max_retries + 1, cause)
 
     def stats(self) -> Dict[str, int]:
         return {"reads": self.reads, "retries": self.retries,

@@ -49,6 +49,7 @@ from repro_torch.kernels.quant_matmul.ops import (
     _PACKED_ARRAY_FIELDS as _ARRAY_FIELDS,
 )
 from repro_torch.serving.faults import (
+    FaultPlan,
     HostReadError,
     HostTransport,
     PoisonedAdapter,
@@ -127,10 +128,18 @@ class AdapterMemoryManager:
     Eviction is LRU over resident, unpinned, unreserved slots. ``pin`` /
     ``unpin`` are refcounted per adapter id (one count per live row);
     ``prefetch`` reserves its slots until the next prefetch call.
+
+    Host reads go through ``transport`` (default: a
+    :class:`HostTransport` injecting ``faults``); ``faults`` also corrupts
+    pages after the read, before the integrity check. With a
+    ``telemetry``, every counter is mirrored into its registry
+    (``adapter_memory_<counter>_total{pool=...}``).
     """
 
     def __init__(self, store, like_tree, num_slots: Optional[int] = None,
-                 tile_t: int = 8, device="cuda"):
+                 tile_t: int = 8, device="cuda",
+                 transport: Optional[HostTransport] = None,
+                 faults: Optional[FaultPlan] = None, telemetry=None):
         if num_slots is not None and num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         self.store = store
@@ -138,7 +147,10 @@ class AdapterMemoryManager:
         self.requested_slots = num_slots
         self.tile_t = tile_t
         self.device = resolve_device(device)
-        self.transport = HostTransport()
+        self.faults = faults
+        self.transport = (transport if transport is not None
+                          else HostTransport(faults=faults))
+        self.telemetry = telemetry
 
         self._leaf_info: Optional[List[Tuple[str, int, int]]] = None
         self._host: Dict[str, _HostPage] = {}
@@ -185,14 +197,29 @@ class AdapterMemoryManager:
         return "-".join(str(x) for x in sig)
 
     def _count(self, sig: tuple, key: str, n: int = 1):
+        """Bump one per-pool counter, mirrored into the telemetry registry
+        (``adapter_memory_<key>_total{pool=...}``) when attached."""
         pool = self._per_pool.setdefault(sig, dict(_EMPTY_COUNTS))
         pool[key] += n
+        if self.telemetry is not None:
+            self.telemetry.registry.counter(
+                f"adapter_memory_{key}_total",
+                pool=self._sig_label(sig)).inc(n)
 
     def _count_prefetch(self, outcome: str):
         self.prefetch_counts[outcome] += 1
+        if self.telemetry is not None:
+            self.telemetry.registry.counter(
+                "adapter_memory_prefetch_total",
+                help="prefetch staging outcomes",
+                outcome=outcome).inc()
 
     def _count_stale(self):
         self.stale_serves += 1
+        if self.telemetry is not None:
+            self.telemetry.registry.counter(
+                "adapter_memory_stale_serves_total",
+                help="degraded serves from a stale resident page").inc()
 
     # ----- layout -----
 
@@ -224,9 +251,12 @@ class AdapterMemoryManager:
 
         The page is packed where the entries live (the card) and moved to
         the host: one synchronization per page build, none per swap-in.
-        The build runs through the :class:`HostTransport` and the host copy
-        is integrity-checked before it can reach a slot: non-finite scales
-        raise :class:`PoisonedAdapter` (recorded in :attr:`poisoned`)."""
+        The build runs through the :class:`HostTransport` (retry, timeout,
+        injection); an injected corruption applies to the host copy, which
+        is integrity-checked before it is cached or copied into any slot:
+        non-finite scales raise :class:`PoisonedAdapter` (recorded in
+        :attr:`poisoned`), a read that keeps failing
+        :class:`HostReadError`."""
         version = self.store.version(adapter_id)
         if version is None:
             raise KeyError(f"adapter {adapter_id!r} is not registered")
@@ -262,6 +292,8 @@ class AdapterMemoryManager:
             return arrays, meta, nbytes
 
         arrays, meta, nbytes = self.transport.read(adapter_id, build)
+        if self.faults is not None:        # bad bytes at rest
+            arrays = self.faults.corrupt_page(adapter_id, arrays)
         # layout facts are value-independent: record them even for a page
         # that fails the integrity check, so pool geometry survives
         self._page_bytes_by_sig.setdefault(sig, nbytes)
@@ -837,6 +869,19 @@ class AdapterMemoryManager:
                               if s == sig and self.pinned(aid)),
                 "page_bytes": pool.page_bytes,
             }
+        if self.telemetry is not None:
+            # the reference's series and help texts, so that the two
+            # packages' expositions compare line for line
+            reg = self.telemetry.registry
+            reg.gauge("adapter_memory_slots",
+                      help="total HBM slot capacity").set(
+                sum(p.capacity for p in self._pools.values()))
+            reg.gauge("adapter_memory_resident",
+                      help="resident pages").set(len(self._where))
+            reg.gauge("adapter_memory_pinned",
+                      help="pinned adapters").set(len(self._pins))
+            reg.gauge("adapter_memory_hbm_bytes").set(self.hbm_bytes())
+            reg.gauge("adapter_memory_host_bytes").set(self.host_bytes())
         return {
             "slots": sum(p.capacity for p in self._pools.values()),
             "pools": len(self._pools),
