@@ -110,6 +110,35 @@ Phases (a failure raises and the script exits non-zero):
     ``repro_torch.launch.serve.main`` at full width with ``--inject
     storm``, a queue limit, ``shed_oldest``, a deadline, ``--stats-every``
     and the three exports: the files parse and ``user_1`` is quarantined.
+18. MoE kernel vs plain: ``sgmv_fused`` against ``sgmv_fused_ref`` (TF32
+    off) at mixtral-8x22b's five (K, M) -- (6144, 6144), (6144, 1024),
+    (6144, 16384), (16384, 6144) and the router's (6144, 8) -- with 8
+    adapters x 8 experts folded into 64 entries and folded seg ids
+    ``adapter·8 + expert`` at tile_t 1 over the dispatch rows (64 at
+    decode, 1280 at prefill), bits 2; bitwise repeats; time, plain time
+    and bound per case, and the mix over mixtral's 8 LoRA linears.
+19. MoE continuous serve: mixtral at full width cut to 8 layers, bf16, 8
+    adapters ``2@0.9`` (per-expert LoRA), ``MultiLoRAEngine`` with 8 rows
+    over the Zipf stream of phase 13, all-resident and bounded to 4
+    slots: the reference's paging (``ZIPF_BOUNDED``), the pool at 4
+    pages, exactly 8 layers x 8 LoRA linears = 64 ``sgmv_fused`` per live
+    pool per forward and no other kernel; a second bounded run (one
+    engine step profiled) repeats the first's tokens and paging; the
+    requests whose all-resident tokens part from the bounded ones are
+    reported (capacity drops and bf16 rounding depend on which requests
+    share a prefill group).
+20. MoE fp32 parity, 2 layers, capacity factor n_experts (drop-free, as
+    the reference's own parity tests): bounded continuous == all-resident
+    == materialize in routing (every prompt at every MoE layer), greedy
+    tokens and logits within ``LOGIT_RTOL``; a shifted-adapter control
+    moves them by ``CONTROL_MARGIN`` tolerances.
+21. Long prompt, fp32, 2 layers: one request of 8704 tokens (past the
+    4096 window and the 8192-token blockwise threshold) and 4 decode
+    steps, continuous packed == materialize in routing at every MoE layer
+    of every forward, tokens, and logits within ``LOGIT_RTOL``; then one
+    full-width attention layer at T = 8704: blockwise == plain within
+    ``RTOL``, with window 4096 and without, and the default path is the
+    blockwise one.
 
 The phases' total time is logged last. The last three lines are the card (nvidia-smi), a ``{"kernels": [...]}``
 summary and ``{"ok": true, "device": {...}}``.
@@ -1189,12 +1218,14 @@ def count_forwards():
 
 def run_stream(model, params, store, ids, prompts, vocab, *, slots=None,
                mode="continuous", keep_logits=False, shift=0,
-               device="cuda", profile=False, telemetry=None):
+               device="cuda", profile=False, telemetry=None,
+               per_forward=None):
     """Serve the stream through ``MultiLoRAEngine`` (``CONT_ROWS`` rows,
     ``slots`` device slots, ``telemetry`` if given); request r meets
     adapter ``ids[r] + shift``. Checks the outputs and that the kernel
     launches are exactly one ``sgmv_fused`` per LoRA linear per bucket per
-    forward (none for ``materialize``). Returns the requests in id order
+    forward (``per_forward`` per bucket, llama3.2-3b's layers x linears by
+    default; none for ``materialize``). Returns the requests in id order
     and the run's numbers (continuous mode: each engine step's host time,
     which ends in the step's host synchronization)."""
     from repro_torch.kernels.quant_matmul import reset_launch_counts
@@ -1229,8 +1260,10 @@ def run_stream(model, params, store, ids, prompts, vocab, *, slots=None,
     counts = launch_counts(device)
     check_outputs(done, vocab)
     st = engine.stats()
+    if per_forward is None:
+        per_forward = LAYERS_OF[device] * len(LINEARS)
     want = ({} if mode == "materialize" else
-            {"sgmv_fused": LAYERS_OF[device] * len(LINEARS) * sum(forwards)})
+            {"sgmv_fused": per_forward * sum(forwards)})
     if counts != want:
         raise AssertionError(f"{mode} serve (slots {slots}) launched "
                              f"{counts}, want {want} ({len(forwards)} "
@@ -1934,6 +1967,490 @@ def phase_telemetry(vocab, device="cuda", preset="full"):
     return res
 
 
+# --------------------------------------------------------------------------
+# mixtral-8x22b: sparse MoE with per-expert LoRA, sliding-window and
+# blockwise attention (phases 18-21)
+# --------------------------------------------------------------------------
+
+MOE_ARCH = "mixtral-8x22b"
+# depth cut, full width: 8 layers of ~2.50 B parameters (5.0 GB in bf16)
+# for the serve, 2 layers (10.0 GB each in fp32) for the fp32 phases
+MOE_LAYERS = {"cuda": 8, "cpu": 2}
+MOE_PARITY_LAYERS = 2
+LONG_PROMPT = 8704     # past the window (4096) and BLOCKWISE_THRESHOLD (8192)
+LONG_NEW = 5           # the prefill's token and 4 decode steps
+
+
+def phase_moe_kernel():
+    """Phase 18: ``sgmv_fused`` against its plain version (TF32 off) at
+    mixtral's five (K, M), 8 adapters x 8 experts folded into 64 entries,
+    folded seg ids at tile_t 1 over the dispatch rows (64 at decode, 1280
+    at prefill), bits 2; two launches must give the same bits."""
+    import torch
+    from repro_torch.kernels.quant_matmul import sgmv_fused, sgmv_fused_ref
+    from repro_torch.launch.bench_kernels import (MOE_EXPERTS, MOE_PHASES,
+                                                  MOE_SHAPES, moe_seg_for,
+                                                  packed_args, packed_layer)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4321)
+    timings, max_err = {}, 0.0
+    for k, m in MOE_SHAPES:
+        pb = packed_layer(k, m, 2, 128, N_ADAPTERS * MOE_EXPERTS,
+                          seed=k + m + 2)
+        for phase, (tile_t, rows) in MOE_PHASES.items():
+            seg_tiles = moe_seg_for(phase)
+            x = torch.randn(rows, k, generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            args, kw = packed_args(pb, x, seg_tiles, tile_t)
+            got = sgmv_fused(*args, **kw)
+            again = sgmv_fused(*args, **kw)
+            torch.cuda.synchronize()
+            want = sgmv_fused_ref(*args, **kw)
+            if got.shape != (rows, m) or not torch.isfinite(got).all():
+                raise AssertionError(f"bad kernel output {tuple(got.shape)}")
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            if err > RTOL * scale:
+                raise AssertionError(
+                    f"sgmv_fused (MoE) K={k} M={m} {phase}: max |err| "
+                    f"{err:.3e} > {RTOL:g} x {scale:.3e}")
+            if not torch.equal(got, again):
+                raise AssertionError(f"sgmv_fused (MoE) K={k} M={m} "
+                                     f"{phase}: two launches differ")
+            max_err = max(max_err, err)
+            timings[(k, m), phase] = timed(
+                "sgmv_fused", f"MoE K={k:5d} M={m:5d} {phase:7s} "
+                f"T={rows:4d} folded seg (64 entries), tile_t 1",
+                sgmv_fused, args, kw, sgmv_fused_ref,
+                *bound(pb, x, seg_tiles, m), err)
+    return timings, max_err
+
+
+def moe_config(dtype, layers, preset="full", cf=None):
+    """mixtral-8x22b at full width (or the smoke preset), cut to ``layers``
+    layers (one layer is a whole period of its pattern); ``cf`` replaces
+    the capacity factor."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(MOE_ARCH, preset)
+    moe = cfg.moe if cf is None else dataclasses.replace(
+        cfg.moe, capacity_factor=cf)
+    return dataclasses.replace(
+        cfg, n_layers=layers, dtype=dtype, moe=moe,
+        blocks=(dataclasses.replace(cfg.blocks[0], count=layers),))
+
+
+def moe_fleet(dtype, layers, device="cuda", preset="full", cf=None):
+    """mixtral cut to ``layers``, params from seed 0, and 8 adapters
+    ``2@0.9`` drawn over its LoRA template (generator seed 1)."""
+    import torch
+    from repro_torch.core import LoRAQuantConfig
+    from repro_torch.launch.serve import random_trained_lora
+    from repro_torch.models import build_model
+    from repro_torch.serving import AdapterStore
+
+    model = build_model(moe_config(dtype, layers, preset, cf))
+    params = model.init(seed=0, device=device)
+    store = AdapterStore(LoRAQuantConfig(rho=0.9, bits_high=2))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    store.register_many({f"user_{i}": random_trained_lora(params["lora"],
+                                                          gen)
+                         for i in range(N_ADAPTERS)})
+    return model, params, store
+
+
+def iter_tensors(tree):
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from iter_tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from iter_tensors(v)
+
+
+@contextlib.contextmanager
+def record_routing():
+    """While active, every MoE layer's top-k choice is recorded in call
+    order: ``(prefill tokens or None, router probabilities (n_tok, E),
+    chosen experts (n_tok, k))`` on the host. Each call synchronizes, so
+    only the parity phases record."""
+    from repro_torch.models import ffn as ffn_mod
+    from repro_torch.models.model import Model
+
+    calls, state = [], {"tokens": None}
+    orig_top_k, orig_prefill = ffn_mod._top_k, Model.prefill
+
+    def top_k(probs, k):
+        vals, idx = orig_top_k(probs, k)
+        calls.append((state["tokens"], probs.float().cpu(), idx.cpu()))
+        return vals, idx
+
+    def prefill(self, params, batch, capacity):
+        state["tokens"] = batch["tokens"].cpu()
+        try:
+            return orig_prefill(self, params, batch, capacity)
+        finally:
+            state["tokens"] = None
+
+    ffn_mod._top_k, Model.prefill = top_k, prefill
+    try:
+        yield calls
+    finally:
+        ffn_mod._top_k, Model.prefill = orig_top_k, orig_prefill
+
+
+def prefill_routing(calls):
+    """Per prompt (its token bytes), the router probabilities and chosen
+    experts of its rows at every MoE layer of its prefill."""
+    out = {}
+    for tokens, probs, idx in calls:
+        if tokens is None:
+            continue
+        b, t = tokens.shape
+        for row in range(b):
+            sl = slice(row * t, (row + 1) * t)
+            out.setdefault(tokens[row].numpy().tobytes(), []).append(
+                (probs[sl], idx[sl]))
+    return out
+
+
+def routing_flips(a, b):
+    """Tokens routed differently by two recordings of the same layers:
+    ``[(layer, token, experts a, experts b, margin)]``, the margin being
+    the gap between the k-th and the (k+1)-th router probability in ``a``
+    (how near the choice was to a tie)."""
+    flips = []
+    if len(a) != len(b):
+        raise AssertionError(f"{len(a)} routing calls vs {len(b)}")
+    for layer, ((pa, ia), (_, ib)) in enumerate(zip(a, b)):
+        if ia.shape != ib.shape:
+            raise AssertionError(f"layer {layer}: routed {tuple(ia.shape)} "
+                                 f"vs {tuple(ib.shape)}")
+        k = ia.shape[1]
+        for tok in (ia != ib).any(dim=1).nonzero().flatten().tolist():
+            srt = pa[tok].sort(descending=True).values
+            flips.append((layer, tok, ia[tok].tolist(), ib[tok].tolist(),
+                          float(srt[k - 1] - srt[k])))
+    return flips
+
+
+def phase_moe_continuous(device="cuda", preset="full"):
+    """Phase 19: mixtral at full width, 8 layers, bf16, the ``2@0.9`` fleet
+    served continuously over the Zipf stream (8 rows), all-resident and
+    bounded to 4 slots: the reference's paging (``ZIPF_BOUNDED``: the
+    schedule does not depend on the model), exactly 8 layers x 8 LoRA
+    linears ``sgmv_fused`` per live pool per forward and no other kernel,
+    and a second bounded run (one engine step profiled) that repeats the
+    first's tokens and paging. The bounded run is the MoE main path whose
+    launches the summary reports. (Capacity drops and bf16 rounding depend
+    on which requests share a prefill group, which the bound changes, as
+    in the reference; so the all-resident tokens are reported against the
+    bounded ones, and held to them in fp32 without drops in phase 20.)"""
+    import torch
+    from repro_torch.launch.bench_kernels import MOE_LINEARS
+    from repro_torch.models import build_model
+
+    vocab = moe_config(torch.bfloat16, 1, preset).vocab
+    ids, prompts = zipf_stream(vocab)
+    layers = MOE_LAYERS[device]
+    per_forward = layers * len(MOE_LINEARS)
+    t0 = time.perf_counter()
+    model, params, store = moe_fleet(torch.bfloat16, layers, device, preset)
+    sync(device)
+    weights = sum(t.nbytes for t in iter_tensors(params["base"]))
+    log(f"MoE continuous phase: bf16 mixtral ({layers} layers, "
+        f"{weights / 1e9:.2f} GB of base weights) and 8 adapters in "
+        f"{time.perf_counter() - t0:.1f}s; stream {ids}")
+    kw = dict(device=device, per_forward=per_forward)
+    resident, r_res = run_stream(model, params, store, ids, prompts, vocab,
+                                 **kw)
+    bounded, r_bnd = run_stream(model, params, store, ids, prompts, vocab,
+                                slots=CONT_SLOTS, **kw)
+    eng = r_bnd["engine"]
+    mem = eng.memory_stats()
+    got = {k: mem[k] for k in ("hits", "misses", "evictions", "swap_ins")}
+    got.update({k: r_bnd["stats"][k]
+                for k in ("decode_steps", "admission_waves")})
+    if got != ZIPF_BOUNDED:
+        raise AssertionError(f"MoE bounded paging {got}, the reference's "
+                             f"{ZIPF_BOUNDED}")
+    page = eng.memory.page_bytes
+    if eng.memory.hbm_bytes() != CONT_SLOTS * page or mem["slots"] != 4:
+        raise AssertionError(f"MoE bounded pool holds "
+                             f"{eng.memory.hbm_bytes()} bytes, want "
+                             f"{CONT_SLOTS} x {page}")
+    again, r_again = run_stream(model, params, store, ids, prompts, vocab,
+                                slots=CONT_SLOTS, profile=device == "cuda",
+                                **kw)
+    same_tokens(bounded, again, "MoE bf16 bounded serve, two runs")
+    if r_again["engine"].memory_stats() != mem:
+        raise AssertionError("MoE bounded serve: the second run paged "
+                             "differently")
+    parted = [r.request_id for r, q in zip(resident, bounded)
+              if r.output.tolist() != q.output.tolist()]
+    # the same pair without capacity drops (capacity factor n_experts):
+    # what still parts is bf16 rounding of differently shaped prefill
+    # groups, the rest was drops
+    free = build_model(moe_config(torch.bfloat16, layers, preset,
+                                  cf=float(model.cfg.moe.n_experts)))
+    free_res = run_stream(free, params, store, ids, prompts, vocab, **kw)[0]
+    free_bnd = run_stream(free, params, store, ids, prompts, vocab,
+                          slots=CONT_SLOTS, **kw)[0]
+    parted_free = [r.request_id for r, q in zip(free_res, free_bnd)
+                   if r.output.tolist() != q.output.tolist()]
+    del free, free_res, free_bnd
+    rmem = r_res["engine"].memory_stats()
+    for name, r, m in (("all-resident", r_res, rmem),
+                       ("bounded", r_bnd, mem)):
+        steps = sorted(r["step_s"])
+        log(f"MoE continuous bf16 {name}: {r['tok_s']:.1f} tokens/s "
+            f"({N_REQ * MAX_NEW} tokens in {r['s']:.3f}s, "
+            f"{r['stats']['admission_waves']} prefill groups + "
+            f"{r['stats']['decode_steps']} decode steps, "
+            f"{r['counts']['sgmv_fused']} sgmv_fused launches = "
+            f"{per_forward} x {sum(r['forwards'])} forwards; engine step "
+            f"median {steps[len(steps) // 2] * 1e3:.1f} ms); "
+            f"{m['slots']} slots, page {page} bytes; hits {m['hits']}, "
+            f"misses {m['misses']}, evictions {m['evictions']}, swap-ins "
+            f"{m['swap_ins']} ({m['swap_in_bytes']} bytes)")
+    log(f"MoE continuous bf16: the second bounded run repeats tokens and "
+        f"paging; requests whose tokens part from the all-resident "
+        f"serve's: {parted} (capacity factor "
+        f"{model.cfg.moe.capacity_factor:g}), {parted_free} without drops "
+        f"(capacity factor {model.cfg.moe.n_experts})")
+    if device == "cuda":
+        log(window_line("MoE continuous bounded serve", r_again["window"],
+                        "engine-step"))
+    res = {"launches": r_bnd["counts"]["sgmv_fused"], "page": page,
+           "parted": parted, "parted_free": parted_free,
+           "tok_s": r_bnd["tok_s"]}
+    del model, params, store, eng, r_res, r_bnd, r_again
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_moe_parity(device="cuda", preset="full"):
+    """Phase 20: mixtral at full width, 2 layers, fp32, capacity factor
+    n_experts (no drops: the reference defines cross-mode parity only
+    drop-free, since a drop depends on the batch): the bounded continuous
+    serve against the all-resident one and against materialize, identical
+    routing of every prompt at every layer, identical greedy tokens,
+    logits within ``LOGIT_RTOL``, and a control in which every request
+    meets another adapter moving them by ``CONTROL_MARGIN`` tolerances."""
+    import torch
+    from repro_torch.launch.bench_kernels import MOE_LINEARS
+
+    t0 = time.perf_counter()
+    cfg = moe_config(torch.float32, MOE_PARITY_LAYERS, preset)
+    model, params, store = moe_fleet(torch.float32, MOE_PARITY_LAYERS,
+                                     device, preset,
+                                     cf=float(cfg.moe.n_experts))
+    vocab = cfg.vocab
+    ids, prompts = zipf_stream(vocab)
+    kw = dict(keep_logits=True, device=device,
+              per_forward=MOE_PARITY_LAYERS * len(MOE_LINEARS))
+    runs, routes = {}, {}
+    for name, mode, slots, shift in (
+            ("bounded", "continuous", CONT_SLOTS, 0),
+            ("resident", "continuous", None, 0),
+            ("materialize", "materialize", None, 0),
+            ("control", "continuous", CONT_SLOTS, 1)):
+        with record_routing() as calls:
+            runs[name] = run_stream(model, params, store, ids, prompts,
+                                    vocab, slots=slots, mode=mode,
+                                    shift=shift, **kw)[0]
+        routes[name] = prefill_routing(calls)
+    for other in ("resident", "materialize"):
+        same_tokens(runs["bounded"], runs[other],
+                    f"MoE fp32 bounded vs {other}")
+        if routes[other].keys() != routes["bounded"].keys():
+            raise AssertionError(f"MoE fp32 {other}: other prompts routed")
+        flips = [f for key in routes["bounded"]
+                 for f in routing_flips(routes["bounded"][key],
+                                        routes[other][key])]
+        if flips:
+            raise AssertionError(f"MoE fp32 bounded vs {other}: routing "
+                                 f"flips (layer, token, experts, experts, "
+                                 f"margin) {flips[:8]}")
+    n_layers = sorted({len(v) for v in routes["bounded"].values()})
+    scale = max(float(abs(r.logits).max()) for r in runs["bounded"])
+    tol = LOGIT_RTOL * scale
+    gaps = {o: logit_gap(runs["bounded"], runs[o])
+            for o in ("resident", "materialize")}
+    for o, gap in gaps.items():
+        if max(gap.values()) > tol:
+            raise AssertionError(f"MoE fp32 bounded vs {o} logits differ by "
+                                 f"{gap} > {LOGIT_RTOL:g} x {scale:.3e}")
+    moved = logit_gap(runs["bounded"], runs["control"])
+    if min(moved.values()) < CONTROL_MARGIN * tol:
+        raise AssertionError(f"MoE: another adapter moves the logits by "
+                             f"only {moved}, under {CONTROL_MARGIN} x "
+                             f"{tol:.3e}: the parity check is blind")
+    log(f"MoE fp32 parity {time.perf_counter() - t0:.1f}s: bounded "
+        f"({CONT_SLOTS} slots) == all-resident == materialize for all "
+        f"{N_REQ} requests; every prompt routed identically at its "
+        f"{n_layers} MoE layers ({len(routes['bounded'])} prompts); logits "
+        f"max |diff| {max(gaps['resident'].values()):.3e} (resident), "
+        f"{max(gaps['materialize'].values()):.3e} (materialize) <= "
+        f"{tol:.3e} ({LOGIT_RTOL:g} x max|logit| {scale:.3e}); every "
+        f"request meeting another adapter moves by "
+        f"{min(moved.values()):.3e} to {max(moved.values()):.3e}")
+    res = {"gap": max(max(g.values()) for g in gaps.values()), "tol": tol}
+    del model, params, store, runs, routes
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def long_serve(model, params, store, prompt, mode, device):
+    """One request of ``len(prompt)`` tokens, ``LONG_NEW`` greedy tokens,
+    logits kept, through a one-row engine in ``mode``; returns the request,
+    the routing recorded call by call, and the wall time."""
+    from repro_torch.serving import MultiLoRAEngine, Request
+
+    engine = MultiLoRAEngine(model, params, store,
+                             cache_capacity=len(prompt) + LONG_NEW + 3,
+                             mode=mode, max_rows=1)
+    engine.submit(Request(request_id=0, adapter_id="user_0", prompt=prompt,
+                          max_new_tokens=LONG_NEW, keep_logits=True))
+    sync(device)
+    t0 = time.perf_counter()
+    with record_routing() as calls:
+        done = engine.run()
+    sync(device)
+    dt = time.perf_counter() - t0
+    (req,) = done
+    if req.status.value != "done" or req.output.shape != (LONG_NEW,):
+        raise AssertionError(f"long prompt ({mode}): {req.status} "
+                             f"{req.output}")
+    return req, [(p, i) for _, p, i in calls], dt
+
+
+def phase_moe_long(device="cuda", preset="full"):
+    """Phase 21: one request of ``LONG_PROMPT`` tokens (past the window and
+    the blockwise threshold) and 4 decode steps, mixtral at full width,
+    2 layers, fp32, the config's capacity factor: continuous packed ==
+    materialize (one row each, so the same batches): identical routing at
+    every MoE layer of every forward, tokens, logits within
+    ``LOGIT_RTOL``. Then one full-width attention layer at T = LONG_PROMPT:
+    the blockwise path (what ``gqa_attention`` takes above the threshold)
+    against the plain one, with the window and without."""
+    import numpy as np
+    import torch
+    from repro_torch.models import attention as attn_mod
+
+    t0 = time.perf_counter()
+    model, params, store = moe_fleet(torch.float32, MOE_PARITY_LAYERS,
+                                     device, preset)
+    cfg = model.cfg
+    n = LONG_PROMPT if preset == "full" else 3 * cfg.window + 5
+    prompt = np.random.default_rng(23).integers(
+        0, cfg.vocab, size=n).astype(np.int32)
+    got, got_route, t_packed = long_serve(model, params, store, prompt,
+                                          "continuous", device)
+    want, want_route, t_mat = long_serve(model, params, store, prompt,
+                                         "materialize", device)
+    flips = routing_flips(got_route, want_route)
+    if flips:
+        raise AssertionError(f"long prompt: routing flips (layer, token, "
+                             f"experts, experts, margin) {flips[:8]}")
+    if got.output.tolist() != want.output.tolist():
+        raise AssertionError(f"long prompt: tokens {got.output} vs "
+                             f"materialize {want.output}")
+    scale = float(abs(want.logits).max())
+    gap = float(abs(got.logits - want.logits).max())
+    if gap > LOGIT_RTOL * scale:
+        raise AssertionError(f"long prompt: logits differ by {gap:.3e} > "
+                             f"{LOGIT_RTOL:g} x {scale:.3e}")
+    log(f"MoE long prompt {time.perf_counter() - t0:.1f}s: {n} tokens + "
+        f"{LONG_NEW - 1} decode steps, continuous packed {t_packed:.2f}s, "
+        f"materialize {t_mat:.2f}s; {len(got_route)} routing calls "
+        f"identical; tokens {got.output.tolist()} equal; logits max |diff| "
+        f"{gap:.3e} <= {LOGIT_RTOL * scale:.3e}")
+    del model, params, store
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # one full-width attention layer, blockwise vs plain at T = n
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    base, _ = attn_mod.init_gqa(gen, cfg, None, 1)
+    base = {k: {"w": v["w"][0]} for k, v in base.items()}
+    x = torch.randn((1, n, cfg.d_model), generator=gen, device=device)
+    pos = torch.arange(n, device=device)[None]
+    res = {"gap": gap, "tol": LOGIT_RTOL * scale}
+    for window in (cfg.window, None):
+        outs, times = {}, {}
+        for name, force in (("plain", False), ("blockwise", True),
+                            ("default", None)):
+            sync(device)
+            t1 = time.perf_counter()
+            outs[name] = attn_mod.gqa_attention(
+                x, base, None, cfg, positions=pos, window=window,
+                force_blockwise=force)
+            sync(device)
+            times[name] = time.perf_counter() - t1
+        path = ("blockwise" if n > attn_mod.BLOCKWISE_THRESHOLD
+                else "plain")
+        if not torch.equal(outs["default"], outs[path]):
+            raise AssertionError(f"T={n}: the default path is not the "
+                                 f"{path} one")
+        err = (outs["blockwise"] - outs["plain"]).abs().max().item()
+        mag = outs["plain"].abs().max().item()
+        if not torch.isfinite(outs["blockwise"]).all() or err > RTOL * mag:
+            raise AssertionError(f"blockwise vs plain attention (window "
+                                 f"{window}) at T={n}: max |err| {err:.3e} "
+                                 f"> {RTOL:g} x {mag:.3e}")
+        log(f"attention T={n} window {window}: blockwise == plain within "
+            f"{err:.3e} (<= {RTOL:g} x {mag:.3e}); plain "
+            f"{times['plain'] * 1e3:.1f} ms, blockwise "
+            f"{times['blockwise'] * 1e3:.1f} ms (host wall, first calls)")
+        res[f"attn_err_{window}"] = err
+        del outs
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    return res
+
+
+def moe_phases() -> dict:
+    """Phases 18-21 in order; returns the MoE kernel's error, its mix per
+    launch over mixtral's linears, and the MoE main path's launches."""
+    from repro_torch.launch.bench_kernels import MOE_LINEARS, mix
+
+    t0 = time.perf_counter()
+    timings, max_err = phase_moe_kernel()
+    moe_mix = {key: mix(timings, key, MOE_LINEARS) for key in MIX_KEYS}
+    t_bytes, t_ops = (mix(timings, "bytes", MOE_LINEARS),
+                      mix(timings, "ops", MOE_LINEARS))
+    moe_mix.update(bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+    log(f"MoE kernel phase {time.perf_counter() - t0:.1f}s; "
+        + mix_line("sgmv_fused mixtral main-path", moe_mix))
+    t0 = time.perf_counter()
+    cont = phase_moe_continuous()
+    log(f"MoE continuous phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    parity = phase_moe_parity()
+    log(f"MoE parity phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    long = phase_moe_long()
+    log(f"MoE long-prompt phase {time.perf_counter() - t0:.1f}s")
+    return {"max_err": max_err, "mix": moe_mix, "launches": cont["launches"],
+            "parted": cont["parted"], "parted_free": cont["parted_free"],
+            "parity_gap": parity["gap"],
+            "long_gap": long["gap"]}
+
+
 def main() -> int:
     import torch
 
@@ -2121,6 +2638,9 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_telemetry(vocab)
     log(f"telemetry phase {time.perf_counter() - t0:.1f}s")
+
+    # ---- 18-21. mixtral-8x22b: MoE kernel, serve, parity, long prompt -----
+    moe = moe_phases()
     log(f"total {time.perf_counter() - t_start:.1f}s")
 
     # ---- summary -------------------------------------------------------------
@@ -2134,10 +2654,17 @@ def main() -> int:
                 "plain_ms": x["plain_ms"], "bound_ms": x["bound_ms"],
                 "bound_by": x["bound_by"], "library_ms": None}
 
+    fused = entry("sgmv_fused", 481, cont["launches"],
+                  max(max_err, sgmv_err["sgmv_fused"], moe["max_err"]),
+                  fused_mix)
+    # the MoE main path (phase 19's bounded serve) and the kernel's mix
+    # per launch over mixtral's linears (phase 18)
+    fused.update(moe_launches=moe["launches"], moe_ms=moe["mix"]["ms"],
+                 moe_plain_ms=moe["mix"]["plain_ms"],
+                 moe_bound_ms=moe["mix"]["bound_ms"])
     print(smi)
     print(json.dumps({"kernels": [
-        entry("sgmv_fused", 481, cont["launches"],
-              max(max_err, sgmv_err["sgmv_fused"]), fused_mix),
+        fused,
         entry("sgmv_rhs", 250, sgmv_apply_counts["sgmv_rhs"],
               sgmv_err["sgmv_rhs"], sgmv_mixes["sgmv_rhs"]),
         entry("sgmv_out", 293, sgmv_apply_counts["sgmv_out"],

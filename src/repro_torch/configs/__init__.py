@@ -1,4 +1,5 @@
-from .base import ARCH_IDS, BlockSpec, ModelConfig, default_blocks, get_config
+from .base import (ARCH_IDS, BlockSpec, ModelConfig, MoEConfig,
+                   default_blocks, get_config)
 
-__all__ = ["ARCH_IDS", "BlockSpec", "ModelConfig", "default_blocks",
-           "get_config"]
+__all__ = ["ARCH_IDS", "BlockSpec", "ModelConfig", "MoEConfig",
+           "default_blocks", "get_config"]

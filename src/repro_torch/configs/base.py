@@ -3,7 +3,8 @@
 
 A config describes the decoder as a sequence of layer groups (runs of
 identical blocks whose params are stacked ``(L, ...)``). The port serves the
-dense GQA family; ``get_config`` raises ``NotImplementedError`` for the
+dense GQA family and the sparse-MoE family with sliding-window attention
+(mixtral); ``get_config`` raises ``NotImplementedError`` for the
 architectures whose layers are not ported yet.
 """
 
@@ -14,6 +15,18 @@ import importlib
 from typing import Any, Optional, Tuple
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 8
+    top_k: int = 2
+    d_ff_expert: int = 16384
+    n_shared: int = 0
+    capacity_factor: float = 1.25
+    router_noise: float = 0.0
+    lora_on_experts: bool = True
+    aux_loss_weight: float = 0.01
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,11 +53,14 @@ class ModelConfig:
     norm: str = "rmsnorm"
     rope: str = "standard"
     rope_theta: float = 500000.0
+    window: int = 4096               # local attention / SWA window
     tie_embeddings: bool = False
+    moe: Optional[MoEConfig] = None
     lora_rank: int = 16
     lora_alpha: float = 32.0
     dtype: Any = torch.bfloat16
     lora_dtype: Any = torch.float32
+    subquadratic: bool = False       # can run long_500k
 
     @property
     def resolved_head_dim(self) -> int:
@@ -58,20 +74,19 @@ def default_blocks(n_layers: int) -> Tuple[BlockSpec, ...]:
     return (BlockSpec(count=n_layers, pattern=("attn",), ffn=("dense",)),)
 
 
-ARCH_IDS = ("llama3.2-3b",)
+ARCH_IDS = ("llama3.2-3b", "mixtral-8x22b")
 
 # Architectures of the JAX package whose layers the port does not have yet,
 # with the ROADMAP item that ports them.
 _NOT_PORTED = {
-    "internlm2-20b": "A10",
-    "gemma2-2b": "A10",
-    "olmo-1b": "A10",
-    "rwkv6-1.6b": "A10",
-    "mixtral-8x22b": "A10",
-    "deepseek-v3-671b": "A10",
-    "recurrentgemma-2b": "A10",
-    "musicgen-medium": "A10",
-    "qwen2-vl-72b": "A10",
+    "internlm2-20b": "A6a (dense variants)",
+    "gemma2-2b": "A6a (dense variants)",
+    "olmo-1b": "A6a (dense variants)",
+    "musicgen-medium": "A6a (dense variants)",
+    "qwen2-vl-72b": "A6a (dense variants)",
+    "deepseek-v3-671b": "A6b (MLA and the int8 frozen base)",
+    "rwkv6-1.6b": "A6c (RWKV6 and RG-LRU)",
+    "recurrentgemma-2b": "A6c (RWKV6 and RG-LRU)",
 }
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}

@@ -1,4 +1,5 @@
-"""Time the quant_matmul kernels on the card at llama3.2-3b's LoRA shapes.
+"""Time the quant_matmul kernels on the card at llama3.2-3b's LoRA shapes
+(and ``sgmv_fused`` at mixtral-8x22b's).
 
     python3 src/repro_torch/launch/bench_kernels.py [--src DIR] [--label NAME]
 
@@ -17,7 +18,10 @@ linears, at decode (16 rows) and prefill (512 rows), bits 2:
 
 It prints one line per case and a last JSON line with each kernel's
 main-path mix (every linear once at prefill and ``MAX_NEW - 1`` times at
-decode). ``--src`` imports ``repro_torch`` from another checkout's ``src``
+decode). ``sgmv_fused_moe`` is ``sgmv_fused`` at mixtral-8x22b's five
+(K, M) with the MoE path's folded seg ids: 8 adapters x 8 experts stacked
+as 64 entries, tile_t 1, over the dispatch buffer's rows (8 experts x
+capacity: 64 rows at decode, 1280 at prefill of 16 x 32 tokens). ``--src`` imports ``repro_torch`` from another checkout's ``src``
 (e.g. an unpacked ``git archive`` of a parent commit), so two versions of
 the kernels are timed by the same code, one process each. The builders and
 timers here are also used by ``chip_smoke.py``.
@@ -39,6 +43,19 @@ LINEARS = {"wq": (3072, 3072), "wk": (3072, 1024), "wv": (3072, 1024),
 SHAPES = [(3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072)]
 N_REQ, PROMPT, MAX_NEW, N_ADAPTERS = 16, 32, 8, 8
 PHASES = {"decode": (1, N_REQ), "prefill": (8, N_REQ * PROMPT)}  # tile, rows
+# mixtral-8x22b: every LoRA linear of a layer, the router (M = 8 experts)
+# and the expert linears (one launch over all experts' dispatch rows)
+MOE_LINEARS = {"wq": (6144, 6144), "wk": (6144, 1024), "wv": (6144, 1024),
+               "wo": (6144, 6144), "router": (6144, 8),
+               "wg": (6144, 16384), "wu": (6144, 16384),
+               "wd": (16384, 6144)}
+MOE_SHAPES = [(6144, 6144), (6144, 1024), (6144, 16384), (16384, 6144),
+              (6144, 8)]
+MOE_EXPERTS = 8
+# dispatch rows E·cap, cap = max(ceil(tokens·2/8·1.25), 8): 8 decode rows
+# give cap 8, 16 x 32 prefill tokens cap 160; every tile is one row
+MOE_PHASES = {"decode": (1, MOE_EXPERTS * 8),
+              "prefill": (1, MOE_EXPERTS * 160)}
 CALLS = 20                  # wrapper calls per captured graph
 L2_BYTES = 50 << 20         # H100 L2
 MAX_COPIES = 512
@@ -73,6 +90,18 @@ def packed_layer(k, m, bits, group, na, seed):
         raise AssertionError(f"adapters do not mix split h: {sorted(hs)}")
     pb = stack_packed_adapters([pack_adapter_layers([q]) for q in qls])
     return pb.layer(0)
+
+
+def moe_seg_for(phase):
+    """Folded seg ids of the MoE dispatch rows: row r belongs to expert
+    ``r // cap`` and carries adapter ``(r mod cap) mod 8``, so the tile's
+    entry is ``adapter·8 + expert`` in the ``(8·8, Rp, ·)`` stack."""
+    import torch
+
+    _, rows = MOE_PHASES[phase]
+    cap = rows // MOE_EXPERTS
+    r = torch.arange(rows, device="cuda")
+    return ((r % cap) % N_ADAPTERS * MOE_EXPERTS + r // cap).to(torch.int32)
 
 
 def packed_args(pb, x, seg_tiles, tile_t):
@@ -262,11 +291,12 @@ def kernel_times(fn, args, kwargs) -> dict:
 # the benchmark
 # --------------------------------------------------------------------------
 
-def mix(per_case: dict, key: str) -> float:
+def mix(per_case: dict, key: str, linears=None) -> float:
     """Mean per launch over the main path: every linear once at prefill and
-    ``MAX_NEW - 1`` times at decode."""
+    ``MAX_NEW - 1`` times at decode (llama3.2-3b's ``LINEARS``, or
+    ``MOE_LINEARS``)."""
     tot = n = 0
-    for k, m in LINEARS.values():
+    for k, m in (linears or LINEARS).values():
         for phase, count in (("prefill", 1), ("decode", MAX_NEW - 1)):
             tot += count * per_case[(k, m), phase][key]
             n += count
@@ -284,7 +314,17 @@ def cases():
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
     out = {n: {} for n in ("sgmv_fused", "fused_lora", "matmul_rhs",
-                           "matmul_out", "sgmv_rhs", "sgmv_out")}
+                           "matmul_out", "sgmv_rhs", "sgmv_out",
+                           "sgmv_fused_moe")}
+    for k, m in MOE_SHAPES:
+        pb = packed_layer(k, m, 2, 128, N_ADAPTERS * MOE_EXPERTS,
+                          seed=k + m + 2)
+        for phase, (tile_t, rows) in MOE_PHASES.items():
+            x = torch.randn(rows, k, generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+            out["sgmv_fused_moe"][(k, m), phase] = (
+                qm.sgmv_fused, *packed_args(pb, x, moe_seg_for(phase),
+                                            tile_t))
     for k, m in SHAPES:
         pb = packed_layer(k, m, 2, 128, N_ADAPTERS, seed=k + m + 2)
         q = single_qlora(k, m, 2, 0.9, seed=k + m + 2)
@@ -348,9 +388,11 @@ def main(argv=None) -> int:
                   f"M={key[0][1]:5d} {key[1]:7s} device {t['ms']:.4f} ms  "
                   f"cold-L2 {t['cold_ms']:.4f} ms  host {t['host_ms']:.4f} "
                   f"ms/call", flush=True)
+        lin = MOE_LINEARS if name == "sgmv_fused_moe" else LINEARS
         result["kernels"][name] = {
-            "mix_ms": mix(times, "ms"), "mix_cold_ms": mix(times, "cold_ms"),
-            "mix_host_ms": mix(times, "host_ms"),
+            "mix_ms": mix(times, "ms", lin),
+            "mix_cold_ms": mix(times, "cold_ms", lin),
+            "mix_host_ms": mix(times, "host_ms", lin),
             "cases": {f"{k[0][0]}x{k[0][1]} {k[1]}": v
                       for k, v in times.items()}}
         r = result["kernels"][name]

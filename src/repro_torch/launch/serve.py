@@ -7,6 +7,12 @@ modes), report throughput and memory.
         --preset full --adapters 8 --requests 16 --variant 2@0.9 \\
         --recipe user_0=4@0.95 --recipe user_1=3@0.9 --slots 4
 
+``--arch`` takes ``llama3.2-3b`` (dense GQA) or ``mixtral-8x22b`` (sparse
+MoE, 8 experts top-2, per-expert LoRA served straight from packed codes,
+sliding-window attention); ``--preset smoke`` is each one's small
+configuration. At ``--preset full`` mixtral's 56 layers (~140 GB in bf16)
+do not fit one 80 GB card.
+
 ``--slots`` bounds the device slot pools of the paged adapter memory to
 that many adapters, ``--hbm-budget`` to that many MB at each recipe's real
 page size; the rest page in from the host tier on demand.

@@ -1,4 +1,5 @@
-"""Dense GQA decoder with LoRA on every linear (PyTorch port)."""
+"""Decoder LMs with LoRA on every linear (PyTorch port): dense GQA and
+sparse MoE with sliding-window attention."""
 
 from .model import Model, build_model
 

@@ -2,21 +2,24 @@
 
 Two modes, as in the JAX package:
 
-* sequence mode (prefill): ``x: (B, T, d)``, causal mask, optional
-  ``pad_mask: (B, T)`` (True = real token) so left-padded rows never attend
-  to pad slots; with a cache the last ``min(T, cap)`` keys/values are
-  written to their ring slots;
+* sequence mode (prefill): ``x: (B, T, d)``, causal mask (and the sliding
+  window of ``local_attn`` layers), optional ``pad_mask: (B, T)`` (True =
+  real token) so left-padded rows never attend to pad slots; with a cache
+  the last ``min(T, cap)`` keys/values are written to their ring slots.
+  Above ``BLOCKWISE_THRESHOLD`` tokens (or with ``force_blockwise``) the
+  scores are never formed whole: :func:`_sdpa_blockwise` walks the keys in
+  chunks with an online softmax;
 * decode mode: ``x: (B, 1, d)`` with a ring-buffer cache written at per-row
   ``cache_pos: (B,)``; ``valid_start: (B,)`` masks each row's pad and stale
-  slots.
+  slots. A windowed layer's ring holds at most ``window`` slots, so the
+  window needs no mask at decode.
 
 Unlike the JAX package, which returns new cache arrays, the cache tensors
 are updated in place (the engine never reuses a cache it has handed on),
 which saves a copy of the whole cache per layer and step.
 
-Not ported yet: the blockwise online-softmax path used above
-``BLOCKWISE_THRESHOLD`` tokens, sliding-window (``local_attn``) layers,
-M-RoPE, soft-capping and MLA (ROADMAP A5 / A10).
+Not ported yet: M-RoPE and soft-capped scores in ``gqa_attention``
+(ROADMAP A6a) and MLA (ROADMAP A6b).
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ from .common import apply_rope, init_linear, init_lora, linear
 Params = Dict[str, Any]
 
 NEG_INF = -2.3819763e38  # most-negative bf16-representable; avoids nan softmax
-BLOCKWISE_THRESHOLD = 8192
+BLOCKWISE_THRESHOLD = 8192   # switch to online-softmax attention above this
+KV_CHUNK = 1024
 
 
 def init_gqa(gen: torch.Generator, cfg, lora_rank: Optional[int], count: int):
@@ -87,6 +91,65 @@ def _sdpa(q, k, v, mask) -> torch.Tensor:
     return out.reshape(b, t, h * dh)
 
 
+def _sdpa_blockwise(q, k, v, offset: int, window: Optional[int],
+                    cap: Optional[float], chunk: int = KV_CHUNK,
+                    pad_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Flash-attention-style SDPA in plain PyTorch: a loop over KV chunks
+    with an online softmax (running max and denominator) in fp32, so peak
+    memory is O(B·H·T·chunk) instead of O(B·H·T·S). ``offset`` is the
+    absolute position of query 0; masked scores are ``NEG_INF``, which
+    keeps a chunk masked for a whole row finite (a later real key wipes
+    its terms through ``alpha = 0``)."""
+    b, t, h, dh = q.shape
+    s, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    nchunks = -(-s // chunk)
+    pad = nchunks * chunk - s
+    dev = q.device
+    q5 = q.reshape(b, t, kvh, g, dh).to(torch.float32)
+    qpos = torch.arange(t, device=dev) + offset
+    scale = 1.0 / np.sqrt(dh)
+    m = torch.full((b, kvh, g, t), -torch.inf, dtype=torch.float32,
+                   device=dev)
+    den = torch.zeros((b, kvh, g, t), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, kvh, g, t, dh), dtype=torch.float32, device=dev)
+    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
+    for ci in range(nchunks):
+        lo, hi = ci * chunk, min((ci + 1) * chunk, s)
+        kc = k[:, lo:hi].to(torch.float32)
+        vc = v[:, lo:hi].to(torch.float32)
+        if pad and hi - lo < chunk:          # the last chunk, zero-padded
+            kc = torch.nn.functional.pad(kc, (0, 0, 0, 0, 0, chunk - hi + lo))
+            vc = torch.nn.functional.pad(vc, (0, 0, 0, 0, 0, chunk - hi + lo))
+        scores = torch.einsum("btkgd,bskd->bkgts", q5, kc) * scale
+        if cap is not None:
+            scores = cap * torch.tanh(scores / cap)
+        kpos = lo + torch.arange(chunk, device=dev)
+        ok = kpos[None, :] <= qpos[:, None]
+        if window is not None:
+            ok &= kpos[None, :] > qpos[:, None] - window
+        if pad:
+            ok &= (kpos < s)[None, :]
+        if pad_mask is not None:                          # (B, t, chunk)
+            pm = pad_mask[:, lo:hi]
+            if hi - lo < chunk:
+                pm = torch.nn.functional.pad(pm, (0, chunk - hi + lo))
+            okb = ok[None] & pm[:, None, :]
+            scores = torch.where(okb[:, None, None], scores, neg)
+        else:
+            scores = torch.where(ok[None, None, None], scores, neg)
+        m_new = torch.maximum(m, scores.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(scores - m_new[..., None])
+        den = den * alpha + p.sum(dim=-1)
+        pv = torch.einsum("bkgts,bskd->bkgtd", p, vc)
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(den, min=1e-30)[..., None]
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, t, h * dh)
+    return out.to(q.dtype)
+
+
 def gqa_attention(
     x: torch.Tensor,
     base: Params,
@@ -94,21 +157,22 @@ def gqa_attention(
     cfg,
     *,
     positions: torch.Tensor,                   # (B, T)
+    window: Optional[int] = None,
     cache: Optional[Params] = None,            # {"k","v"}: (B, S, KV, dh)
     cache_pos: Optional[torch.Tensor] = None,  # (B,) padded index
     valid_start: Optional[torch.Tensor] = None,  # (B,) first real index
     pad_mask: Optional[torch.Tensor] = None,     # (B, T) True = real token
     scaling: float = 2.0,
+    force_blockwise: Optional[bool] = None,
+    kv_chunk: int = KV_CHUNK,
 ) -> torch.Tensor:
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     b, t, _ = x.shape
-    if t > BLOCKWISE_THRESHOLD:
-        raise NotImplementedError(
-            f"{t} tokens needs the blockwise attention path (above "
-            f"{BLOCKWISE_THRESHOLD}), not ported yet (ROADMAP A5)")
+    use_blockwise = (t > BLOCKWISE_THRESHOLD if force_blockwise is None
+                     else force_blockwise and t > 1)
     if cfg.rope != "standard":
         raise NotImplementedError(f"rope {cfg.rope!r} is not ported yet "
-                                  f"(ROADMAP A10)")
+                                  f"(ROADMAP A6a, the dense variants)")
 
     def proj(name, width):
         return _split_heads(
@@ -122,7 +186,7 @@ def gqa_attention(
         # decode: the cache is a ring buffer of ``cap`` slots; per row, slot
         # s holds the newest padded index p' ≤ pos with p' ≡ s (mod cap).
         # Pad slots (p' < valid_start) and stale slots of a previous
-        # occupant (p' < 0) are masked.
+        # occupant (p' < 0) are masked; the window is free (cap ≤ window).
         cap = cache["k"].shape[1]
         pos_b = cache_pos.to(torch.int64).reshape(-1).expand(b)
         start_b = (torch.zeros((b,), dtype=torch.int64, device=x.device)
@@ -138,10 +202,14 @@ def gqa_attention(
         mask = _pad_key_mask(abs_pos >= start_b[:, None], 3)
         out = _sdpa(q, cache["k"], cache["v"], mask)
     else:
-        mask = _causal_window_mask(t, t, 0, None, x.device)
-        if pad_mask is not None:
-            mask = mask + _pad_key_mask(pad_mask, 3)
-        out = _sdpa(q, k, v, mask)
+        if use_blockwise:
+            out = _sdpa_blockwise(q, k, v, 0, window, None, chunk=kv_chunk,
+                                  pad_mask=pad_mask)
+        else:
+            mask = _causal_window_mask(t, t, 0, window, x.device)
+            if pad_mask is not None:
+                mask = mask + _pad_key_mask(pad_mask, 3)
+            out = _sdpa(q, k, v, mask)
         if cache is not None:
             # stateful prefill from position 0: write the last min(T, cap)
             # tokens at their ring slots (pad slots too; decode masks them)

@@ -36,7 +36,8 @@ def rmsnorm(x: torch.Tensor, weight: Optional[torch.Tensor],
 def apply_norm(x: torch.Tensor, p: Params, kind: str) -> torch.Tensor:
     if kind == "rmsnorm":
         return rmsnorm(x, p["w"])
-    raise NotImplementedError(f"norm {kind!r} is not ported yet (ROADMAP A10)")
+    raise NotImplementedError(f"norm {kind!r} is not ported yet "
+                              f"(ROADMAP A6a, the dense variants)")
 
 
 # --------------------------------------------------------------------------
@@ -104,8 +105,14 @@ def linear(x: torch.Tensor, base: Params, lora=None,
     * a :class:`~repro_torch.kernels.PackedLoRABuckets` — a mixed-recipe
       batch, one ``sgmv_fused`` launch per layout bucket.
 
-    The base product runs in the base dtype; the update is cast to it."""
-    y = x @ base["w"]
+    The base product promotes as the reference's does (a bf16 ``x`` times
+    the fp32 MoE router gives fp32); the update is cast to its dtype."""
+    w = base["w"]
+    if x.dtype == w.dtype:
+        y = x @ w
+    else:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        y = x.to(dt) @ w.to(dt)
     if lora is None:
         return y
     from repro_torch.core.loraquant import QuantizedLoRA

@@ -1,14 +1,37 @@
-"""Dense GLU feed-forward (port of the dense half of
-``repro/models/ffn.py``; the MoE layers wait for ROADMAP A10)."""
+"""Feed-forward variants (port of ``repro/models/ffn.py``): dense GLU and
+the sparse Mixture-of-Experts of the single-device path.
+
+The MoE dispatch is gather based, as in the reference: the ``(T·k,)``
+expert assignments are sorted by expert (stably), each expert takes at
+most ``cap`` of them into its contiguous rows of an ``(E, cap, d)``
+buffer, the experts run as batched matmuls, and the outputs are gathered
+back and summed with their gates. Token choice drops the assignments past
+an expert's capacity. Per-expert LoRA leaves are ``(L, E, r, ·)`` stacks
+in fp form, or packed stacks whose expert axis is folded into the adapter
+axis (``fold == E``), applied by one ``sgmv_fused`` launch per linear at
+``tile_t = 1`` with folded ``adapter·E + expert`` seg ids per buffer row.
+
+Not ported: the reference's ``shard_map`` expert path under a device mesh
+(ROADMAP A9), and deepseek's shared expert and int8 frozen expert base
+(ROADMAP A6b).
+"""
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.quant_matmul import (PackedLoRABatch,
+                                               PackedLoRABuckets,
+                                               sgmv_apply_packed)
+
 from .common import init_linear, init_lora, linear
+
+_PACKED = (PackedLoRABatch, PackedLoRABuckets)
 
 
 def init_dense_ffn(gen: torch.Generator, cfg, lora_rank: Optional[int],
@@ -34,3 +57,187 @@ def dense_ffn(x, base, lora, *, activation: str = "silu",
     # jax.nn.gelu defaults to the tanh approximation
     act = F.silu(g) if activation == "silu" else F.gelu(g, approximate="tanh")
     return linear(act * u, base["wd"], lora and lora.get("wd"), scaling)
+
+
+# --------------------------------------------------------------------------
+# Mixture of Experts
+# --------------------------------------------------------------------------
+
+def _expert_stack(gen: torch.Generator, d_in: int, d_out: int, dtype,
+                  lead) -> dict:
+    """Uniform(±1/√d_in) ``(*lead, d_in, d_out)`` weights drawn one
+    ``(d_in, d_out)`` matrix at a time, so a bf16 stack never has an fp32
+    copy of itself beside it."""
+    scale = 1.0 / np.sqrt(d_in)
+    w = torch.empty(tuple(lead) + (d_in, d_out), dtype=dtype,
+                    device=gen.device)
+    tmp = torch.empty((d_in, d_out), dtype=torch.float32, device=gen.device)
+    for idx in np.ndindex(*lead):
+        tmp.uniform_(-scale, scale, generator=gen)
+        w[idx].copy_(tmp)
+    return {"w": w}
+
+
+def init_moe(gen: torch.Generator, cfg, lora_rank: Optional[int],
+             count: int):
+    """Stacked MoE params: an fp32 router ``(count, d, E)`` and expert
+    stacks ``(count, E, ·, ·)``; LoRA on the router and, per expert, on
+    ``wg`` / ``wu`` / ``wd`` (``(count, E, r, ·)``)."""
+    mc = cfg.moe
+    if mc.n_shared:
+        raise NotImplementedError("shared experts are not ported yet "
+                                  "(ROADMAP A6b, with deepseek)")
+    d, f, e = cfg.d_model, mc.d_ff_expert, mc.n_experts
+    lead = (count, e)
+    shapes = {"wg": (d, f), "wu": (d, f), "wd": (f, d)}
+    base = {"router": init_linear(gen, d, e, torch.float32, (count,)),
+            "experts": {n: _expert_stack(gen, i, o, cfg.dtype, lead)
+                        for n, (i, o) in shapes.items()}}
+    lora = None
+    if lora_rank is not None:
+        lora = {"router": init_lora(gen, d, e, lora_rank, cfg.lora_dtype,
+                                    (count,))}
+        if mc.lora_on_experts:
+            lora["experts"] = {
+                n: init_lora(gen, i, o, lora_rank, cfg.lora_dtype, lead)
+                for n, (i, o) in shapes.items()}
+    return base, lora
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """``lax.top_k``: the k largest along the last axis, ties broken toward
+    the lower index (a stable descending sort)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _dispatch_indices(expert_ids: torch.Tensor, n_experts: int,
+                      capacity: int):
+    """Sort the ``(T·k,)`` assignments by expert (stably); return for each
+    sorted slot its source assignment index, expert, position in the expert
+    and whether it fits the capacity."""
+    n = expert_ids.shape[0]
+    order = torch.argsort(expert_ids, stable=True)
+    sorted_e = expert_ids[order]
+    counts = torch.bincount(expert_ids, minlength=n_experts)
+    starts = torch.cumsum(counts, 0) - counts
+    pos_in_e = torch.arange(n, device=expert_ids.device) - starts[sorted_e]
+    keep = pos_in_e < capacity
+    return order, sorted_e, pos_in_e, keep
+
+
+def moe_capacity(n_tok: int, mc) -> int:
+    """Rows per expert of the dispatch buffer."""
+    return max(int(np.ceil(n_tok * mc.top_k / mc.n_experts
+                           * mc.capacity_factor)), 8)
+
+
+def moe_ffn(x: torch.Tensor, base, lora, cfg, *,
+            scaling: float = 2.0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-choice top-k MoE with capacity drops. ``x: (B, T, d)``;
+    returns ``(y, aux_load_balance_loss)``."""
+    mc = cfg.moe
+    b, t, d = x.shape
+    n_tok = b * t
+    e, k = mc.n_experts, mc.top_k
+    xf = x.reshape(n_tok, d)
+
+    logits = linear(xf, base["router"], lora and lora.get("router"), scaling)
+    probs = torch.softmax(logits.to(torch.float32), dim=-1)
+    gate, top_idx = _top_k(probs, k)                     # (n_tok, k)
+    gate = gate / gate.sum(dim=-1, keepdim=True)         # renormalize top-k
+
+    # Switch-style aux loss: mean routed fraction × mean router prob
+    me = probs.mean(dim=0)
+    ce = F.one_hot(top_idx, e).to(torch.float32).sum(dim=1).mean(dim=0) / k
+    aux = mc.aux_loss_weight * e * torch.sum(me * ce)
+
+    lex = lora.get("experts") if (lora and mc.lora_on_experts) else None
+    y = _moe_dense_dispatch(xf, gate, top_idx, base["experts"], lex, e, k,
+                            moe_capacity(n_tok, mc), scaling)
+    return y.reshape(b, t, d), aux
+
+
+def _expert_ffw(ex, lex, name, inp, scaling, buf_seg=None):
+    """Batched expert matmul ``(E, C, ·)`` with optional per-expert LoRA:
+    an fp ``{a, b}`` stack ``(E, r, ·)`` (batched products), a packed
+    :class:`~repro_torch.kernels.PackedLoRABatch` whose expert axis is
+    folded into the adapter axis (one ``sgmv_fused`` launch at
+    ``tile_t = 1`` over folded ``buf_seg·fold + expert`` seg ids), or a
+    :class:`~repro_torch.kernels.PackedLoRABuckets` (one launch per bucket,
+    the expert folded in bucket-locally, non-member rows masked out)."""
+    y = torch.bmm(inp, ex[name]["w"])
+    if lex is None:
+        return y
+    leaf = lex[name]
+    e, c, _ = inp.shape
+    rows = inp.reshape(e * c, -1)
+    if isinstance(leaf, _PACKED):
+        expert_of_row = torch.arange(e, dtype=torch.int32,
+                                     device=inp.device).repeat_interleave(c)
+        seg = buf_seg.to(torch.int32)
+    if isinstance(leaf, PackedLoRABatch):
+        pb = dataclasses.replace(leaf, seg=seg * leaf.fold + expert_of_row,
+                                 tile_t=1)
+        upd = sgmv_apply_packed(rows, pb, scaling=scaling)
+        return y + upd.reshape(y.shape).to(y.dtype)
+    if isinstance(leaf, PackedLoRABuckets):
+        upd = None
+        for pb, lut in zip(leaf.buckets, leaf.lookups):
+            local = lut[seg.to(torch.int64)]
+            member = local >= 0
+            folded = local.clamp(min=0) * pb.fold + expert_of_row
+            u = sgmv_apply_packed(
+                rows, dataclasses.replace(pb, seg=folded, tile_t=1),
+                scaling=scaling)
+            u = torch.where(member[:, None], u, torch.zeros_like(u))
+            upd = u if upd is None else upd + u
+        return y + upd.reshape(y.shape).to(y.dtype)
+    la, lb = leaf["a"], leaf["b"]                 # (E, r, in), (E, out, r)
+    upd = torch.bmm(torch.bmm(inp.to(la.dtype), la.transpose(1, 2)),
+                    lb.transpose(1, 2))
+    return y + (scaling * upd).to(y.dtype)
+
+
+def _moe_dense_dispatch(x_loc, gate_loc, idx_loc, ex, lex, e, k, cap,
+                        scaling):
+    """Sort-gather-scatter token-choice dispatch of one device's tokens."""
+    tok, d = x_loc.shape
+    dev = x_loc.device
+    flat_e = idx_loc.reshape(-1)                          # (tok·k,)
+    src_tok = torch.arange(tok * k, device=dev) // k
+    order, sorted_e, pos_in_e, keep = _dispatch_indices(flat_e, e, cap)
+    # dropped assignments land on a sentinel row, sliced off
+    dest = torch.where(keep, sorted_e * cap + pos_in_e,
+                       torch.full_like(sorted_e, e * cap))
+    src = src_tok[order]
+    buf = torch.zeros((e * cap + 1, d), dtype=x_loc.dtype, device=dev)
+    buf[dest] = x_loc[src]
+    buf = buf[:-1].reshape(e, cap, d)
+
+    buf_seg = None
+    if lex is not None and any(isinstance(l, _PACKED) for l in lex.values()):
+        # the per-token adapter ids ride the packed leaves (attached by the
+        # model); they go through the same scatter, so every buffer row
+        # knows its adapter. Empty capacity slots keep seg 0 with zero x
+        # rows, which adds nothing (LoRA is linear).
+        seg_tok = next(l.seg for l in lex.values() if isinstance(l, _PACKED))
+        buf_seg = torch.zeros((e * cap + 1,), dtype=torch.int32, device=dev)
+        buf_seg[dest] = seg_tok[src].to(torch.int32)
+        buf_seg = buf_seg[:-1]
+
+    g = _expert_ffw(ex, lex, "wg", buf, scaling, buf_seg)
+    u = _expert_ffw(ex, lex, "wu", buf, scaling, buf_seg)
+    h = F.silu(g) * u
+    out = _expert_ffw(ex, lex, "wd", h, scaling, buf_seg)  # (E, cap, d)
+
+    out_flat = out.reshape(e * cap, d)
+    slot = torch.where(
+        keep[:, None],
+        out_flat[torch.clamp(sorted_e * cap + pos_in_e, 0, e * cap - 1)],
+        torch.zeros((), dtype=out_flat.dtype, device=dev))
+    # combine in the compute dtype, as the reference does
+    y = torch.zeros((tok, d), dtype=x_loc.dtype, device=dev)
+    y.index_add_(0, src, gate_loc.reshape(-1)[order].to(x_loc.dtype)[:, None]
+                 * slot)
+    return y

@@ -1,7 +1,9 @@
 """Decoder-LM assembly (port of ``repro/models/model.py``) for the dense
-GQA family: stacked ``(L, ...)`` layer params walked by a Python loop over
-layers, LoRA trees mirroring every targeted linear, and the prefill /
-decode-with-cache modes the serving engine drives.
+GQA family and the sparse-MoE family with sliding-window attention
+(``attn`` / ``local_attn`` mixers, ``dense`` / ``moe`` feed-forwards):
+stacked ``(L, ...)`` layer params walked by a Python loop over layers, LoRA
+trees mirroring every targeted linear, and the prefill / decode-with-cache
+modes the serving engine drives.
 
 Parameter tree, as in the JAX package::
 
@@ -12,6 +14,11 @@ Parameter tree, as in the JAX package::
                                     "ffn_norm": {"w"}}}]},
      "lora": {"groups": [{"sub_0": {"mixer": {"wq": {"a", "b"}, ...},
                                     "ffn": {"wg": {"a", "b"}, ...}}}]}}
+
+An ``moe`` feed-forward has ``{"router": {"w"} (fp32), "experts": {"wg":
+{"w"}, ...}}`` with expert stacks ``(L, E, ·, ·)``, and LoRA leaves
+``"router"`` ``(L, r, ·)`` and ``"experts"`` ``{"wg": {"a", "b"}, ...}``
+``(L, E, r, ·)``.
 
 A LoRA leaf may also be applied straight from packed codes: a
 layer-stacked :class:`~repro_torch.core.QuantizedLoRA` (one adapter for the
@@ -43,7 +50,13 @@ Params = Dict[str, Any]
 
 
 def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP A10)")
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP A6a-A6c, the other model "
+        f"families)")
+
+
+MIXERS = ("attn", "local_attn")
+FFNS = ("dense", "moe")
 
 
 def _layer_slice(tree, i: int):
@@ -66,6 +79,9 @@ def _layer_slice(tree, i: int):
 @dataclasses.dataclass
 class Model:
     cfg: Any
+    # the attention algorithm: None picks blockwise above
+    # ``attention.BLOCKWISE_THRESHOLD`` tokens, True / False force it
+    force_blockwise: Any = None
 
     @property
     def scaling(self) -> float:
@@ -92,12 +108,13 @@ class Model:
         for block in cfg.blocks:
             gb, gl = {}, {}
             for j, (mk, fk) in enumerate(zip(block.pattern, block.ffn)):
-                if mk != "attn" or fk != "dense":
+                if mk not in MIXERS or fk not in FFNS:
                     raise _not_ported(f"layer kind {mk}/{fk}")
                 mb, ml = attn_mod.init_gqa(gen, cfg, cfg.lora_rank,
                                            block.count)
-                fb, fl = ffn_mod.init_dense_ffn(gen, cfg, cfg.lora_rank,
-                                                block.count)
+                init_ffn = (ffn_mod.init_moe if fk == "moe"
+                            else ffn_mod.init_dense_ffn)
+                fb, fl = init_ffn(gen, cfg, cfg.lora_rank, block.count)
                 ones = torch.ones((block.count, cfg.d_model), device=dev)
                 gb[f"sub_{j}"] = {"mixer": mb, "mixer_norm": {"w": ones},
                                   "ffn": fb, "ffn_norm": {"w": ones.clone()}}
@@ -109,12 +126,32 @@ class Model:
     # ----- caches -----
 
     def init_cache(self, batch: int, capacity: int, device="cuda") -> list:
+        """Per group and sub-block, zeroed ``(L, B, cap, KV, dh)`` caches: a
+        ring of ``min(capacity, window)`` slots for ``local_attn``."""
         cfg = self.cfg
         dev = resolve_device(device)
         return [{f"sub_{j}": attn_mod.init_gqa_cache(
-                    cfg, batch, capacity, cfg.dtype, dev, count=block.count)
-                 for j in range(len(block.pattern))}
+                    cfg, batch,
+                    min(capacity, cfg.window) if mk == "local_attn"
+                    else capacity, cfg.dtype, dev, count=block.count)
+                 for j, mk in enumerate(block.pattern)}
                 for block in cfg.blocks]
+
+    # ----- sub-block forward -----
+
+    def _run_mixer(self, kind, x, bparams, lparams, **kw):
+        return attn_mod.gqa_attention(
+            x, bparams, lparams, self.cfg,
+            window=self.cfg.window if kind == "local_attn" else None,
+            scaling=self.scaling, force_blockwise=self.force_blockwise, **kw)
+
+    def _run_ffn(self, kind, x, bparams, lparams):
+        """The feed-forward's output; an MoE's aux loss is computed and
+        dropped, as the reference's serve path drops it."""
+        if kind == "moe":
+            return ffn_mod.moe_ffn(x, bparams, lparams, self.cfg,
+                                   scaling=self.scaling)[0]
+        return ffn_mod.dense_ffn(x, bparams, lparams, scaling=self.scaling)
 
     # ----- backbone -----
 
@@ -141,19 +178,17 @@ class Model:
                 gl = self._attach_seg(gl, seg)
             for li in range(block.count):
                 lb, ll = _layer_slice(gb, li), _layer_slice(gl, li)
-                for j in range(len(block.pattern)):
+                for j, (mk, fk) in enumerate(zip(block.pattern, block.ffn)):
                     sb, sl = lb[f"sub_{j}"], ll[f"sub_{j}"]
                     sc = (None if caches is None
                           else _layer_slice(caches[gi][f"sub_{j}"], li))
                     hin = apply_norm(x, sb["mixer_norm"], cfg.norm)
-                    x = x + attn_mod.gqa_attention(
-                        hin, sb["mixer"], sl["mixer"], cfg,
+                    x = x + self._run_mixer(
+                        mk, hin, sb["mixer"], sl["mixer"],
                         positions=positions, cache=sc, cache_pos=cache_pos,
-                        valid_start=valid_start, pad_mask=pad_mask,
-                        scaling=self.scaling)
+                        valid_start=valid_start, pad_mask=pad_mask)
                     fin = apply_norm(x, sb["ffn_norm"], cfg.norm)
-                    x = x + ffn_mod.dense_ffn(fin, sb["ffn"], sl["ffn"],
-                                              scaling=self.scaling)
+                    x = x + self._run_ffn(fk, fin, sb["ffn"], sl["ffn"])
         return apply_norm(x, base["final_norm"], cfg.norm)
 
     # ----- embedding / unembedding -----

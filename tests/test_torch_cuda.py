@@ -113,6 +113,31 @@ def test_sgmv_fused_cuda_vs_plain(cuda, bits, tile_t, k, m, xdtype):
     assert err <= RTOL * want.abs().max().item(), err
 
 
+@pytest.mark.parametrize("k,m", [(6144, 8), (640, 8), (1024, 2048)])
+@pytest.mark.parametrize("rows", [64, 320])
+def test_sgmv_fused_folded_moe_rows_cuda_vs_plain(cuda, k, m, rows):
+    """The MoE path's call: 4 adapters x 8 experts folded into 32 entries,
+    one dispatch row per tile with seg ``adapter·8 + expert``, the router's
+    M = 8 (B's groups of 8, most cluster blocks without an M unit)."""
+    na, experts = 4, 8
+    pb = _packed_layer(k, m, 16, 2, 128, na * experts, cuda, seed=k + m)
+    cap = rows // experts
+    r = torch.arange(rows, device=cuda)
+    seg_tiles = ((r % cap) % na * experts + r // cap).to(torch.int32)
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    x = torch.randn(rows, k, generator=gen, device=cuda).to(torch.bfloat16)
+    pb = dataclasses.replace(pb, tile_t=1)
+    reset_launch_counts()
+    got = _call(sgmv_fused, x, pb, seg_tiles)
+    again = _call(sgmv_fused, x, pb, seg_tiles)
+    torch.cuda.synchronize()
+    assert dict(LAUNCH_COUNTS) == {"sgmv_fused": 2}
+    assert torch.equal(got, again) and got.shape == (rows, m)
+    want = _call(sgmv_fused_ref, x, pb, seg_tiles)
+    err = (got - want).abs().max().item()
+    assert err <= RTOL * want.abs().max().item(), err
+
+
 def test_sgmv_apply_packed_cuda_casts_and_counts(cuda):
     """The serving entry: one launch per apply, output in x's dtype."""
     pb = _packed_layer(256, 384, 16, 2, 128, 4, cuda, seed=5)

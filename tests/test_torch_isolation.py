@@ -40,6 +40,7 @@ from repro_torch.models import build_model
 from repro_torch.launch.serve import main
 from repro_torch.bridge import to_torch
 for call in (lambda: build_model(get_config("llama3.2-3b", "smoke")).init(0),
+             lambda: build_model(get_config("mixtral-8x22b", "smoke")).init(0),
              lambda: main(["--adapters", "1", "--requests", "1"]),
              lambda: to_torch({"w": [1.0, 2.0]})):
     try:

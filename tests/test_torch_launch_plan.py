@@ -67,6 +67,15 @@ SHAPES = [
     (10, 100, 60, 2, (100, 60, 100, 60)),
     (6, 384, 256, 1, (32, 32, 16, 16)),
     (40, 65536, 32768, 8, (128, 128, 128, 128)),
+    # mixtral-8x22b: folded expert rows at tile_t 1 (decode 64, prefill
+    # 1280 dispatch rows), the router's M = 8 (B's groups of 8; blocks
+    # 1-7 of its cluster own no M unit), and a prefill tile of the router
+    (64, 6144, 6144, 1, (128, 128, 128, 128)),
+    (1280, 6144, 1024, 1, (128, 128, 128, 128)),
+    (64, 6144, 16384, 1, (128, 128, 128, 128)),
+    (1280, 16384, 6144, 1, (128, 128, 128, 128)),
+    (64, 6144, 8, 1, (128, 8, 128, 8)),
+    (256, 6144, 8, 8, (128, 8, 128, 8)),
     # A-only (matmul_rhs: kt None; sgmv_rhs: kt 1 / 3 / 8): m = 0, no B
     (16, 3072, 0, None, (128, None, None, None)),
     (512, 8192, 0, None, (128, None, None, None)),
