@@ -139,6 +139,39 @@ Phases (a failure raises and the script exits non-zero):
     full-width attention layer at T = 8704: blockwise == plain within
     ``RTOL``, with window 4096 and without, and the default path is the
     blockwise one.
+22. Dense-variant kernel vs plain: ``sgmv_fused`` against
+    ``sgmv_fused_ref`` (TF32 off) at every (K, M) of the LoRA linears of
+    gemma2-2b, olmo-1b, internlm2-20b, qwen2-vl-72b and musicgen-medium
+    (19 shapes, K and M up to qwen2-vl's 29568), 8 adapters, bits 2,
+    decode (tile_t 1, 16 rows) and prefill (tile_t 8, 512 rows); bitwise
+    repeats; time, plain time and bound per case, and each model's mix.
+23. gemma2-2b at full width and depth (26 layers of alternating local /
+    global attention, soft-caps, post-norms), bf16, phase 13's Zipf
+    stream served continuously all-resident and bounded to 4 slots:
+    identical tokens, paging == ``ZIPF_BOUNDED``, exactly 26 x 7 = 182
+    ``sgmv_fused`` per live pool per forward and no other kernel; a
+    second bounded run (one engine step profiled) repeats the first's
+    tokens and paging. This bounded run is the slice's main path.
+24. gemma2-2b fp32 at full depth: bounded continuous == materialize
+    (tokens, logits within ``LOGIT_RTOL``) and the shifted-adapter
+    control.
+25. gemma2-2b fp32, one local / global period: an 8704-token prompt (past
+    the 4096 window: the local layer's ring holds 4096 slots, the global
+    layer's the whole prompt) and 4 decode steps, packed == materialize;
+    then one gemma2 attention layer (soft-cap 50) at T = 8704: blockwise
+    == plain within ``RTOL``, with and without the window.
+26. olmo-1b (16 layers), internlm2-20b (48) and qwen2-vl-72b (width full,
+    depth cut to 24) as in phase 23, and in fp32 as in phase 24 at 16, 8
+    and 2 layers. In bf16 their bounded tokens may part from the
+    all-resident ones (bf16 rounding of other prefill groups): the parted
+    requests are reported, and the two runs' logits must stay within
+    ``BF16_GAP_RTOL`` of max |logit| on the steps before they part.
+27. musicgen-medium at full width and depth (48 layers), fp32, at the
+    model level (the engine cannot serve it: ROADMAP C8): 8 adapters as
+    one ``PackedLoRABatch``, ``(16, 4, 32)`` prompts, prefill and 7 decode
+    steps: 48 x 7 launches per forward, frames and logits ``(16, 4, 32,
+    V)`` == materialize within ``LOGIT_RTOL``, a control; the serve driver
+    refuses the arch.
 
 The phases' total time is logged last. The last three lines are the card (nvidia-smi), a ``{"kernels": [...]}``
 summary and ``{"ok": true, "device": {...}}``.
@@ -289,14 +322,16 @@ def phase_kernel():
 MIX_KEYS = ("ms", "cold_ms", "host_ms", "plain_ms")
 
 
-def main_path_mix(per_case):
+def main_path_mix(per_case, linears=None):
     """Each timing of ``per_case`` (``{((k, m), phase): timings}`` at
-    bits_hi 2) per launch over the main path (:func:`mix`: every layer runs
-    each of its 7 LoRA linears once at prefill and once per decode step),
+    bits_hi 2) per launch over a model's main path (:func:`mix`: every
+    layer runs each of its LoRA linears -- llama3.2-3b's unless
+    ``linears`` names others -- once at prefill and once per decode step),
     and the mix's bound: the larger of its byte time and its operation
     time."""
-    out = {key: mix(per_case, key) for key in MIX_KEYS}
-    t_bytes, t_ops = mix(per_case, "bytes"), mix(per_case, "ops")
+    out = {key: mix(per_case, key, linears) for key in MIX_KEYS}
+    t_bytes, t_ops = (mix(per_case, "bytes", linears),
+                      mix(per_case, "ops", linears))
     out.update(bound_ms=max(t_bytes, t_ops),
                bound_by="bytes" if t_bytes >= t_ops else "operations")
     return out
@@ -1356,6 +1391,21 @@ def phase_continuous(vocab, device="cuda", preset="full"):
     model = build_model(dataclasses.replace(
         get_config("llama3.2-3b", preset), dtype=torch.float32))
     params = model.init(seed=0, device=device)
+    res.update(fp32_parity("continuous", model, params, store, ids, prompts,
+                           vocab, device, t0))
+    del model, params, store
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def fp32_parity(label, model, params, store, ids, prompts, vocab, device,
+                t0, per_forward=None):
+    """The stream served in fp32, continuous bounded to ``CONT_SLOTS`` slots
+    against materialize: identical tokens, every step's logits within
+    ``LOGIT_RTOL`` of max |logit|, and a control in which every request
+    meets another adapter moving them by ``CONTROL_MARGIN`` tolerances.
+    Returns the gap and the tolerance."""
     runs = {}
     for name, mode, slots, shift in (("continuous", "continuous",
                                       CONT_SLOTS, 0),
@@ -1364,31 +1414,29 @@ def phase_continuous(vocab, device="cuda", preset="full"):
                                       CONT_SLOTS, 1)):
         runs[name] = run_stream(model, params, store, ids, prompts, vocab,
                                 slots=slots, mode=mode, keep_logits=True,
-                                shift=shift, device=device)[0]
+                                shift=shift, device=device,
+                                per_forward=per_forward)[0]
     same_tokens(runs["continuous"], runs["materialize"],
-                "fp32 continuous vs materialize")
+                f"{label}: fp32 continuous vs materialize")
     scale = max(float(abs(r.logits).max()) for r in runs["continuous"])
     tol = LOGIT_RTOL * scale
     gap = logit_gap(runs["continuous"], runs["materialize"])
     if max(gap.values()) > tol:
-        raise AssertionError(f"fp32 continuous vs materialize logits differ "
-                             f"by {gap} > {LOGIT_RTOL:g} x {scale:.3e}")
+        raise AssertionError(f"{label}: fp32 continuous vs materialize "
+                             f"logits differ by {gap} > {LOGIT_RTOL:g} x "
+                             f"{scale:.3e}")
     moved = logit_gap(runs["continuous"], runs["control"])
     if min(moved.values()) < CONTROL_MARGIN * tol:
-        raise AssertionError(f"another adapter moves the logits by only "
-                             f"{moved}, under {CONTROL_MARGIN} x {tol:.3e}: "
-                             f"the parity check is blind")
-    log(f"continuous fp32 parity {time.perf_counter() - t0:.1f}s: bounded "
+        raise AssertionError(f"{label}: another adapter moves the logits by "
+                             f"only {moved}, under {CONTROL_MARGIN} x "
+                             f"{tol:.3e}: the parity check is blind")
+    log(f"{label} fp32 parity {time.perf_counter() - t0:.1f}s: bounded "
         f"({CONT_SLOTS} slots) continuous == materialize for all {N_REQ} "
         f"requests ({N_REQ * MAX_NEW} tokens); logits max |diff| "
         f"{max(gap.values()):.3e} <= {tol:.3e} ({LOGIT_RTOL:g} x "
         f"max|logit| {scale:.3e}); every request meeting another adapter "
         f"moves by {min(moved.values()):.3e} to {max(moved.values()):.3e}")
-    res.update(gap=max(gap.values()), tol=tol)
-    del model, params, store, runs
-    if device == "cuda":
-        torch.cuda.empty_cache()
-    return res
+    return {"gap": max(gap.values()), "tol": tol}
 
 
 def phase_mixed_continuous(vocab, device="cuda", preset="full"):
@@ -1981,16 +2029,45 @@ LONG_PROMPT = 8704     # past the window (4096) and BLOCKWISE_THRESHOLD (8192)
 LONG_NEW = 5           # the prefill's token and 4 decode steps
 
 
+def kernel_case(label, pb, x, seg_tiles, tile_t):
+    """``sgmv_fused`` against its plain version on one packed layer: the
+    output's shape and finiteness, max |err| within ``RTOL`` x max |y|,
+    two launches bitwise equal; then its times and bound (:func:`timed`).
+    Returns ``(timings, err)``."""
+    import torch
+    from repro_torch.kernels.quant_matmul import sgmv_fused, sgmv_fused_ref
+    from repro_torch.launch.bench_kernels import packed_args
+
+    m = pb.m
+    args, kw = packed_args(pb, x, seg_tiles, tile_t)
+    got = sgmv_fused(*args, **kw)
+    again = sgmv_fused(*args, **kw)
+    torch.cuda.synchronize()
+    want = sgmv_fused_ref(*args, **kw)
+    if got.shape != (x.shape[0], m) or not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: bad kernel output "
+                             f"{tuple(got.shape)}")
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    if err > RTOL * scale:
+        raise AssertionError(f"sgmv_fused {label}: max |err| {err:.3e} > "
+                             f"{RTOL:g} x {scale:.3e}")
+    if not torch.equal(got, again):
+        raise AssertionError(f"sgmv_fused {label}: two launches differ")
+    del got, again, want
+    return timed("sgmv_fused", label, sgmv_fused, args, kw, sgmv_fused_ref,
+                 *bound(pb, x, seg_tiles, m), err), err
+
+
 def phase_moe_kernel():
     """Phase 18: ``sgmv_fused`` against its plain version (TF32 off) at
     mixtral's five (K, M), 8 adapters x 8 experts folded into 64 entries,
     folded seg ids at tile_t 1 over the dispatch rows (64 at decode, 1280
     at prefill), bits 2; two launches must give the same bits."""
     import torch
-    from repro_torch.kernels.quant_matmul import sgmv_fused, sgmv_fused_ref
     from repro_torch.launch.bench_kernels import (MOE_EXPERTS, MOE_PHASES,
                                                   MOE_SHAPES, moe_seg_for,
-                                                  packed_args, packed_layer)
+                                                  packed_layer)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator(device="cuda")
@@ -2000,31 +2077,12 @@ def phase_moe_kernel():
         pb = packed_layer(k, m, 2, 128, N_ADAPTERS * MOE_EXPERTS,
                           seed=k + m + 2)
         for phase, (tile_t, rows) in MOE_PHASES.items():
-            seg_tiles = moe_seg_for(phase)
             x = torch.randn(rows, k, generator=gen,
                             device="cuda").to(torch.bfloat16)
-            args, kw = packed_args(pb, x, seg_tiles, tile_t)
-            got = sgmv_fused(*args, **kw)
-            again = sgmv_fused(*args, **kw)
-            torch.cuda.synchronize()
-            want = sgmv_fused_ref(*args, **kw)
-            if got.shape != (rows, m) or not torch.isfinite(got).all():
-                raise AssertionError(f"bad kernel output {tuple(got.shape)}")
-            err = (got - want).abs().max().item()
-            scale = want.abs().max().item()
-            if err > RTOL * scale:
-                raise AssertionError(
-                    f"sgmv_fused (MoE) K={k} M={m} {phase}: max |err| "
-                    f"{err:.3e} > {RTOL:g} x {scale:.3e}")
-            if not torch.equal(got, again):
-                raise AssertionError(f"sgmv_fused (MoE) K={k} M={m} "
-                                     f"{phase}: two launches differ")
+            timings[(k, m), phase], err = kernel_case(
+                f"MoE K={k:5d} M={m:5d} {phase:7s} T={rows:4d} folded seg "
+                f"(64 entries), tile_t 1", pb, x, moe_seg_for(phase), tile_t)
             max_err = max(max_err, err)
-            timings[(k, m), phase] = timed(
-                "sgmv_fused", f"MoE K={k:5d} M={m:5d} {phase:7s} "
-                f"T={rows:4d} folded seg (64 entries), tile_t 1",
-                sgmv_fused, args, kw, sgmv_fused_ref,
-                *bound(pb, x, seg_tiles, m), err)
     return timings, max_err
 
 
@@ -2045,15 +2103,22 @@ def moe_config(dtype, layers, preset="full", cf=None):
 
 
 def moe_fleet(dtype, layers, device="cuda", preset="full", cf=None):
-    """mixtral cut to ``layers``, params from seed 0, and 8 adapters
-    ``2@0.9`` drawn over its LoRA template (generator seed 1)."""
+    """mixtral cut to ``layers``, with :func:`fleet_of`'s params and
+    adapters."""
+    return fleet_of(moe_config(dtype, layers, preset, cf), device)
+
+
+def fleet_of(cfg, device="cuda"):
+    """A model of ``cfg`` with params from seed 0, and 8 adapters
+    ``2@0.9`` drawn over its LoRA template (generator seed 1), quantized
+    once."""
     import torch
     from repro_torch.core import LoRAQuantConfig
     from repro_torch.launch.serve import random_trained_lora
     from repro_torch.models import build_model
     from repro_torch.serving import AdapterStore
 
-    model = build_model(moe_config(dtype, layers, preset, cf))
+    model = build_model(cfg)
     params = model.init(seed=0, device=device)
     store = AdapterStore(LoRAQuantConfig(rho=0.9, bits_high=2))
     gen = torch.Generator(device=device)
@@ -2345,50 +2410,73 @@ def phase_moe_long(device="cuda", preset="full"):
     ``LOGIT_RTOL``. Then one full-width attention layer at T = LONG_PROMPT:
     the blockwise path (what ``gqa_attention`` takes above the threshold)
     against the plain one, with the window and without."""
-    import numpy as np
     import torch
-    from repro_torch.models import attention as attn_mod
 
     t0 = time.perf_counter()
     model, params, store = moe_fleet(torch.float32, MOE_PARITY_LAYERS,
                                      device, preset)
     cfg = model.cfg
     n = LONG_PROMPT if preset == "full" else 3 * cfg.window + 5
+    res = long_parity("MoE", model, params, store, n, device, t0)
+    del model, params, store
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    res.update(attention_check(cfg, n, device))
+    return res
+
+
+def long_parity(label, model, params, store, n, device, t0):
+    """One request of ``n`` tokens and ``LONG_NEW`` greedy tokens served
+    continuously from packed codes and by materialize (one row each, so
+    the same batches): identical routing at every MoE layer of every
+    forward (if any), tokens, and logits within ``LOGIT_RTOL``."""
+    import numpy as np
+
     prompt = np.random.default_rng(23).integers(
-        0, cfg.vocab, size=n).astype(np.int32)
+        0, model.cfg.vocab, size=n).astype(np.int32)
     got, got_route, t_packed = long_serve(model, params, store, prompt,
                                           "continuous", device)
     want, want_route, t_mat = long_serve(model, params, store, prompt,
                                          "materialize", device)
     flips = routing_flips(got_route, want_route)
     if flips:
-        raise AssertionError(f"long prompt: routing flips (layer, token, "
-                             f"experts, experts, margin) {flips[:8]}")
+        raise AssertionError(f"{label} long prompt: routing flips (layer, "
+                             f"token, experts, experts, margin) {flips[:8]}")
     if got.output.tolist() != want.output.tolist():
-        raise AssertionError(f"long prompt: tokens {got.output} vs "
+        raise AssertionError(f"{label} long prompt: tokens {got.output} vs "
                              f"materialize {want.output}")
     scale = float(abs(want.logits).max())
     gap = float(abs(got.logits - want.logits).max())
     if gap > LOGIT_RTOL * scale:
-        raise AssertionError(f"long prompt: logits differ by {gap:.3e} > "
-                             f"{LOGIT_RTOL:g} x {scale:.3e}")
-    log(f"MoE long prompt {time.perf_counter() - t0:.1f}s: {n} tokens + "
+        raise AssertionError(f"{label} long prompt: logits differ by "
+                             f"{gap:.3e} > {LOGIT_RTOL:g} x {scale:.3e}")
+    log(f"{label} long prompt {time.perf_counter() - t0:.1f}s: {n} tokens + "
         f"{LONG_NEW - 1} decode steps, continuous packed {t_packed:.2f}s, "
-        f"materialize {t_mat:.2f}s; {len(got_route)} routing calls "
-        f"identical; tokens {got.output.tolist()} equal; logits max |diff| "
+        f"materialize {t_mat:.2f}s; "
+        + (f"{len(got_route)} routing calls identical; " if got_route
+           else "")
+        + f"tokens {got.output.tolist()} equal; logits max |diff| "
         f"{gap:.3e} <= {LOGIT_RTOL * scale:.3e}")
-    del model, params, store
-    if device == "cuda":
-        torch.cuda.empty_cache()
+    return {"gap": gap, "tol": LOGIT_RTOL * scale}
 
-    # one full-width attention layer, blockwise vs plain at T = n
+
+def attention_check(cfg, n, device):
+    """One attention layer of ``cfg`` at full width (its soft-cap
+    included), random weights, T = ``n``: the blockwise path (what
+    ``gqa_attention`` takes above the threshold) against the plain one
+    within ``RTOL`` of max |out|, with the config's window and without,
+    and the default path the one the threshold picks. Returns the errors
+    by window."""
+    import torch
+    from repro_torch.models import attention as attn_mod
+
     gen = torch.Generator(device=device)
     gen.manual_seed(5)
     base, _ = attn_mod.init_gqa(gen, cfg, None, 1)
     base = {k: {"w": v["w"][0]} for k, v in base.items()}
     x = torch.randn((1, n, cfg.d_model), generator=gen, device=device)
     pos = torch.arange(n, device=device)[None]
-    res = {"gap": gap, "tol": LOGIT_RTOL * scale}
+    res = {}
     for window in (cfg.window, None):
         outs, times = {}, {}
         for name, force in (("plain", False), ("blockwise", True),
@@ -2408,13 +2496,14 @@ def phase_moe_long(device="cuda", preset="full"):
         err = (outs["blockwise"] - outs["plain"]).abs().max().item()
         mag = outs["plain"].abs().max().item()
         if not torch.isfinite(outs["blockwise"]).all() or err > RTOL * mag:
-            raise AssertionError(f"blockwise vs plain attention (window "
-                                 f"{window}) at T={n}: max |err| {err:.3e} "
-                                 f"> {RTOL:g} x {mag:.3e}")
-        log(f"attention T={n} window {window}: blockwise == plain within "
-            f"{err:.3e} (<= {RTOL:g} x {mag:.3e}); plain "
-            f"{times['plain'] * 1e3:.1f} ms, blockwise "
-            f"{times['blockwise'] * 1e3:.1f} ms (host wall, first calls)")
+            raise AssertionError(f"{cfg.name}: blockwise vs plain attention "
+                                 f"(window {window}) at T={n}: max |err| "
+                                 f"{err:.3e} > {RTOL:g} x {mag:.3e}")
+        log(f"{cfg.name} attention T={n} window {window} soft-cap "
+            f"{cfg.attn_softcap}: blockwise == plain within {err:.3e} (<= "
+            f"{RTOL:g} x {mag:.3e}); plain {times['plain'] * 1e3:.1f} ms, "
+            f"blockwise {times['blockwise'] * 1e3:.1f} ms (host wall, first "
+            f"calls)")
         res[f"attn_err_{window}"] = err
         del outs
         if device == "cuda":
@@ -2425,15 +2514,11 @@ def phase_moe_long(device="cuda", preset="full"):
 def moe_phases() -> dict:
     """Phases 18-21 in order; returns the MoE kernel's error, its mix per
     launch over mixtral's linears, and the MoE main path's launches."""
-    from repro_torch.launch.bench_kernels import MOE_LINEARS, mix
+    from repro_torch.launch.bench_kernels import MOE_LINEARS
 
     t0 = time.perf_counter()
     timings, max_err = phase_moe_kernel()
-    moe_mix = {key: mix(timings, key, MOE_LINEARS) for key in MIX_KEYS}
-    t_bytes, t_ops = (mix(timings, "bytes", MOE_LINEARS),
-                      mix(timings, "ops", MOE_LINEARS))
-    moe_mix.update(bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+    moe_mix = main_path_mix(timings, MOE_LINEARS)
     log(f"MoE kernel phase {time.perf_counter() - t0:.1f}s; "
         + mix_line("sgmv_fused mixtral main-path", moe_mix))
     t0 = time.perf_counter()
@@ -2449,6 +2534,411 @@ def moe_phases() -> dict:
             "parted": cont["parted"], "parted_free": cont["parted_free"],
             "parity_gap": parity["gap"],
             "long_gap": long["gap"]}
+
+
+# --------------------------------------------------------------------------
+# the dense variants (phases 22-27)
+# --------------------------------------------------------------------------
+
+DENSE_ARCHS = ("gemma2-2b", "olmo-1b", "internlm2-20b", "qwen2-vl-72b")
+MUSICGEN = "musicgen-medium"
+# depth on the card, full width: (bf16 serve, fp32 parity). qwen2-vl's 80
+# layers are 1.76 GB each in bf16 beside 5.0 GB of tables, so 24 fit the
+# 80 GB card; internlm2's 48 are 37.5 GB in bf16, 8 of them 12.5 GB in
+# fp32; qwen2-vl's 2 in fp32 are 7.0 GB beside 10.0 GB of tables. The CPU
+# rehearsal keeps each smoke config's own depth.
+DENSE_LAYERS = {"gemma2-2b": (26, 26), "olmo-1b": (16, 16),
+                "internlm2-20b": (48, 8), "qwen2-vl-72b": (24, 2)}
+GEMMA_LONG_LAYERS = 2          # one local/global period
+# bf16 logits of the same requests served all-resident and bounded (other
+# prefill groups, so other matmul shapes and rounding) differ by ~1 % of
+# max |logit| at full width; another adapter moves the fp32 logits by 27 %
+# or more (phases 24 and 26). A gap past this bound is no rounding.
+BF16_GAP_RTOL = 0.05
+MUSIC_ROWS = 16                # musicgen prompts (16, 4, PROMPT)
+
+
+def linears_of(cfg) -> dict:
+    """(K, M) of each LoRA linear of a dense decoder layer."""
+    d, dh = cfg.d_model, cfg.resolved_head_dim
+    q, kv = cfg.n_heads * dh, cfg.n_kv_heads * dh
+    return {"wq": (d, q), "wk": (d, kv), "wv": (d, kv), "wo": (q, d),
+            "wg": (d, cfg.d_ff), "wu": (d, cfg.d_ff), "wd": (cfg.d_ff, d)}
+
+
+def dense_config(arch, dtype, layers=None, preset="full"):
+    """``arch`` at full width (or its smoke preset) in ``dtype``, cut to
+    ``layers`` (whole periods of its block pattern; None keeps the
+    config's depth)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch, preset)
+    if layers is None or preset != "full":
+        return dataclasses.replace(cfg, dtype=dtype)
+    block = cfg.blocks[0]
+    if len(cfg.blocks) != 1 or layers % len(block.pattern):
+        raise ValueError(f"{arch}: cannot cut {cfg.blocks} to {layers}")
+    return dataclasses.replace(
+        cfg, n_layers=layers, dtype=dtype,
+        blocks=(dataclasses.replace(block,
+                                    count=layers // len(block.pattern)),))
+
+
+def phase_dense_kernel():
+    """Phase 22: ``sgmv_fused`` against its plain version (TF32 off) at
+    every (K, M) of the five dense variants' LoRA linears, 8 adapters
+    ``2@0.9``-like (mixed split h), decode (tile_t 1, 16 rows) and
+    prefill (tile_t 8, 512 rows), x bf16; bitwise repeats. Returns the
+    timings per case and the largest error."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.launch.bench_kernels import packed_layer, seg_for
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2468)
+    shapes = sorted({km for arch in DENSE_ARCHS + (MUSICGEN,)
+                     for km in linears_of(get_config(arch)).values()})
+    timings, max_err = {}, 0.0
+    for k, m in shapes:
+        pb = packed_layer(k, m, 2, 128, N_ADAPTERS, seed=k + m + 2)
+        for phase, (tile_t, rows) in PHASES.items():
+            x = torch.randn(rows, k, generator=gen,
+                            device="cuda").to(torch.bfloat16)
+            timings[(k, m), phase], err = kernel_case(
+                f"dense K={k:5d} M={m:5d} {phase:7s} T={rows:3d} tile_t "
+                f"{tile_t}", pb, x, seg_for(phase), tile_t)
+            max_err = max(max_err, err)
+        del pb
+    return timings, max_err
+
+
+def dense_layers(arch, device):
+    return DENSE_LAYERS[arch] if device == "cuda" else (None, None)
+
+
+def comparable_gap(a, b) -> float:
+    """Max |logit| difference of two runs of the same requests over the
+    steps whose inputs are still the same: each request's steps up to and
+    including the first where its tokens part."""
+    import numpy as np
+
+    gap = 0.0
+    for r, q in zip(a, b):
+        part = np.nonzero(r.output != q.output)[0]
+        n = int(part[0]) + 1 if part.size else len(r.output)
+        gap = max(gap, float(np.abs(r.logits[:n] - q.logits[:n]).max()))
+    return gap
+
+
+def phase_dense_serve(arch, device="cuda", preset="full"):
+    """Phases 23 and 26 (bf16): ``arch`` at full width served continuously
+    over phase 13's Zipf stream (8 adapters ``2@0.9``, 8 rows),
+    all-resident and bounded to 4 slots: the reference's paging
+    (``ZIPF_BOUNDED``), the pool at 4 pages, exactly one ``sgmv_fused`` per
+    LoRA linear per layer per live pool per forward and no other kernel,
+    and a second bounded run (one engine step profiled) that repeats the
+    first's tokens and paging. gemma2-2b's bounded tokens must equal the
+    all-resident ones; for the others, whose bf16 logits round
+    differently in differently shaped prefill groups, the requests that
+    part are reported, and the two runs' logits on the steps before they
+    part must stay within ``BF16_GAP_RTOL`` of max |logit|. The bounded
+    run is the slice's main path."""
+    import torch
+
+    cfg = dense_config(arch, torch.bfloat16, dense_layers(arch, device)[0],
+                       preset)
+    layers = cfg.total_layers()
+    per_forward = layers * len(LINEARS)
+    ids, prompts = zipf_stream(cfg.vocab)
+    t0 = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    model, params, store = fleet_of(cfg, device)
+    sync(device)
+    weights = sum(t.nbytes for t in iter_tensors(params["base"]))
+    peak = (f", peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB"
+            if device == "cuda" else "")
+    log(f"{arch}: bf16 model ({layers} layers, {weights / 1e9:.2f} GB of "
+        f"base weights) and 8 adapters in {time.perf_counter() - t0:.1f}s"
+        f"{peak}")
+    kw = dict(device=device, per_forward=per_forward, keep_logits=True)
+    resident, r_res = run_stream(model, params, store, ids, prompts,
+                                 cfg.vocab, **kw)
+    bounded, r_bnd = run_stream(model, params, store, ids, prompts,
+                                cfg.vocab, slots=CONT_SLOTS, **kw)
+    parted = [r.request_id for r, q in zip(resident, bounded)
+              if r.output.tolist() != q.output.tolist()]
+    if arch == "gemma2-2b":
+        same_tokens(resident, bounded,
+                    f"{arch} bf16 bounded vs all-resident continuous")
+    eng = r_bnd["engine"]
+    mem = eng.memory_stats()
+    got = {k: mem[k] for k in ("hits", "misses", "evictions", "swap_ins")}
+    got.update({k: r_bnd["stats"][k]
+                for k in ("decode_steps", "admission_waves")})
+    if got != ZIPF_BOUNDED:
+        raise AssertionError(f"{arch} bounded paging {got}, the "
+                             f"reference's {ZIPF_BOUNDED}")
+    page = eng.memory.page_bytes
+    if eng.memory.hbm_bytes() != CONT_SLOTS * page or mem["slots"] != 4:
+        raise AssertionError(f"{arch} bounded pool holds "
+                             f"{eng.memory.hbm_bytes()} bytes, want "
+                             f"{CONT_SLOTS} x {page}")
+    again, r_again = run_stream(model, params, store, ids, prompts,
+                                cfg.vocab, slots=CONT_SLOTS,
+                                profile=device == "cuda", **kw)
+    same_tokens(bounded, again, f"{arch} bf16 bounded serve, two runs")
+    if r_again["engine"].memory_stats() != mem:
+        raise AssertionError(f"{arch} bounded serve: the second run paged "
+                             f"differently")
+    for name, r in (("all-resident", r_res), ("bounded", r_bnd)):
+        steps = sorted(r["step_s"])
+        m = r["engine"].memory_stats()
+        log(f"{arch} continuous bf16 {name}: {r['tok_s']:.1f} tokens/s "
+            f"({N_REQ * MAX_NEW} tokens in {r['s']:.3f}s, "
+            f"{r['stats']['admission_waves']} prefill groups + "
+            f"{r['stats']['decode_steps']} decode steps, "
+            f"{r['counts']['sgmv_fused']} sgmv_fused launches = "
+            f"{per_forward} x {sum(r['forwards'])} forwards; engine step "
+            f"median {steps[len(steps) // 2] * 1e3:.1f} ms); page {page} "
+            f"bytes; hits {m['hits']}, evictions {m['evictions']}")
+    scale = max(float(abs(r.logits).max()) for r in resident)
+    gap = comparable_gap(resident, bounded)
+    if gap > BF16_GAP_RTOL * scale:
+        raise AssertionError(f"{arch} bf16 all-resident vs bounded logits "
+                             f"differ by {gap:.3e} > {BF16_GAP_RTOL:g} x "
+                             f"{scale:.3e} before their tokens part")
+    log(f"{arch} continuous bf16: the second bounded run repeats tokens "
+        f"and paging; requests whose tokens part from the all-resident "
+        f"serve's: {parted}; bf16 logit gap of the two runs on the steps "
+        f"before they part {gap:.3e} ({gap / scale:.2e} of max|logit| "
+        f"{scale:.3e})")
+    res = {"launches": r_bnd["counts"]["sgmv_fused"], "page": page,
+           "layers": layers, "tok_s": r_bnd["tok_s"],
+           "tok_s_resident": r_res["tok_s"], "parted": parted,
+           "bf16_gap": gap / scale}
+    if device == "cuda":
+        log(window_line(f"{arch} continuous bounded serve",
+                        r_again["window"], "engine-step"))
+        res["window"] = r_again["window"]
+    del model, params, store, eng, r_res, r_bnd, r_again, resident, bounded
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_dense_parity(arch, device="cuda", preset="full"):
+    """Phases 24 and 26 (fp32): ``arch`` at full width, cut to its parity
+    depth: :func:`fp32_parity` (bounded continuous == materialize, the
+    shifted-adapter control)."""
+    import torch
+
+    t0 = time.perf_counter()
+    cfg = dense_config(arch, torch.float32, dense_layers(arch, device)[1],
+                       preset)
+    model, params, store = fleet_of(cfg, device)
+    ids, prompts = zipf_stream(cfg.vocab)
+    res = fp32_parity(f"{arch} ({cfg.total_layers()} layers)", model,
+                      params, store, ids, prompts, cfg.vocab, device, t0,
+                      per_forward=cfg.total_layers() * len(LINEARS))
+    res["layers"] = cfg.total_layers()
+    del model, params, store
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_gemma_long(device="cuda", preset="full"):
+    """Phase 25: gemma2-2b at full width, one local/global period, fp32:
+    one request of ``LONG_PROMPT`` tokens (past the 4096-token window and
+    the blockwise threshold; the local layer's cache a ring of 4096 slots,
+    the global layer's the whole prompt) and 4 decode steps, continuous
+    packed == materialize; then one gemma2 attention layer (soft-cap 50)
+    at T = ``LONG_PROMPT``: blockwise == plain, with the window and
+    without."""
+    import torch
+
+    t0 = time.perf_counter()
+    cfg = dense_config("gemma2-2b", torch.float32,
+                       GEMMA_LONG_LAYERS if device == "cuda" else None,
+                       preset)
+    model, params, store = fleet_of(cfg, device)
+    n = LONG_PROMPT if preset == "full" else 3 * cfg.window + 5
+    res = long_parity("gemma2", model, params, store, n, device, t0)
+    del model, params, store
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    res.update(attention_check(cfg, n, device))
+    return res
+
+
+def music_greedy(model, base, lora_pre, lora_dec, prompts, device):
+    """musicgen through ``Model.prefill`` / ``decode_step``: ``(B, K, T)``
+    prompts, greedy per codebook to ``MAX_NEW`` frames. Returns the frames
+    ``(B, K, MAX_NEW)``, the prefill logits ``(B, K, T, V)`` and each
+    decode step's ``(B, K, V)``, fp32."""
+    import torch
+
+    b, _, t = prompts.shape
+    logits, caches = model.prefill({"base": base, "lora": lora_pre},
+                                   {"tokens": prompts}, t + MAX_NEW)
+    pre = logits.float()
+    last = logits[..., -1, :].argmax(-1)                  # (B, K)
+    outs, steps = [last], []
+    for k in range(MAX_NEW - 1):
+        pos = torch.full((b,), t + k, dtype=torch.int64, device=device)
+        logits, caches = model.decode_step(
+            {"base": base, "lora": lora_dec}, last[..., None], caches, pos)
+        steps.append(logits[..., -1, :].float())
+        last = logits[..., -1, :].argmax(-1)
+        outs.append(last)
+    return torch.stack(outs, -1), pre, torch.stack(steps, 1)
+
+
+def phase_musicgen(device="cuda", preset="full"):
+    """Phase 27: musicgen-medium at full width and depth (48 layers), fp32,
+    at the model level: 8 adapters ``2@0.9`` as one ``PackedLoRABatch``
+    (row r meets adapter r mod 8), ``(16, 4, 32)`` prompts, prefill and 7
+    greedy decode steps of ``(16, 4, 1)`` frames: exactly 48 x 7
+    ``sgmv_fused`` per forward; frames identical to materialize (each
+    adapter's rows through its dequantized fp factors), the prefill logits
+    ``(16, 4, 32, V)`` and every step's within ``LOGIT_RTOL``; a control
+    in which every row meets another adapter moves them by
+    ``CONTROL_MARGIN`` tolerances. The serve driver refuses the arch
+    (ROADMAP C8)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.quant_matmul import (reset_launch_counts,
+                                                   retile_packed)
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.serving.engine import SEG_TILE
+
+    t0 = time.perf_counter()
+    cfg = dense_config(MUSICGEN, torch.float32, None, preset)
+    model, params, store = fleet_of(cfg, device)
+    base = params["base"]
+    ids = [f"user_{i}" for i in range(N_ADAPTERS)]
+    prompts = torch.as_tensor(np.random.default_rng(29).integers(
+        0, cfg.vocab, (MUSIC_ROWS, cfg.n_codebooks, PROMPT)), device=device)
+    packed = store.pack_batch(ids, params["lora"], tile_t=SEG_TILE)
+    dec_groups = retile_packed(packed, 1)["groups"]
+    per_forward = cfg.total_layers() * len(LINEARS)
+
+    def packed_run(shift):
+        aidx = ((torch.arange(MUSIC_ROWS, device=device) + shift)
+                % N_ADAPTERS).to(torch.int32)
+        pre = {"groups": packed["groups"],
+               "seg": aidx.repeat_interleave(PROMPT)}
+        dec = {"groups": dec_groups, "seg": aidx}
+        sync(device)
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        out = music_greedy(model, base, pre, dec, prompts, device)
+        sync(device)
+        dt = time.perf_counter() - t1
+        counts = launch_counts(device)
+        want = {"sgmv_fused": per_forward * MAX_NEW}
+        if counts != want:
+            raise AssertionError(f"musicgen packed launched {counts}, want "
+                                 f"{want} ({cfg.total_layers()} layers x "
+                                 f"{len(LINEARS)} linears x {MAX_NEW} "
+                                 f"forwards)")
+        return out, dt
+
+    (frames, pre, steps), dt = packed_run(0)
+    if (frames.shape != (MUSIC_ROWS, cfg.n_codebooks, MAX_NEW)
+            or not torch.isfinite(pre).all()
+            or not ((frames >= 0) & (frames < cfg.vocab)).all()):
+        raise AssertionError(f"musicgen frames {tuple(frames.shape)}")
+    # materialize: each adapter's rows through its dequantized fp factors
+    m_frames, m_pre, m_steps = (torch.empty_like(frames),
+                                torch.empty_like(pre),
+                                torch.empty_like(steps))
+    sync(device)
+    reset_launch_counts()
+    for a, aid in enumerate(ids):
+        rows = torch.arange(a, MUSIC_ROWS, N_ADAPTERS, device=device)
+        lora = store.materialize(aid, params["lora"])
+        f, p, st = music_greedy(model, base, lora, lora, prompts[rows],
+                                device)
+        m_frames[rows], m_pre[rows], m_steps[rows] = f, p, st
+    if launch_counts(device):
+        raise AssertionError(f"materialize launched "
+                             f"{launch_counts(device)}")
+    if not torch.equal(frames, m_frames):
+        diff = (frames != m_frames).any(-1).any(-1).nonzero().flatten()
+        raise AssertionError(f"musicgen packed vs materialize frames differ "
+                             f"for rows {diff.tolist()}")
+    scale = max(pre.abs().max().item(), steps.abs().max().item())
+    tol = LOGIT_RTOL * scale
+    gap = max((pre - m_pre).abs().max().item(),
+              (steps - m_steps).abs().max().item())
+    if gap > tol:
+        raise AssertionError(f"musicgen packed vs materialize logits differ "
+                             f"by {gap:.3e} > {LOGIT_RTOL:g} x {scale:.3e}")
+    (_, c_pre, _), _ = packed_run(1)
+    moved = (c_pre - pre).abs().amax(dim=(1, 2, 3))          # per row
+    if moved.min().item() < CONTROL_MARGIN * tol:
+        raise AssertionError(f"musicgen: another adapter moves the prefill "
+                             f"logits by only {moved.tolist()}, under "
+                             f"{CONTROL_MARGIN} x {tol:.3e}")
+    try:
+        serve_mod.main(["--arch", MUSICGEN, "--preset", preset])
+    except ValueError as e:
+        if "C8" not in str(e):
+            raise
+    else:
+        raise AssertionError("serve.py --arch musicgen-medium served")
+    log(f"musicgen ({cfg.total_layers()} layers, model level) "
+        f"{time.perf_counter() - t0:.1f}s: packed prefill + {MAX_NEW - 1} "
+        f"decode steps of {MUSIC_ROWS} x {cfg.n_codebooks} frames in "
+        f"{dt:.3f}s ({MUSIC_ROWS * MAX_NEW / dt:.1f} frames/s), "
+        f"{per_forward * MAX_NEW} sgmv_fused launches; frames == "
+        f"materialize; logits (prefill {tuple(pre.shape)} and every step) "
+        f"max |diff| {gap:.3e} <= {tol:.3e}; another adapter moves every "
+        f"row by {moved.min().item():.3e} to {moved.max().item():.3e}; the "
+        f"serve driver refuses the arch (C8)")
+    res = {"launches": per_forward * MAX_NEW, "gap": gap, "tol": tol,
+           "frames_s": MUSIC_ROWS * MAX_NEW / dt}
+    del model, params, store, packed, dec_groups
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def dense_phases() -> dict:
+    """Phases 22-27 in order; returns the kernel's error at the dense
+    shapes, its mix per launch over each model's linears, and each model's
+    numbers (gemma2's bounded serve is the slice's main path)."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    timings, max_err = phase_dense_kernel()
+    mixes = {a: main_path_mix(timings, linears_of(get_config(a)))
+             for a in DENSE_ARCHS + (MUSICGEN,)}
+    log(f"dense kernel phase {time.perf_counter() - t0:.1f}s; "
+        + "; ".join(mix_line(f"sgmv_fused {a} main-path", x)
+                    for a, x in mixes.items()))
+    out = {"max_err": max_err, "mix": mixes, "serve": {}, "parity": {}}
+    for arch in DENSE_ARCHS:
+        t0 = time.perf_counter()
+        out["serve"][arch] = phase_dense_serve(arch)
+        log(f"{arch} serve phase {time.perf_counter() - t0:.1f}s")
+        t0 = time.perf_counter()
+        out["parity"][arch] = phase_dense_parity(arch)
+        log(f"{arch} parity phase {time.perf_counter() - t0:.1f}s")
+        if arch == "gemma2-2b":
+            t0 = time.perf_counter()
+            out["long"] = phase_gemma_long()
+            log(f"gemma2 long-prompt phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    out["musicgen"] = phase_musicgen()
+    log(f"musicgen phase {time.perf_counter() - t0:.1f}s")
+    return out
 
 
 def main() -> int:
@@ -2641,6 +3131,9 @@ def main() -> int:
 
     # ---- 18-21. mixtral-8x22b: MoE kernel, serve, parity, long prompt -----
     moe = moe_phases()
+
+    # ---- 22-27. the dense variants ------------------------------------------
+    dense = dense_phases()
     log(f"total {time.perf_counter() - t_start:.1f}s")
 
     # ---- summary -------------------------------------------------------------
@@ -2655,13 +3148,23 @@ def main() -> int:
                 "bound_by": x["bound_by"], "library_ms": None}
 
     fused = entry("sgmv_fused", 481, cont["launches"],
-                  max(max_err, sgmv_err["sgmv_fused"], moe["max_err"]),
+                  max(max_err, sgmv_err["sgmv_fused"], moe["max_err"],
+                      dense["max_err"]),
                   fused_mix)
     # the MoE main path (phase 19's bounded serve) and the kernel's mix
     # per launch over mixtral's linears (phase 18)
     fused.update(moe_launches=moe["launches"], moe_ms=moe["mix"]["ms"],
                  moe_plain_ms=moe["mix"]["plain_ms"],
                  moe_bound_ms=moe["mix"]["bound_ms"])
+    # the dense variants: each model's main path (its bounded serve;
+    # musicgen's model-level run) and the kernel's mix over its linears
+    fused["dense"] = {
+        arch: {"launches": (dense["serve"][arch]["launches"]
+                            if arch in dense["serve"]
+                            else dense["musicgen"]["launches"]),
+               "ms": x["ms"], "plain_ms": x["plain_ms"],
+               "bound_ms": x["bound_ms"]}
+        for arch, x in dense["mix"].items()}
     print(smi)
     print(json.dumps({"kernels": [
         fused,

@@ -2,10 +2,14 @@
 ``repro/configs/base.py``).
 
 A config describes the decoder as a sequence of layer groups (runs of
-identical blocks whose params are stacked ``(L, ...)``). The port serves the
-dense GQA family and the sparse-MoE family with sliding-window attention
-(mixtral); ``get_config`` raises ``NotImplementedError`` for the
-architectures whose layers are not ported yet.
+identical blocks whose params are stacked ``(L, ...)``; an alternating
+pattern such as gemma2's local/global attention is one group whose block
+holds one period). The port serves the dense GQA family and its variants
+(gemma2's soft-caps and post-norms, olmo's non-parametric LayerNorm,
+qwen2-vl's M-RoPE and vision prefix, musicgen's codebooks) and the
+sparse-MoE family with sliding-window attention (mixtral); ``get_config``
+raises ``NotImplementedError`` for the architectures whose layers are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -50,12 +54,18 @@ class ModelConfig:
     vocab: int
     head_dim: Optional[int] = None
     blocks: Tuple[BlockSpec, ...] = ()
-    norm: str = "rmsnorm"
-    rope: str = "standard"
+    norm: str = "rmsnorm"            # rmsnorm | rmsnorm_plus1 | nonparam_ln
+    post_norm: bool = False          # gemma2 post-block norms
+    rope: str = "standard"           # standard | mrope | none
     rope_theta: float = 500000.0
+    mrope_sections: Tuple[int, ...] = (16, 24, 24)
     window: int = 4096               # local attention / SWA window
+    attn_softcap: Optional[float] = None
+    logit_softcap: Optional[float] = None
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
+    n_codebooks: int = 0             # musicgen: EnCodec codebooks
+    vision_stub: bool = False        # qwen2-vl: precomputed patch embeds
     lora_rank: int = 16
     lora_alpha: float = 32.0
     dtype: Any = torch.bfloat16
@@ -74,16 +84,12 @@ def default_blocks(n_layers: int) -> Tuple[BlockSpec, ...]:
     return (BlockSpec(count=n_layers, pattern=("attn",), ffn=("dense",)),)
 
 
-ARCH_IDS = ("llama3.2-3b", "mixtral-8x22b")
+ARCH_IDS = ("llama3.2-3b", "internlm2-20b", "gemma2-2b", "olmo-1b",
+            "mixtral-8x22b", "musicgen-medium", "qwen2-vl-72b")
 
 # Architectures of the JAX package whose layers the port does not have yet,
 # with the ROADMAP item that ports them.
 _NOT_PORTED = {
-    "internlm2-20b": "A6a (dense variants)",
-    "gemma2-2b": "A6a (dense variants)",
-    "olmo-1b": "A6a (dense variants)",
-    "musicgen-medium": "A6a (dense variants)",
-    "qwen2-vl-72b": "A6a (dense variants)",
     "deepseek-v3-671b": "A6b (MLA and the int8 frozen base)",
     "rwkv6-1.6b": "A6c (RWKV6 and RG-LRU)",
     "recurrentgemma-2b": "A6c (RWKV6 and RG-LRU)",

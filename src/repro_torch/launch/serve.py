@@ -7,11 +7,17 @@ modes), report throughput and memory.
         --preset full --adapters 8 --requests 16 --variant 2@0.9 \\
         --recipe user_0=4@0.95 --recipe user_1=3@0.9 --slots 4
 
-``--arch`` takes ``llama3.2-3b`` (dense GQA) or ``mixtral-8x22b`` (sparse
-MoE, 8 experts top-2, per-expert LoRA served straight from packed codes,
-sliding-window attention); ``--preset smoke`` is each one's small
-configuration. At ``--preset full`` mixtral's 56 layers (~140 GB in bf16)
-do not fit one 80 GB card.
+``--arch`` takes ``llama3.2-3b`` (dense GQA, the default), the dense
+variants ``gemma2-2b`` (local/global attention, soft-caps, post-norms),
+``olmo-1b`` (non-parametric LayerNorm), ``internlm2-20b`` and
+``qwen2-vl-72b`` (M-RoPE; text only, as the reference serves it), or
+``mixtral-8x22b`` (sparse MoE, 8 experts top-2, per-expert LoRA served
+straight from packed codes, sliding-window attention); ``--preset smoke``
+is each one's small configuration. At ``--preset full`` mixtral's 56
+layers (~140 GB in bf16) and qwen2-vl's 80 (~146 GB) do not fit one 80 GB
+card. ``musicgen-medium`` is refused: its model takes ``(B, 4, T)``
+codebook tokens, the engine hands it ``(B, T)`` and the reference's serve
+crashes there (ROADMAP C8); it runs at the model level only.
 
 ``--slots`` bounds the device slot pools of the paged adapter memory to
 that many adapters, ``--hbm-budget`` to that many MB at each recipe's real
@@ -196,10 +202,17 @@ def main(argv=None):
                          "serve driver crashes on it with 'unsupported "
                          "bitwidth 16' (ROADMAP C7), so the port serves "
                          "quantized adapters only")
+    cfg = get_config(args.arch, args.preset)
+    if cfg.n_codebooks:
+        raise ValueError(f"--arch {args.arch} is not served: its model "
+                         f"takes (B, {cfg.n_codebooks}, T) codebook tokens "
+                         f"and the engine's prefill hands it (B, T), where "
+                         f"the reference's serve driver crashes (ROADMAP "
+                         f"C8); drive it through Model.prefill / "
+                         f"decode_step")
     plan = named_plan(args.inject) if args.inject else None
 
     dev = resolve_device(args.device)
-    cfg = get_config(args.arch, args.preset)
     dtype = DTYPES[args.dtype] if args.dtype else (
         torch.float32 if args.preset == "smoke" else cfg.dtype)
     cfg = dataclasses.replace(cfg, dtype=dtype)

@@ -18,8 +18,9 @@ Unlike the JAX package, which returns new cache arrays, the cache tensors
 are updated in place (the engine never reuses a cache it has handed on),
 which saves a copy of the whole cache per layer and step.
 
-Not ported yet: M-RoPE and soft-capped scores in ``gqa_attention``
-(ROADMAP A6a) and MLA (ROADMAP A6b).
+Rotary positions are standard RoPE, qwen2-vl's M-RoPE (``positions: (3, B,
+T)``) or none, as ``cfg.rope`` says; gemma2 soft-caps the fp32 scores
+(``cfg.attn_softcap``) before the mask. Not ported yet: MLA (ROADMAP A6b).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from .common import apply_rope, init_linear, init_lora, linear
+from .common import apply_mrope, apply_rope, init_linear, init_lora, linear
 
 Params = Dict[str, Any]
 
@@ -76,8 +77,9 @@ def _pad_key_mask(pad_mask: torch.Tensor, extra_dims: int) -> torch.Tensor:
     return m.reshape((m.shape[0],) + (1,) * extra_dims + (m.shape[1],))
 
 
-def _sdpa(q, k, v, mask) -> torch.Tensor:
-    """q: (B,T,H,dh), k/v: (B,S,KV,dh) with H = KV·G. fp32 softmax; the
+def _sdpa(q, k, v, mask, cap: Optional[float] = None) -> torch.Tensor:
+    """q: (B,T,H,dh), k/v: (B,S,KV,dh) with H = KV·G. fp32 softmax of the
+    scaled scores, soft-capped by ``cap`` before the mask; the
     probabilities are cast to ``v``'s dtype before the value product."""
     b, t, h, dh = q.shape
     kvh = k.shape[2]
@@ -85,6 +87,8 @@ def _sdpa(q, k, v, mask) -> torch.Tensor:
     q = q.reshape(b, t, kvh, g, dh)
     scores = torch.einsum("btkgd,bskd->bkgts", q, k).to(torch.float32)
     scores = scores / np.sqrt(dh)
+    if cap is not None:
+        scores = cap * torch.tanh(scores / cap)
     scores = scores + mask
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgts,bskd->btkgd", probs, v)
@@ -156,7 +160,7 @@ def gqa_attention(
     lora: Optional[Params],
     cfg,
     *,
-    positions: torch.Tensor,                   # (B, T)
+    positions: torch.Tensor,                   # (B, T); (3, B, T) mrope
     window: Optional[int] = None,
     cache: Optional[Params] = None,            # {"k","v"}: (B, S, KV, dh)
     cache_pos: Optional[torch.Tensor] = None,  # (B,) padded index
@@ -170,17 +174,17 @@ def gqa_attention(
     b, t, _ = x.shape
     use_blockwise = (t > BLOCKWISE_THRESHOLD if force_blockwise is None
                      else force_blockwise and t > 1)
-    if cfg.rope != "standard":
-        raise NotImplementedError(f"rope {cfg.rope!r} is not ported yet "
-                                  f"(ROADMAP A6a, the dense variants)")
-
     def proj(name, width):
         return _split_heads(
             linear(x, base[name], lora and lora.get(name), scaling), width, dh)
 
-    q = apply_rope(proj("wq", h), positions, cfg.rope_theta)
-    k = apply_rope(proj("wk", kv), positions, cfg.rope_theta)
-    v = proj("wv", kv)
+    q, k, v = proj("wq", h), proj("wk", kv), proj("wv", kv)
+    if cfg.rope == "standard":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.rope == "mrope":
+        q = apply_mrope(q, positions, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, positions, cfg.mrope_sections, cfg.rope_theta)
 
     if cache is not None and t == 1:
         # decode: the cache is a ring buffer of ``cap`` slots; per row, slot
@@ -200,16 +204,16 @@ def gqa_attention(
         abs_pos = pos_b[:, None] - torch.remainder(
             pos_b[:, None] - s_idx[None, :], cap)
         mask = _pad_key_mask(abs_pos >= start_b[:, None], 3)
-        out = _sdpa(q, cache["k"], cache["v"], mask)
+        out = _sdpa(q, cache["k"], cache["v"], mask, cfg.attn_softcap)
     else:
         if use_blockwise:
-            out = _sdpa_blockwise(q, k, v, 0, window, None, chunk=kv_chunk,
-                                  pad_mask=pad_mask)
+            out = _sdpa_blockwise(q, k, v, 0, window, cfg.attn_softcap,
+                                  chunk=kv_chunk, pad_mask=pad_mask)
         else:
             mask = _causal_window_mask(t, t, 0, window, x.device)
             if pad_mask is not None:
                 mask = mask + _pad_key_mask(pad_mask, 3)
-            out = _sdpa(q, k, v, mask)
+            out = _sdpa(q, k, v, mask, cfg.attn_softcap)
         if cache is not None:
             # stateful prefill from position 0: write the last min(T, cap)
             # tokens at their ring slots (pad slots too; decode masks them)

@@ -10,7 +10,7 @@ rotary math runs in fp32.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -23,21 +23,53 @@ Params = Dict[str, Any]
 # --------------------------------------------------------------------------
 
 def rmsnorm(x: torch.Tensor, weight: Optional[torch.Tensor],
-            eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm in fp32, cast back to ``x``'s dtype."""
+            eps: float = 1e-6, plus_one: bool = False) -> torch.Tensor:
+    """RMSNorm in fp32, cast back to ``x``'s dtype. ``plus_one`` is the
+    gemma convention (w ≡ 1 + w̃)."""
     xf = x.to(torch.float32)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     xf = xf * torch.rsqrt(var + eps)
     if weight is not None:
-        xf = xf * weight.to(torch.float32)
+        w = weight.to(torch.float32)
+        xf = xf * ((1.0 + w) if plus_one else w)
     return xf.to(x.dtype)
 
 
-def apply_norm(x: torch.Tensor, p: Params, kind: str) -> torch.Tensor:
+def nonparam_layernorm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """OLMo's non-parametric LayerNorm: standardize (population variance,
+    as ``jnp.var``), no scale, no bias."""
+    xf = x.to(torch.float32)
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def apply_norm(x: torch.Tensor, p: Optional[Params],
+               kind: str) -> torch.Tensor:
     if kind == "rmsnorm":
         return rmsnorm(x, p["w"])
-    raise NotImplementedError(f"norm {kind!r} is not ported yet "
-                              f"(ROADMAP A6a, the dense variants)")
+    if kind == "rmsnorm_plus1":
+        return rmsnorm(x, p["w"], plus_one=True)
+    if kind == "nonparam_ln":
+        return nonparam_layernorm(x)
+    raise ValueError(kind)
+
+
+def init_norm(d: int, kind: str, lead=(), device=None) -> Params:
+    """A norm's params ``(*lead, d)`` in fp32: none for ``nonparam_ln``,
+    zeros for ``rmsnorm_plus1`` (w̃ of 1 + w̃), ones for ``rmsnorm``."""
+    if kind == "nonparam_ln":
+        return {}
+    fill = 0.0 if kind == "rmsnorm_plus1" else 1.0
+    return {"w": torch.full(tuple(lead) + (d,), fill, dtype=torch.float32,
+                            device=device)}
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    """Gemma-2 soft-capping ``cap · tanh(x / cap)`` in fp32."""
+    if cap is None:
+        return x
+    return (cap * torch.tanh(x.to(torch.float32) / cap)).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -57,6 +89,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                             device=x.device)
     angles = positions.to(torch.float32)[..., None] * freqs
     angles = angles[..., None, :]            # broadcast over heads
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                sections: Sequence[int],
+                theta: float = 1000000.0) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE: the rotary half-dims are split into
+    ``sections`` (summing to Dh/2), each rotated by its own positional
+    stream of ``positions: (3, ..., T)`` (temporal / height / width). For
+    text the three streams coincide and M-RoPE is RoPE."""
+    dh = x.shape[-1]
+    freqs = torch.as_tensor(rope_freqs(dh, theta), dtype=torch.float32,
+                            device=x.device)
+    sec_ids = np.repeat(np.arange(len(sections)), sections)
+    if sec_ids.shape[0] != dh // 2:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to "
+                         f"Dh/2 = {dh // 2}")
+    pos = positions.to(torch.float32)[torch.as_tensor(sec_ids,
+                                                      device=x.device)]
+    angles = torch.movedim(pos, 0, -1) * freqs           # (..., T, Dh/2)
+    angles = angles[..., None, :]
     cos, sin = torch.cos(angles), torch.sin(angles)
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

@@ -1,9 +1,9 @@
 """Decoder-LM assembly (port of ``repro/models/model.py``) for the dense
-GQA family and the sparse-MoE family with sliding-window attention
-(``attn`` / ``local_attn`` mixers, ``dense`` / ``moe`` feed-forwards):
-stacked ``(L, ...)`` layer params walked by a Python loop over layers, LoRA
-trees mirroring every targeted linear, and the prefill / decode-with-cache
-modes the serving engine drives.
+GQA family and its variants and the sparse-MoE family with sliding-window
+attention (``attn`` / ``local_attn`` mixers, ``dense`` / ``moe``
+feed-forwards): stacked ``(L, ...)`` layer params walked by a Python loop
+over layers, LoRA trees mirroring every targeted linear, and the prefill /
+decode-with-cache modes the serving engine drives.
 
 Parameter tree, as in the JAX package::
 
@@ -14,6 +14,12 @@ Parameter tree, as in the JAX package::
                                     "ffn_norm": {"w"}}}]},
      "lora": {"groups": [{"sub_0": {"mixer": {"wq": {"a", "b"}, ...},
                                     "ffn": {"wg": {"a", "b"}, ...}}}]}}
+
+The dense variants change it as the reference does: a tied table is
+``"embed_tied"`` (no ``"head"``); a norm is ``{}`` for olmo's
+``nonparam_ln`` and ``{"w": 0}`` for gemma2's ``rmsnorm_plus1``, whose
+sub-blocks also carry ``post_mixer_norm`` / ``post_ffn_norm``; musicgen's
+``n_codebooks`` tables and heads are stacked ``{"e": (K, V, d)}``.
 
 An ``moe`` feed-forward has ``{"router": {"w"} (fp32), "experts": {"wg":
 {"w"}, ...}}`` with expert stacks ``(L, E, ·, ·)``, and LoRA leaves
@@ -34,6 +40,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -44,7 +51,8 @@ from repro_torch.kernels.quant_matmul.ops import qlora_layer
 
 from . import attention as attn_mod
 from . import ffn as ffn_mod
-from .common import apply_norm, embed, init_embedding, unembed
+from .common import (apply_norm, embed, init_embedding, init_norm, softcap,
+                     unembed)
 
 Params = Dict[str, Any]
 
@@ -97,12 +105,11 @@ class Model:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         embed_key = "embed_tied" if cfg.tie_embeddings else "embed"
-        base: Params = {
-            embed_key: init_embedding(gen, cfg.vocab, cfg.d_model, cfg.dtype),
-            "final_norm": {"w": torch.ones((cfg.d_model,), device=dev)}}
+        base: Params = {embed_key: self._init_table(gen),
+                        "final_norm": init_norm(cfg.d_model, cfg.norm,
+                                                device=dev)}
         if not cfg.tie_embeddings:
-            base["head"] = init_embedding(gen, cfg.vocab, cfg.d_model,
-                                          cfg.dtype)
+            base["head"] = self._init_table(gen)
         base["groups"] = []
         lora: Params = {"groups": []}
         for block in cfg.blocks:
@@ -115,13 +122,25 @@ class Model:
                 init_ffn = (ffn_mod.init_moe if fk == "moe"
                             else ffn_mod.init_dense_ffn)
                 fb, fl = init_ffn(gen, cfg, cfg.lora_rank, block.count)
-                ones = torch.ones((block.count, cfg.d_model), device=dev)
-                gb[f"sub_{j}"] = {"mixer": mb, "mixer_norm": {"w": ones},
-                                  "ffn": fb, "ffn_norm": {"w": ones.clone()}}
+                names = ["mixer_norm", "ffn_norm"] + (
+                    ["post_mixer_norm", "post_ffn_norm"] if cfg.post_norm
+                    else [])
+                gb[f"sub_{j}"] = {"mixer": mb, "ffn": fb, **{
+                    n: init_norm(cfg.d_model, cfg.norm, (block.count,), dev)
+                    for n in names}}
                 gl[f"sub_{j}"] = {"mixer": ml, "ffn": fl}
             base["groups"].append(gb)
             lora["groups"].append(gl)
         return {"base": base, "lora": lora}
+
+    def _init_table(self, gen) -> Params:
+        """One embedding table, or ``n_codebooks`` of them stacked."""
+        cfg = self.cfg
+        if not cfg.n_codebooks:
+            return init_embedding(gen, cfg.vocab, cfg.d_model, cfg.dtype)
+        return {"e": torch.stack([
+            init_embedding(gen, cfg.vocab, cfg.d_model, cfg.dtype)["e"]
+            for _ in range(cfg.n_codebooks)])}
 
     # ----- caches -----
 
@@ -151,7 +170,9 @@ class Model:
         if kind == "moe":
             return ffn_mod.moe_ffn(x, bparams, lparams, self.cfg,
                                    scaling=self.scaling)[0]
-        return ffn_mod.dense_ffn(x, bparams, lparams, scaling=self.scaling)
+        act = "gelu" if self.cfg.norm == "rmsnorm_plus1" else "silu"
+        return ffn_mod.dense_ffn(x, bparams, lparams, activation=act,
+                                 scaling=self.scaling)
 
     # ----- backbone -----
 
@@ -183,25 +204,65 @@ class Model:
                     sc = (None if caches is None
                           else _layer_slice(caches[gi][f"sub_{j}"], li))
                     hin = apply_norm(x, sb["mixer_norm"], cfg.norm)
-                    x = x + self._run_mixer(
+                    out = self._run_mixer(
                         mk, hin, sb["mixer"], sl["mixer"],
                         positions=positions, cache=sc, cache_pos=cache_pos,
                         valid_start=valid_start, pad_mask=pad_mask)
+                    if cfg.post_norm:
+                        out = apply_norm(out, sb["post_mixer_norm"], cfg.norm)
+                    x = x + out
                     fin = apply_norm(x, sb["ffn_norm"], cfg.norm)
-                    x = x + self._run_ffn(fk, fin, sb["ffn"], sl["ffn"])
+                    out = self._run_ffn(fk, fin, sb["ffn"], sl["ffn"])
+                    if cfg.post_norm:
+                        out = apply_norm(out, sb["post_ffn_norm"], cfg.norm)
+                    x = x + out
         return apply_norm(x, base["final_norm"], cfg.norm)
 
     # ----- embedding / unembedding -----
 
-    def _embed(self, base, tokens):
+    def _embed(self, base, batch):
+        """Token embeddings (musicgen: the sum over its codebooks of
+        ``(B, K, T)`` tokens), qwen2-vl's ``vision_embeds`` prepended, and
+        gemma's ``sqrt(d_model)`` scale, in the reference's order."""
         cfg = self.cfg
         table = base["embed_tied" if cfg.tie_embeddings else "embed"]
-        return embed(tokens, table).to(cfg.dtype)
+        tokens = batch["tokens"]
+        if cfg.n_codebooks:
+            if tokens.dim() != 3:
+                raise ValueError(
+                    f"{cfg.name} takes (B, {cfg.n_codebooks}, T) codebook "
+                    f"tokens, got shape {tuple(tokens.shape)}: the serving "
+                    f"engine hands the model (B, T) tokens, which the "
+                    f"reference cannot embed either (ROADMAP C8)")
+            x = sum(embed(tokens[:, k], {"e": table["e"][k]})
+                    for k in range(cfg.n_codebooks))
+        else:
+            x = embed(tokens, table)
+        if cfg.vision_stub and "vision_embeds" in batch:
+            x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
+        if cfg.norm == "rmsnorm_plus1":
+            # gemma-family scale; the reference multiplies by a numpy
+            # scalar, which promotes to fp32 before the cast back
+            x = x.to(torch.float32) * torch.tensor(np.sqrt(cfg.d_model),
+                                                   dtype=torch.float32)
+        return x.to(cfg.dtype)
 
     def _logits(self, base, x):
         cfg = self.cfg
-        return unembed(x, base["embed_tied"] if cfg.tie_embeddings
-                       else base["head"])
+        head = base["embed_tied"] if cfg.tie_embeddings else base["head"]
+        if cfg.n_codebooks:                         # (B, K, T, V)
+            logits = torch.stack([unembed(x, {"e": head["e"][k]})
+                                  for k in range(cfg.n_codebooks)], dim=1)
+        else:
+            logits = unembed(x, head)
+        return softcap(logits, cfg.logit_softcap)
+
+    def _rope_streams(self, pos):
+        """``(B, T)`` positions as the rotary embedding takes them: the
+        three M-RoPE streams equal (text) for ``mrope``."""
+        if self.cfg.rope == "mrope":
+            return pos[None].expand((3,) + tuple(pos.shape))
+        return pos
 
     # ----- public API -----
 
@@ -212,18 +273,23 @@ class Model:
 
         ``batch["start"]`` (optional, ``(B,)``) is each row's left-pad
         count: real tokens sit at padded indices ``start..T-1`` with
-        positions ``0..len-1`` and pad slots are masked out of attention."""
-        tokens = batch["tokens"]
-        x = self._embed(params["base"], tokens)
+        positions ``0..len-1`` and pad slots are masked out of attention.
+        ``batch["positions"]`` (optional; ``(3, B, T)`` for M-RoPE) replaces
+        the positions, ``batch["vision_embeds"]`` (``(B, Tv, d)``, qwen2-vl)
+        is prepended to the tokens' embeddings, and musicgen's tokens are
+        ``(B, K, T)``, its logits ``(B, K, T, V)``."""
+        x = self._embed(params["base"], batch)
         b, t = x.shape[0], x.shape[1]
         pad_mask = None
         ar = torch.arange(t, device=x.device)
-        if "start" in batch:
+        if "positions" in batch:
+            positions = batch["positions"]
+        elif "start" in batch:
             pos = ar[None, :] - batch["start"].to(torch.int64)[:, None]
             pad_mask = pos >= 0
-            positions = torch.clamp(pos, min=0)
+            positions = self._rope_streams(torch.clamp(pos, min=0))
         else:
-            positions = ar[None, :].expand(b, t)
+            positions = self._rope_streams(ar[None, :].expand(b, t))
         caches = self.init_cache(b, capacity, device=x.device)
         h = self._backbone(params, x, positions, caches, 0,
                            pad_mask=pad_mask)
@@ -231,11 +297,12 @@ class Model:
 
     @torch.no_grad()
     def decode_step(self, params, tokens, caches, pos, start=None):
-        """One token per sequence. ``tokens: (B, 1)``; ``pos``: ``(B,)``
-        padded cache index of the incoming token; ``start``: optional
-        ``(B,)`` left-pad count. Rotary positions are ``pos - start``.
+        """One token per sequence. ``tokens: (B, 1)`` (musicgen: ``(B, K,
+        1)``); ``pos``: ``(B,)`` padded cache index of the incoming token;
+        ``start``: optional ``(B,)`` left-pad count. Rotary positions are
+        ``pos - start``.
         Returns ``(logits, caches)`` (the caches updated in place)."""
-        x = self._embed(params["base"], tokens)
+        x = self._embed(params["base"], {"tokens": tokens})
         b = x.shape[0]
         pos_b = torch.as_tensor(pos, device=x.device).to(
             torch.int64).reshape(-1).expand(b)
@@ -243,7 +310,7 @@ class Model:
                    if start is None
                    else torch.as_tensor(start, device=x.device).to(
                        torch.int64).reshape(-1).expand(b))
-        positions = (pos_b - start_b)[:, None]
+        positions = self._rope_streams((pos_b - start_b)[:, None])
         h = self._backbone(params, x, positions, caches, pos_b,
                            valid_start=start_b)
         return self._logits(params["base"], h), caches

@@ -626,7 +626,11 @@ class MultiLoRAEngine:
         self.faults = faults
         self.transport = transport
         self.telemetry = telemetry
-        self.device = base_params["base"]["final_norm"]["w"].device
+        base = base_params["base"]
+        # the embedding table: every model has one (olmo's norms have no
+        # weight)
+        self.device = base["embed_tied" if "embed_tied" in base
+                           else "embed"]["e"].device
         if clock is not None:
             self.clock = clock
         elif telemetry is not None:

@@ -56,18 +56,36 @@ def _close(got, want):
                                atol=LOGIT_RTOL * np.abs(want).max())
 
 
-def test_config_matches_reference():
+PORTED = ("llama3.2-3b", "internlm2-20b", "gemma2-2b", "olmo-1b",
+          "mixtral-8x22b", "musicgen-medium", "qwen2-vl-72b")
+CONFIG_FIELDS = (
+    "name", "family", "n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
+    "vocab", "head_dim", "resolved_head_dim", "norm", "post_norm", "rope",
+    "rope_theta", "mrope_sections", "window", "attn_softcap",
+    "logit_softcap", "tie_embeddings", "n_codebooks", "vision_stub",
+    "subquadratic", "lora_rank", "lora_alpha")
+
+
+@pytest.mark.parametrize("arch", PORTED)
+@pytest.mark.parametrize("preset", ["full", "smoke"])
+def test_config_matches_reference(arch, preset):
+    """Every ported arch, field for field and block for block."""
     from repro.configs import get_config as j_get_config
 
-    for preset in ("full", "smoke"):
-        j, t = j_get_config("llama3.2-3b", preset), get_config(
-            "llama3.2-3b", preset)
-        for f in ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
-                  "vocab", "resolved_head_dim", "rope_theta", "lora_rank",
-                  "lora_alpha", "tie_embeddings"):
-            assert getattr(t, f) == getattr(j, f), f
-    with pytest.raises(NotImplementedError, match="A6a"):
-        get_config("gemma2-2b")
+    j, t = j_get_config(arch, preset), get_config(arch, preset)
+    for f in CONFIG_FIELDS:
+        assert getattr(t, f) == getattr(j, f), (arch, preset, f)
+    assert [dataclasses.astuple(b) for b in t.blocks] == \
+        [dataclasses.astuple(b) for b in j.blocks]
+    assert t.total_layers() == j.total_layers()
+
+
+@pytest.mark.parametrize("arch,item", [("deepseek-v3-671b", "A6b"),
+                                       ("rwkv6-1.6b", "A6c"),
+                                       ("recurrentgemma-2b", "A6c")])
+def test_unported_archs_raise_with_their_item(arch, item):
+    with pytest.raises(NotImplementedError, match=item):
+        get_config(arch)
 
 
 def test_prefill_and_decode_logits_match_reference(models):
