@@ -173,6 +173,34 @@ Phases (a failure raises and the script exits non-zero):
     V)`` == materialize within ``LOGIT_RTOL``, a control; the serve driver
     refuses the arch.
 
+28. LoRA training: llama3.2-3b at full width and depth, bf16 frozen base,
+    fp32 LoRA of rank 16 on the 7 linears of every layer,
+    ``make_train_step`` with ``remat`` (as the reference's
+    ``launch/train.py`` sets it at ``--preset full``), batch 8 x 128 in 2
+    microbatches, lr 2e-4, ``TRAIN_STEPS`` steps on
+    ``benchmarks/common.py``'s task B (data seed 101): every loss and grad norm finite, the CE of the trained batches
+    lower after training (the held-out CE is reported), one step
+    profiled; in fp32 at ``FP32_LAYERS`` layers one step's loss and
+    gradients with 2 microbatches equal to one batch's within
+    ``MICRO_RTOL`` of their max |value|.
+29. Table 1: the trained adapter quantized by every row of
+    ``make_method_table`` (fp16, bin, rtn1, rtn2, gptq2, pbllm, billm,
+    LoRAQuant 2@0.8 / 2@0.9 / 3@0.8 / 3@0.9 and the two ALS rows): AvgBits,
+    held-out CE (``eval_loss``'s 8 batches from step 10000) and quantize
+    time per row; the fp16 row's CE equal to the unquantized adapter's,
+    every AvgBits equal to the reference's accounting (``expected_bits``),
+    LoRAQuant 2@0.9 under 2 bits. The quality order is reported, not held
+    (the base is random).
+30. Eval from packed codes: the LoRAQuant 2@0.9 adapter as one-layer
+    stacked ``QuantizedLoRA`` leaves (each layer its own group, so each
+    leaf has one split h) through ``fused_lora`` (or the two-pass pair
+    where the reference's guard says so), against the same codes
+    materialized: in fp32 at ``FP32_LAYERS`` layers the logits within
+    ``LOGIT_RTOL`` of max |logit|, a 3@0.9 control moving them by
+    ``CONTROL_MARGIN`` tolerances, launches == the reference's rule; in
+    bf16 at full depth both held-out CEs reported, and these launches
+    are the ``eval_launches`` of the kernels line.
+
 The phases' total time is logged last. The last three lines are the card (nvidia-smi), a ``{"kernels": [...]}``
 summary and ``{"ok": true, "device": {...}}``.
 """
@@ -2941,6 +2969,588 @@ def dense_phases() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# training and the paper's Table 1 (phases 28-30)
+# --------------------------------------------------------------------------
+
+# launch/train.py's defaults at --preset full (remat on), with 2
+# microbatches; the LoRA task of benchmarks/common.py's trained_setup
+TRAIN_STEPS = 20
+TRAIN_BATCH = 8
+TRAIN_SEQ = 128
+TRAIN_MICRO = 2
+TRAIN_LR = 2e-4
+TASK_B_SEED = 101
+EVAL_STEP0 = 10_000            # eval_loss's held-out steps
+EVAL_BATCHES = 8
+# fp32 depth of the microbatch check (phase 28) and of the eval from packed
+# codes (phase 30), full width: 4 layers are 1.6 GB beside 3.2 GB of tables
+FP32_LAYERS = 4
+# one step with 2 microbatches against one with 1: loss and gradients
+# within this fraction of their max |value| (fp32 sums in other orders)
+MICRO_RTOL = 1e-5
+PROFILED_STEP = 5
+
+
+def table1_methods() -> dict:
+    """``benchmarks/common.py``'s ``make_method_table`` on the port, one
+    layer stack per call: name → ``fn(b (L, m, r), a (L, r, n)) -> (b', a',
+    total_bits, n_params)``, the factors dequantized to their shapes. The
+    per-matrix baselines run per layer (their bits are per matrix); GPTQ,
+    PB-LLM and BiLLM take the whole stack; LoRAQuant runs its layer-stack
+    pipeline (per layer the math of ``quantize_lora``, ``ste_steps=60``)."""
+    import torch
+    from repro_torch.core import LoRAQuantConfig, quantize_lora_stack
+    from repro_torch.core.baselines import (billm_lora, bin_lora, gptq_lora,
+                                            pbllm_lora, rtn_lora)
+
+    def fp16(b, a):
+        return b, a, float((b.numel() + a.numel()) * 16), b.numel() + a.numel()
+
+    def per_layer(callable_, *args):
+        def fn(b, a):
+            qps = [callable_(b[i], a[i], *args) for i in range(b.shape[0])]
+            return (torch.stack([q.b_deq for q in qps]),
+                    torch.stack([q.a_deq for q in qps]),
+                    sum(q.total_bits for q in qps),
+                    sum(q.num_params for q in qps))
+        return fn
+
+    def stacked(callable_, *args):
+        def fn(b, a):
+            qp = callable_(b, a, *args)
+            return qp.b_deq, qp.a_deq, qp.total_bits, qp.num_params
+        return fn
+
+    def lq(bits_high, rho, refine="ste"):
+        cfg = LoRAQuantConfig(rho=rho, bits_high=bits_high, refine=refine,
+                              ste_steps=60)
+
+        def fn(b, a):
+            qls = quantize_lora_stack(b, a, cfg)
+            mats = [q.materialize() for q in qls]
+            return (torch.stack([m[0] for m in mats]),
+                    torch.stack([m[1] for m in mats]),
+                    sum(q.total_bits() for q in qls),
+                    sum(q.num_params() for q in qls))
+        fn.config = cfg
+        return fn
+
+    return {
+        "fp16": fp16,
+        "bin": per_layer(bin_lora),
+        "rtn1": per_layer(rtn_lora, 1),
+        "rtn2": per_layer(rtn_lora, 2),
+        "gptq2": stacked(gptq_lora, 2),
+        "pbllm": stacked(pbllm_lora),
+        "billm": stacked(billm_lora),
+        "loraquant_2@0.8": lq(2, 0.8),
+        "loraquant_2@0.9": lq(2, 0.9),
+        "loraquant_3@0.8": lq(3, 0.8),
+        "loraquant_3@0.9": lq(3, 0.9),
+        "loraquant_2@0.9_als": lq(2, 0.9, refine="als"),
+        "loraquant_3@0.9_als": lq(3, 0.9, refine="als"),
+    }
+
+
+def expected_bits(name, m, n, r, hs=None, sal=None) -> int:
+    """The reference's bit accounting for one ``(m, r) x (r, n)`` adapter
+    (LoRAQuant: per layer split ``hs``; PB-LLM: the salient counts ``sal``
+    of Bᵀ and A, which pass 10 % where magnitudes tie at the threshold),
+    written out from
+    ``core/baselines.py`` and ``core/quant.storage_bits``: codes, a 16-bit
+    scale per group, a ``bits``-wide zero per RTN group, PB-LLM's
+    indicator bits and 8-bit salient grid, BiLLM's residual columns, two
+    row scales per part and column indices. Groups run along m for B and
+    along n for A (128 wide)."""
+    import math
+
+    def cdiv(x, y):
+        return -(-x // y)
+
+    groups = r * (cdiv(m, min(128, m)) + cdiv(n, min(128, n)))
+    if name == "fp16":
+        return 16 * r * (m + n)
+    if name == "bin":
+        return r * (m + n) + groups * 16
+    if name.startswith("rtn"):
+        b = int(name[3:])
+        return r * (m + n) * b + groups * (16 + b)
+    if name == "gptq2":          # B (m, r): m rows of one group each
+        return r * (m + n) * 2 + (m * cdiv(r, min(128, r)) + r * cdiv(
+            n, min(128, n))) * 18
+    if name == "pbllm":          # B as Bᵀ (r, m) and A (r, n)
+        total = 0
+        for cols, n_sal in zip((m, n), sal):
+            size, g = r * cols, r * cdiv(cols, min(128, cols))
+            total += n_sal * 8 + (size - n_sal) + size + g * 24 + g * 16
+        return total
+    if name == "billm":
+        total = 0
+        for cols in (m, n):
+            k = max(1, int(round(0.1 * cols)))
+            total += (r * k * 2 + r * 32 + r * (cols - k) * 2 + r * 32
+                      + k * math.ceil(math.log2(max(cols, 2))))
+        return total
+    bits = int(name.split("_")[1].split("@")[0])
+    per = cdiv(m, min(128, m)) + cdiv(n, min(128, n))
+    hi = (m + n) * bits + per * (16 + bits)
+    lo = (m + n) + per * 16
+    return sum(h * hi + (r - h) * lo for h in hs)
+
+
+def salient_count(w, frac: float = 0.1) -> int:
+    """PB-LLM's salient entries of one matrix: those whose |w| reaches the
+    ``frac``-th largest magnitude."""
+    import torch
+
+    aw = w.abs().flatten()
+    k = max(1, int(round(frac * aw.numel())))
+    return int((aw >= torch.sort(aw, descending=True).values[k - 1]).sum())
+
+
+def leaf_paths(tree, is_leaf):
+    """``(path, leaf)`` for every node of a tree of dicts / lists that
+    ``is_leaf`` accepts."""
+    if is_leaf(tree):
+        return [((), tree)]
+    items = (tree.items() if isinstance(tree, dict)
+             else enumerate(tree) if isinstance(tree, list) else ())
+    return [((k,) + p, leaf) for k, v in items
+            for p, leaf in leaf_paths(v, is_leaf)]
+
+
+def lora_paths(lora):
+    """``(path, leaf)`` for every ``{'a', 'b'}`` leaf of a LoRA tree."""
+    return leaf_paths(lora, lambda n: isinstance(n, dict)
+                      and set(n) == {"a", "b"})
+
+
+def replace_leaves(tree, new: dict):
+    """``tree`` with the leaves at the paths of ``new`` replaced."""
+    if not new:
+        return tree
+    heads = {}
+    for path, v in new.items():
+        if not path:
+            return v
+        heads.setdefault(path[0], {})[path[1:]] = v
+    if isinstance(tree, list):
+        return [replace_leaves(v, heads.get(i, {}))
+                for i, v in enumerate(tree)]
+    return {k: replace_leaves(v, heads.get(k, {})) for k, v in tree.items()}
+
+
+def per_layer_groups(cfg, params):
+    """The same model with every layer its own group of one: config blocks
+    of ``count=1`` and params re-grouped (views). LoRAQuant picks the split
+    h per layer, and a layer-stacked ``QuantizedLoRA`` leaf (applied
+    straight from its codes by ``fused_lora``) needs one h over its stack,
+    as the reference's layer scan does; a group of one holds any h."""
+    import dataclasses
+
+    from repro_torch.optim.adamw import tree_map
+
+    blocks = tuple(dataclasses.replace(b, count=1) for b in cfg.blocks
+                   for _ in range(b.count))
+
+    def regroup(groups):
+        return [tree_map(lambda t: t[i:i + 1], g)
+                for g, blk in zip(groups, cfg.blocks)
+                for i in range(blk.count)]
+
+    out = {"base": dict(params["base"],
+                        groups=regroup(params["base"]["groups"])),
+           "lora": {"groups": regroup(params["lora"]["groups"])}}
+    return dataclasses.replace(cfg, blocks=blocks), out
+
+
+def quantized_groups(cfg, lora, grouped, config):
+    """LoRAQuant ``config`` over every leaf of ``lora`` (layer stacks under
+    ``cfg``'s groups; one ``quantize_lora_stack`` per stack, so per layer
+    the math of ``quantize_lora``), laid out as ``grouped`` (the
+    :func:`per_layer_groups` tree): each layer's leaf a one-layer stacked
+    ``QuantizedLoRA``."""
+    from repro_torch.core import quantize_lora_stack
+
+    first = [sum(b.count for b in cfg.blocks[:gi])
+             for gi in range(len(cfg.blocks))]
+    new = {}
+    for path, leaf in lora_paths(lora):
+        qls = quantize_lora_stack(leaf["b"], leaf["a"], config)
+        for li, q in enumerate(qls):
+            new[("groups", first[path[1]] + li) + path[2:]] = stack_layers(
+                [q])
+    return replace_leaves(grouped, new)
+
+
+def materialized_tree(lora):
+    """Every ``QuantizedLoRA`` leaf of a tree as its dequantized fp
+    ``{'a', 'b'}`` factors (the benchmark's route)."""
+    from repro_torch.core import QuantizedLoRA
+
+    if isinstance(lora, QuantizedLoRA):
+        b, a = lora.materialize()
+        return {"a": a, "b": b}
+    if isinstance(lora, dict):
+        return {k: materialized_tree(v) for k, v in lora.items()}
+    if isinstance(lora, list):
+        return [materialized_tree(v) for v in lora]
+    return lora
+
+
+def train_batch(dc, step, device):
+    import torch
+    from repro_torch.data import make_batch
+
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in make_batch(dc, step).items()}
+
+
+def mean_ce(model, params, dc, steps, device):
+    """Mean CE of ``model`` over the batches of ``steps`` (no autograd)."""
+    from repro_torch.launch.step import make_eval_step
+
+    ev = make_eval_step(model)
+    return sum(float(ev(params, train_batch(dc, s, device))["ce"])
+               for s in steps) / len(steps)
+
+
+def fp32_cut(cfg, params, layers):
+    """The first ``layers`` layers of ``params`` and the tables in fp32 (a
+    bf16 value is exact in fp32), with the config cut to match."""
+    import dataclasses
+
+    import torch
+    from repro_torch.optim.adamw import tree_map
+
+    f32 = lambda t: t[:layers].to(torch.float32)
+    base = {k: (v if k == "groups" else tree_map(
+        lambda t: t.to(torch.float32), v)) for k, v in params["base"].items()}
+    base["groups"] = [tree_map(f32, params["base"]["groups"][0])]
+    lora = {"groups": [tree_map(f32, params["lora"]["groups"][0])]}
+    block = dataclasses.replace(cfg.blocks[0], count=layers)
+    return (dataclasses.replace(cfg, dtype=torch.float32, n_layers=layers,
+                                blocks=(block,)),
+            {"base": base, "lora": lora})
+
+
+def phase_train(device="cuda", preset="full"):
+    """Phase 28: the LoRA train step of llama3.2-3b at full width and depth
+    (bf16 frozen base, fp32 LoRA of rank 16 on the 7 linears of every
+    layer), ``make_train_step`` with ``remat``, batch 8 x 128, 2
+    microbatches, lr 2e-4, ``TRAIN_STEPS`` steps on task B. Holds finite
+    losses and grad norms, a lower CE on the trained batches after
+    training, and, in fp32 at ``FP32_LAYERS`` layers, 2 microbatches == 1.
+    Returns the trained model, params and numbers."""
+    import math
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.step import _lora_grads, make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import OptimizerConfig, init_opt_state
+    from repro_torch.optim.adamw import tree_leaves
+
+    t0 = time.perf_counter()
+    cfg = get_config("llama3.2-3b", preset)
+    model = build_model(cfg, remat=True)
+    params = model.init(seed=0, device=device)
+    sync(device)
+    log(f"train phase: {cfg.name} ({cfg.n_layers} layers, d {cfg.d_model}, "
+        f"vocab {cfg.vocab}) bf16 base, fp32 LoRA rank {cfg.lora_rank}, in "
+        f"{time.perf_counter() - t0:.1f}s")
+    dc = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                    vocab=cfg.vocab, seed=TASK_B_SEED)
+    trained = range(TRAIN_STEPS)
+    held = range(EVAL_STEP0, EVAL_STEP0 + EVAL_BATCHES)
+    ce0 = mean_ce(model, params, dc, trained, device)
+    held0 = mean_ce(model, params, dc, held, device)
+
+    opt_cfg = OptimizerConfig(lr=TRAIN_LR, total_steps=TRAIN_STEPS)
+    step_fn = make_train_step(model, opt_cfg, TRAIN_MICRO)
+    opt = init_opt_state(params["lora"])
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    curve, times, window = [], [], None
+    for step in trained:
+        batch = train_batch(dc, step, device)
+        sync(device)
+        t1 = time.perf_counter()
+        if step == PROFILED_STEP and device == "cuda":
+            (params, opt, m), window = profile_step(
+                lambda: step_fn(params, opt, batch))
+        else:
+            params, opt, m = step_fn(params, opt, batch)
+            sync(device)
+            times.append(time.perf_counter() - t1)
+        row = {k: float(v) for k, v in m.items()}
+        if not all(math.isfinite(v) for v in row.values()):
+            raise AssertionError(f"train step {step}: {row}")
+        curve.append(row)
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if device == "cuda"
+            else None)
+    ce1 = mean_ce(model, params, dc, trained, device)
+    held1 = mean_ce(model, params, dc, held, device)
+    if not ce1 < ce0:
+        raise AssertionError(f"training did not lower the CE of its own "
+                             f"batches: {ce0:.4f} -> {ce1:.4f}")
+    step_s = sorted(times)[len(times) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    log("train loss curve (step: loss / grad norm / lr): " + ", ".join(
+        f"{i}: {r['loss']:.4f}/{r['grad_norm']:.3f}/{r['lr']:.2e}"
+        for i, r in enumerate(curve)))
+    log(f"train: {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
+        f"in {TRAIN_MICRO} microbatches, remat; median step "
+        f"{step_s * 1e3:.1f} ms ({tokens / step_s:.0f} tokens/s), min "
+        f"{min(times) * 1e3:.1f} ms; peak device memory "
+        + (f"{peak:.2f} GiB" if peak is not None else "not measured")
+        + f"; CE of the trained batches {ce0:.4f} -> {ce1:.4f}; held-out CE "
+        f"(steps {EVAL_STEP0}+) {held0:.4f} -> {held1:.4f}")
+    if window is not None:
+        log(window_line("train", {"window": window,
+                                  "unprofiled_ms": step_s * 1e3},
+                        what="train-step"))
+
+    # 2 microbatches == 1, fp32, the trained adapter at FP32_LAYERS layers
+    t1 = time.perf_counter()
+    cut = FP32_LAYERS if device == "cuda" else cfg.n_layers
+    cfg32, p32 = fp32_cut(cfg, params, cut)
+    model32 = build_model(cfg32, remat=True)
+    batch = train_batch(dc, 0, device)
+    l1, _, g1 = _lora_grads(model32, p32, batch, 1)
+    l2, _, g2 = _lora_grads(model32, p32, batch, TRAIN_MICRO)
+    loss_gap = abs(float(l1) - float(l2))
+    if loss_gap > MICRO_RTOL * abs(float(l1)):
+        raise AssertionError(f"fp32 loss with {TRAIN_MICRO} microbatches "
+                             f"{float(l2)} != one batch {float(l1)}")
+    grad_gap = 0.0
+    for x, y in zip(tree_leaves(g1), tree_leaves(g2)):
+        gap = float((x - y).abs().max()) / max(float(x.abs().max()), 1e-30)
+        if not gap <= MICRO_RTOL:
+            raise AssertionError(f"fp32 gradients with {TRAIN_MICRO} "
+                                 f"microbatches differ by {gap:.3e} of "
+                                 f"max |grad| > {MICRO_RTOL:g}")
+        grad_gap = max(grad_gap, gap)
+    log(f"train fp32 at {cut} layers ({time.perf_counter() - t1:.1f}s): "
+        f"{TRAIN_MICRO} microbatches == 1 batch: loss {float(l1):.6f} (gap "
+        f"{loss_gap:.3e}), gradients within {grad_gap:.3e} of max |grad| "
+        f"(tolerance {MICRO_RTOL:g})")
+    del p32, g1, g2, model32
+    return model, params, {
+        "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+        "peak_gib": peak, "ce": (ce0, ce1), "held": (held0, held1),
+        "window": window, "curve": curve, "dc": dc}
+
+
+def phase_table1(model, params, dc, device="cuda"):
+    """Phase 29: the trained adapter quantized by every row of Table 1
+    (``table1_methods``): AvgBits, held-out CE (``eval_loss``'s batches)
+    and quantize time per row. Holds the fp16 row's CE equal to the
+    unquantized adapter's, every row's bits equal to ``expected_bits`` and
+    LoRAQuant 2@0.9 under 2 bits."""
+    import torch
+    from repro_torch.core import select_h, svd_reparam_stack
+
+    held = range(EVAL_STEP0, EVAL_STEP0 + EVAL_BATCHES)
+    base_ce = mean_ce(model, params, dc, held, device)
+    leaves = lora_paths(params["lora"])
+    rows = {}
+    for name, fn in table1_methods().items():
+        sync(device)
+        t0 = time.perf_counter()
+        new, bits, n, want = {}, 0.0, 0, 0
+        for path, leaf in leaves:
+            b, a = leaf["b"], leaf["a"]
+            bq, aq, tb, tn = fn(b, a)
+            new[path] = {"a": aq.to(a.dtype), "b": bq.to(b.dtype)}
+            bits += tb
+            n += tn
+            L, m, r = b.shape
+            n_in = a.shape[-1]
+            if name.startswith("loraquant"):
+                s = svd_reparam_stack(b, a).s
+                want += expected_bits(name, m, n_in, r, hs=[
+                    select_h(s[i], fn.config.rho) for i in range(L)])
+            elif name == "pbllm":
+                want += sum(expected_bits(name, m, n_in, r, sal=(
+                    salient_count(b[i].mT), salient_count(a[i])))
+                    for i in range(L))
+            else:
+                want += L * expected_bits(name, m, n_in, r)
+        sync(device)
+        q_s = time.perf_counter() - t0
+        if bits != want:
+            raise AssertionError(f"{name}: {bits} bits, the reference's "
+                                 f"accounting gives {want}")
+        qp = {"base": params["base"],
+              "lora": replace_leaves(params["lora"], new)}
+        ce = mean_ce(model, qp, dc, held, device)
+        rows[name] = {"avg_bits": bits / n, "ce": ce, "quantize_s": q_s}
+        log(f"table1 {name:20s} AvgBits {bits / n:.4f}  held-out CE "
+            f"{ce:.4f}  quantize {q_s:.2f}s")
+        del qp, new
+    if rows["fp16"]["ce"] != base_ce:
+        raise AssertionError(f"fp16 row CE {rows['fp16']['ce']} != the "
+                             f"unquantized adapter's {base_ce}")
+    if not rows["loraquant_2@0.9"]["avg_bits"] < 2.0:
+        raise AssertionError(f"LoRAQuant 2@0.9 at "
+                             f"{rows['loraquant_2@0.9']['avg_bits']} bits")
+    order = sorted(rows, key=lambda k: rows[k]["ce"])
+    log(f"table1: fp16 CE == unquantized {base_ce:.4f}; LoRAQuant 2@0.9 "
+        f"{rows['loraquant_2@0.9']['avg_bits']:.4f} < 2 bits; every AvgBits "
+        f"== the reference's accounting; CE order (random base, reported, "
+        f"not held): {' < '.join(order)}")
+    return rows
+
+
+def expected_launches(qlora_tree, rows: int) -> dict:
+    """The reference's launch rule for a forward of ``rows`` token rows
+    over per-layer ``QuantizedLoRA`` leaves (``lora_apply_quantized``):
+    one ``fused_lora`` per leaf, or, where ``_fused_vmem_estimate`` at its
+    token tile crosses the budget, one ``matmul_rhs`` + ``matmul_out`` per
+    sub-LoRA."""
+    from repro_torch.core import QuantizedLoRA
+    from repro_torch.kernels.quant_matmul import ops
+    from repro_torch.models.model import _layer_slice
+
+    want = {}
+
+    def add(k, n):
+        want[k] = want.get(k, 0) + n
+
+    for _, leaf in leaf_paths(qlora_tree,
+                              lambda n: isinstance(n, QuantizedLoRA)):
+        q = _layer_slice(leaf, 0)
+        tt = min(128, rows)
+        tk = ops._pick_tile(q.a_high.orig_shape[1], q.a_high.group_size)
+        if ops._fused_vmem_estimate(q, tt, tk) > ops.FUSED_VMEM_BUDGET:
+            sides = 1 if q.a_low is None else 2
+            add("matmul_rhs", sides)
+            add("matmul_out", sides)
+        else:
+            add("fused_lora", 1)
+    return want
+
+
+def packed_eval(model, params, lora, batch, device):
+    """``(logits, ce, launches)`` of one forward with ``lora`` in place of
+    the params' LoRA tree, launches counted from 0."""
+    import torch
+    from repro_torch.kernels.quant_matmul import reset_launch_counts
+
+    reset_launch_counts()
+    with torch.no_grad():
+        p = {"base": params["base"], "lora": lora}
+        logits, _ = model.forward(p, batch)
+        _, m = model.train_loss(p, batch)
+    sync(device)
+    return logits, float(m["ce"]), launch_counts(device)
+
+
+def phase_eval_packed(model, params, dc, device="cuda"):
+    """Phase 30: the trained adapter, LoRAQuant ``2@0.9``, evaluated
+    straight from its packed codes (every leaf a one-layer stacked
+    ``QuantizedLoRA``, each layer its own group: ``fused_lora``, or the
+    two-pass pair where the reference's guard says so) against the same
+    codes materialized. fp32 at ``FP32_LAYERS`` layers: logits within
+    ``LOGIT_RTOL`` of max |logit|, a ``3@0.9`` control moving them by
+    ``CONTROL_MARGIN`` tolerances, launches == the reference's rule for both
+    the forward and the loss. bf16 at full depth: both held-out CEs
+    reported; returns that run's launches (the kernels line's)."""
+    import torch
+    from repro_torch.core import LoRAQuantConfig
+    from repro_torch.kernels.quant_matmul import reset_launch_counts
+    from repro_torch.models import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    cut = FP32_LAYERS if device == "cuda" else cfg.n_layers
+    cfg32, p32 = fp32_cut(cfg, params, cut)
+    gcfg, gp = per_layer_groups(cfg32, p32)
+    m32 = build_model(gcfg)
+    batch = train_batch(dc, EVAL_STEP0, device)
+    rows = batch["tokens"].numel()
+    lq = quantized_groups(cfg32, p32["lora"], gp["lora"], LoRAQuantConfig(
+        rho=0.9, bits_high=2, ste_steps=60))
+    ctrl = quantized_groups(cfg32, p32["lora"], gp["lora"], LoRAQuantConfig(
+        rho=0.9, bits_high=3, ste_steps=60))
+    want = {k: 2 * v for k, v in expected_launches(lq, rows).items()}
+    got_l, got_ce, counts = packed_eval(m32, gp, lq, batch, device)
+    if counts != want:
+        raise AssertionError(f"fp32 eval from codes launched {counts}, the "
+                             f"reference's rule gives {want}")
+    mat_l, mat_ce, mat_counts = packed_eval(m32, gp, materialized_tree(lq),
+                                            batch, device)
+    if mat_counts:
+        raise AssertionError(f"materialized eval launched {mat_counts}")
+    ctl_l, _, _ = packed_eval(m32, gp, ctrl, batch, device)
+    scale = float(mat_l.abs().max())
+    tol = LOGIT_RTOL * scale
+    gap = float((got_l - mat_l).abs().max())
+    moved = float((ctl_l - mat_l).abs().max())
+    if not torch.isfinite(got_l).all() or gap > tol:
+        raise AssertionError(f"eval from codes vs materialize: logits "
+                             f"differ by {gap:.3e} > {tol:.3e}")
+    if moved < CONTROL_MARGIN * tol:
+        raise AssertionError(f"the 3@0.9 control moves the logits by only "
+                             f"{moved:.3e} < {CONTROL_MARGIN} x {tol:.3e}")
+    log(f"eval from packed codes, fp32 at {cut} layers "
+        f"({time.perf_counter() - t0:.1f}s): {rows} rows, launches {counts} "
+        f"(forward + loss) == the reference's rule; logits max |diff| "
+        f"{gap:.3e} <= {tol:.3e} ({LOGIT_RTOL:g} x max|logit| {scale:.3e}); "
+        f"CE {got_ce:.6f} vs materialized {mat_ce:.6f}; the 3@0.9 control "
+        f"moves them by {moved:.3e}")
+    del p32, gp, lq, ctrl, got_l, mat_l, ctl_l, m32
+
+    # bf16, full depth: held-out CE from codes and materialized
+    t0 = time.perf_counter()
+    gcfg, gp = per_layer_groups(cfg, params)
+    mb = build_model(gcfg)
+    lq = quantized_groups(cfg, params["lora"], gp["lora"], LoRAQuantConfig(
+        rho=0.9, bits_high=2, ste_steps=60))
+    held = range(EVAL_STEP0, EVAL_STEP0 + EVAL_BATCHES)
+    per_batch = expected_launches(lq, rows)
+    reset_launch_counts()
+    ce_codes = mean_ce(mb, {"base": gp["base"], "lora": lq}, dc, held,
+                       device)
+    sync(device)
+    launches = launch_counts(device)
+    want = {k: v * EVAL_BATCHES for k, v in per_batch.items()}
+    if launches != want:
+        raise AssertionError(f"bf16 eval from codes launched {launches}, "
+                             f"want {want}")
+    ce_mat = mean_ce(mb, {"base": gp["base"],
+                          "lora": materialized_tree(lq)}, dc, held, device)
+    log(f"eval from packed codes, bf16 at {cfg.n_layers} layers "
+        f"({time.perf_counter() - t0:.1f}s): held-out CE from codes "
+        f"{ce_codes:.4f}, materialized {ce_mat:.4f}; launches {launches} "
+        f"({EVAL_BATCHES} forwards)")
+    return {"launches": launches, "ce_codes": ce_codes, "ce_mat": ce_mat,
+            "gap": gap}
+
+
+def train_phases(device="cuda", preset="full") -> dict:
+    """Phases 28-30 in order."""
+    import torch
+
+    t0 = time.perf_counter()
+    model, params, train = phase_train(device, preset)
+    log(f"train phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    table = phase_table1(model, params, train["dc"], device)
+    log(f"table1 phase {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    ev = phase_eval_packed(model, params, train["dc"], device)
+    log(f"eval-from-codes phase {time.perf_counter() - t0:.1f}s")
+    del model, params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"train": train, "table1": table, "eval": ev}
+
+
 def main() -> int:
     import torch
 
@@ -3134,6 +3744,9 @@ def main() -> int:
 
     # ---- 22-27. the dense variants ------------------------------------------
     dense = dense_phases()
+
+    # ---- 28-30. the LoRA train step, Table 1, eval from packed codes -------
+    train = train_phases()
     log(f"total {time.perf_counter() - t_start:.1f}s")
 
     # ---- summary -------------------------------------------------------------
@@ -3165,6 +3778,16 @@ def main() -> int:
                "ms": x["ms"], "plain_ms": x["plain_ms"],
                "bound_ms": x["bound_ms"]}
         for arch, x in dense["mix"].items()}
+    # phase 30: the trained adapter evaluated from its codes (bf16, full
+    # depth), the launches of the slice's main path
+    evl = train["eval"]["launches"]
+    fused_lora_entry = entry("fused_lora", 348, single["launches"],
+                             single_err["fused_lora"], mixes["fused_lora"])
+    fused_lora_entry["eval_launches"] = evl.get("fused_lora", 0)
+    pair = {n: entry(n, line, two_pass[n], single_err[n], mixes[n])
+            for n, line in (("matmul_rhs", 157), ("matmul_out", 204))}
+    for n, e in pair.items():
+        e["eval_launches"] = evl.get(n, 0)
     print(smi)
     print(json.dumps({"kernels": [
         fused,
@@ -3172,12 +3795,9 @@ def main() -> int:
               sgmv_err["sgmv_rhs"], sgmv_mixes["sgmv_rhs"]),
         entry("sgmv_out", 293, sgmv_apply_counts["sgmv_out"],
               sgmv_err["sgmv_out"], sgmv_mixes["sgmv_out"]),
-        entry("fused_lora", 348, single["launches"], single_err["fused_lora"],
-              mixes["fused_lora"]),
-        entry("matmul_rhs", 157, two_pass["matmul_rhs"],
-              single_err["matmul_rhs"], mixes["matmul_rhs"]),
-        entry("matmul_out", 204, two_pass["matmul_out"],
-              single_err["matmul_out"], mixes["matmul_out"]),
+        fused_lora_entry,
+        pair["matmul_rhs"],
+        pair["matmul_out"],
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""LoRAQuant core on PyTorch: quantizers, SVD split, STE refine, pipeline."""
+"""LoRAQuant core on PyTorch: quantizers, SVD split, STE refine, pipeline,
+the ablation variants and the Table-1 baselines."""
 
 from .quant import (
     GROUP_SIZE_DEFAULT,
@@ -34,6 +35,8 @@ from .loraquant import (
     quantize_lora_stack,
     quantize_lora_stacks,
 )
+from .ablations import quantize_lora_variant
+from . import baselines
 
 __all__ = [
     "GROUP_SIZE_DEFAULT",
@@ -65,4 +68,6 @@ __all__ = [
     "quantize_lora_pairs",
     "quantize_lora_stack",
     "quantize_lora_stacks",
+    "quantize_lora_variant",
+    "baselines",
 ]

@@ -26,6 +26,12 @@ An ``moe`` feed-forward has ``{"router": {"w"} (fp32), "experts": {"wg":
 ``"router"`` ``(L, r, ·)`` and ``"experts"`` ``{"wg": {"a", "b"}, ...}``
 ``(L, E, r, ·)``.
 
+Three execution modes, as in the reference: the sequence forward and
+training loss (:meth:`Model.forward`, :meth:`Model.train_loss`; autograd on,
+each layer optionally recomputed on the backward pass when ``remat``) and
+the prefill / decode-with-cache modes the serving engine drives (no
+autograd).
+
 A LoRA leaf may also be applied straight from packed codes: a
 layer-stacked :class:`~repro_torch.core.QuantizedLoRA` (one adapter for the
 whole batch; every array carries the leading ``(L,)`` axis and all layers
@@ -38,10 +44,12 @@ adapter index of the last two at ``lora["seg"]``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+import functools
+from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.core.loraquant import QuantizedLoRA
@@ -87,6 +95,9 @@ def _layer_slice(tree, i: int):
 @dataclasses.dataclass
 class Model:
     cfg: Any
+    # recompute each layer's activations on the backward pass (train
+    # memory: store only layer-boundary activations)
+    remat: bool = False
     # the attention algorithm: None picks blockwise above
     # ``attention.BLOCKWISE_THRESHOLD`` tokens, True / False force it
     force_blockwise: Any = None
@@ -165,14 +176,14 @@ class Model:
             scaling=self.scaling, force_blockwise=self.force_blockwise, **kw)
 
     def _run_ffn(self, kind, x, bparams, lparams):
-        """The feed-forward's output; an MoE's aux loss is computed and
-        dropped, as the reference's serve path drops it."""
+        """``(output, aux)``: an MoE's load-balance loss, 0 for a dense
+        feed-forward."""
         if kind == "moe":
             return ffn_mod.moe_ffn(x, bparams, lparams, self.cfg,
-                                   scaling=self.scaling)[0]
+                                   scaling=self.scaling)
         act = "gelu" if self.cfg.norm == "rmsnorm_plus1" else "silu"
         return ffn_mod.dense_ffn(x, bparams, lparams, activation=act,
-                                 scaling=self.scaling)
+                                 scaling=self.scaling), 0.0
 
     # ----- backbone -----
 
@@ -186,37 +197,60 @@ class Model:
             return {k: Model._attach_seg(v, seg) for k, v in group_lora.items()}
         return group_lora
 
+    def _layer(self, block, x, aux, lb, ll, sc, **kw):
+        """One layer's sub-blocks. Returns ``(x, aux)``, each sub-block's
+        MoE aux loss added to ``aux`` in order (the reference's scan
+        carry) unless ``aux`` is None."""
+        cfg = self.cfg
+        for j, (mk, fk) in enumerate(zip(block.pattern, block.ffn)):
+            sb, sl = lb[f"sub_{j}"], ll[f"sub_{j}"]
+            hin = apply_norm(x, sb["mixer_norm"], cfg.norm)
+            out = self._run_mixer(mk, hin, sb["mixer"], sl["mixer"],
+                                  cache=None if sc is None else sc[f"sub_{j}"],
+                                  **kw)
+            if cfg.post_norm:
+                out = apply_norm(out, sb["post_mixer_norm"], cfg.norm)
+            x = x + out
+            fin = apply_norm(x, sb["ffn_norm"], cfg.norm)
+            out, aux_j = self._run_ffn(fk, fin, sb["ffn"], sl["ffn"])
+            if cfg.post_norm:
+                out = apply_norm(out, sb["post_ffn_norm"], cfg.norm)
+            x = x + out
+            if aux is not None:
+                aux = aux + aux_j
+        return x, aux
+
     def _backbone(self, params, x, positions, caches, cache_pos,
                   pad_mask=None, valid_start=None):
         """Run all layers; ``caches`` (updated in place) is None in pure
-        sequence mode. Returns the final-normed hidden states."""
+        sequence mode. Returns ``(final-normed hidden states, aux)``: in
+        sequence mode aux is the MoE load-balance losses summed over layers
+        in order (an fp32 scalar); the cached serve modes drop it (None).
+        With ``remat`` and autograd on, each layer of a sequence forward
+        runs under ``torch.utils.checkpoint``."""
         cfg = self.cfg
         base, lora = params["base"], params["lora"]
         seg = lora.get("seg") if isinstance(lora, dict) else None
+        aux = (torch.zeros((), dtype=torch.float32, device=x.device)
+               if caches is None else None)
+        remat = (self.remat and caches is None and torch.is_grad_enabled())
+        kw = dict(positions=positions, cache_pos=cache_pos,
+                  valid_start=valid_start, pad_mask=pad_mask)
         for gi, block in enumerate(cfg.blocks):
             gb, gl = base["groups"][gi], lora["groups"][gi]
             if seg is not None:
                 gl = self._attach_seg(gl, seg)
             for li in range(block.count):
                 lb, ll = _layer_slice(gb, li), _layer_slice(gl, li)
-                for j, (mk, fk) in enumerate(zip(block.pattern, block.ffn)):
-                    sb, sl = lb[f"sub_{j}"], ll[f"sub_{j}"]
-                    sc = (None if caches is None
-                          else _layer_slice(caches[gi][f"sub_{j}"], li))
-                    hin = apply_norm(x, sb["mixer_norm"], cfg.norm)
-                    out = self._run_mixer(
-                        mk, hin, sb["mixer"], sl["mixer"],
-                        positions=positions, cache=sc, cache_pos=cache_pos,
-                        valid_start=valid_start, pad_mask=pad_mask)
-                    if cfg.post_norm:
-                        out = apply_norm(out, sb["post_mixer_norm"], cfg.norm)
-                    x = x + out
-                    fin = apply_norm(x, sb["ffn_norm"], cfg.norm)
-                    out = self._run_ffn(fk, fin, sb["ffn"], sl["ffn"])
-                    if cfg.post_norm:
-                        out = apply_norm(out, sb["post_ffn_norm"], cfg.norm)
-                    x = x + out
-        return apply_norm(x, base["final_norm"], cfg.norm)
+                sc = (None if caches is None
+                      else _layer_slice(caches[gi], li))
+                if remat:
+                    x, aux = checkpoint(
+                        functools.partial(self._layer, block, **kw),
+                        x, aux, lb, ll, sc, use_reentrant=False)
+                else:
+                    x, aux = self._layer(block, x, aux, lb, ll, sc, **kw)
+        return apply_norm(x, base["final_norm"], cfg.norm), aux
 
     # ----- embedding / unembedding -----
 
@@ -264,7 +298,55 @@ class Model:
             return pos[None].expand((3,) + tuple(pos.shape))
         return pos
 
+    def _positions(self, batch, t: int, b: int):
+        """``batch["positions"]`` if given, else ``0..T-1`` per row (the
+        three equal M-RoPE streams for ``mrope``)."""
+        if "positions" in batch:
+            return batch["positions"]
+        dev = batch["tokens"].device
+        return self._rope_streams(
+            torch.arange(t, device=dev)[None, :].expand(b, t))
+
     # ----- public API -----
+
+    def forward(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Sequence mode: full causal forward. Returns ``(logits, aux)``."""
+        x = self._embed(params["base"], batch)
+        b, t = x.shape[0], x.shape[1]
+        h, aux = self._backbone(params, x, self._positions(batch, t, b),
+                                None, None)
+        return self._logits(params["base"], h), aux
+
+    @staticmethod
+    def _ce(logits, targets) -> torch.Tensor:
+        """Mean fp32 cross-entropy over the targets ``>= 0``."""
+        lf = logits.to(torch.float32)
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = torch.gather(lf, -1, torch.clamp(targets, min=0).to(
+            torch.int64)[..., None])[..., 0]
+        mask = (targets >= 0).to(torch.float32)
+        return torch.sum((lse - gold) * mask) / torch.clamp(torch.sum(mask),
+                                                            min=1.0)
+
+    def train_loss(self, params, batch):
+        """``(loss, {"ce", "aux"})`` of a batch of ``tokens`` / ``targets``
+        (``(B, K, T)`` with codebooks, whose ``(B, K, T, V)`` logits go
+        into one CE); a vision stub's ``vision_embeds`` positions are
+        sliced off the logits before the CE. Autograd stays on."""
+        cfg = self.cfg
+        if getattr(cfg, "mtp", False):
+            raise NotImplementedError(
+                "the multi-token-prediction loss is not ported yet "
+                "(ROADMAP A6b, with deepseek)")
+        x = self._embed(params["base"], batch)
+        b, t = x.shape[0], x.shape[1]
+        h, aux = self._backbone(params, x, self._positions(batch, t, b),
+                                None, None)
+        logits = self._logits(params["base"], h)
+        if cfg.vision_stub and "vision_embeds" in batch:
+            logits = logits[:, batch["vision_embeds"].shape[1]:]
+        ce = self._ce(logits, batch["targets"])
+        return ce + aux, {"ce": ce, "aux": aux}
 
     @torch.no_grad()
     def prefill(self, params, batch, capacity: int):
@@ -291,8 +373,8 @@ class Model:
         else:
             positions = self._rope_streams(ar[None, :].expand(b, t))
         caches = self.init_cache(b, capacity, device=x.device)
-        h = self._backbone(params, x, positions, caches, 0,
-                           pad_mask=pad_mask)
+        h, _ = self._backbone(params, x, positions, caches, 0,
+                              pad_mask=pad_mask)
         return self._logits(params["base"], h), caches
 
     @torch.no_grad()
@@ -311,10 +393,10 @@ class Model:
                    else torch.as_tensor(start, device=x.device).to(
                        torch.int64).reshape(-1).expand(b))
         positions = self._rope_streams((pos_b - start_b)[:, None])
-        h = self._backbone(params, x, positions, caches, pos_b,
-                           valid_start=start_b)
+        h, _ = self._backbone(params, x, positions, caches, pos_b,
+                              valid_start=start_b)
         return self._logits(params["base"], h), caches
 
 
-def build_model(cfg) -> Model:
-    return Model(cfg)
+def build_model(cfg, remat: bool = False) -> Model:
+    return Model(cfg, remat=remat)
