@@ -152,7 +152,7 @@ Phases (a failure raises and the script exits non-zero):
     ``sgmv_fused`` per live pool per forward and no other kernel; a
     second bounded run (one engine step profiled) repeats the first's
     tokens and paging. This bounded run is the slice's main path.
-24. gemma2-2b fp32 at full depth: bounded continuous == materialize
+24. gemma2-2b fp32 at 8 layers: bounded continuous == materialize
     (tokens, logits within ``LOGIT_RTOL``) and the shifted-adapter
     control.
 25. gemma2-2b fp32, one local / global period: an 8704-token prompt (past
@@ -160,16 +160,16 @@ Phases (a failure raises and the script exits non-zero):
     layer's the whole prompt) and 4 decode steps, packed == materialize;
     then one gemma2 attention layer (soft-cap 50) at T = 8704: blockwise
     == plain within ``RTOL``, with and without the window.
-26. olmo-1b (16 layers), internlm2-20b (48) and qwen2-vl-72b (width full,
-    depth cut to 24) as in phase 23, and in fp32 as in phase 24 at 16, 8
-    and 2 layers. In bf16 their bounded tokens may part from the
+26. olmo-1b (16 layers), internlm2-20b (16 of 48) and qwen2-vl-72b (8
+    of 80), width full, as in phase 23, and in fp32 as in phase 24 at 8,
+    8 and 2 layers. In bf16 their bounded tokens may part from the
     all-resident ones (bf16 rounding of other prefill groups): the parted
     requests are reported, and the two runs' logits must stay within
     ``BF16_GAP_RTOL`` of max |logit| on the steps before they part.
-27. musicgen-medium at full width and depth (48 layers), fp32, at the
+27. musicgen-medium at full width, 16 of its 48 layers, fp32, at the
     model level (the engine cannot serve it: ROADMAP C8): 8 adapters as
     one ``PackedLoRABatch``, ``(16, 4, 32)`` prompts, prefill and 7 decode
-    steps: 48 x 7 launches per forward, frames and logits ``(16, 4, 32,
+    steps: 16 x 7 launches per forward, frames and logits ``(16, 4, 32,
     V)`` == materialize within ``LOGIT_RTOL``, a control; the serve driver
     refuses the arch.
 
@@ -200,6 +200,30 @@ Phases (a failure raises and the script exits non-zero):
     ``CONTROL_MARGIN`` tolerances, launches == the reference's rule; in
     bf16 at full depth both held-out CEs reported, and these launches
     are the ``eval_launches`` of the kernels line.
+31. deepseek kernel vs plain: ``sgmv_fused`` against ``sgmv_fused_ref``
+    (TF32 off) at the nine (K, M) of deepseek-v3-671b's LoRA linears (MLA's
+    ``wq_down`` / ``wq_up`` / ``wkv_down`` / ``wo``, the dense FFN, the
+    router's M = 256, the shared expert), 8 adapters of rank 16, group
+    128, bits 2 (timed) and 3 / 4 (checked), decode (tile_t 1, 16 rows)
+    and prefill (tile_t 8, 512 rows); bitwise repeats; the mix per launch
+    over a dense and over an MoE layer.
+32. MLA at full width, one layer, fp32: a prefill of 64 tokens and 8
+    absorbed decode steps (one row left-padded) equal the sequence forward
+    of all 72 tokens within ``RTOL``, and the cache holds its latents;
+    4096 tokens through the blockwise path equal the plain one.
+33. deepseek continuous serve, the slice's main path: full width cut to
+    3 dense + 2 MoE layers (int8 experts), bf16, phase 13's Zipf stream
+    all-resident and bounded to 4 slots: paging == ``ZIPF_BOUNDED``,
+    exactly 3 x 7 + 2 x 8 = 37 ``sgmv_fused`` per live pool per forward
+    and no other kernel, a second bounded run (one engine step profiled)
+    repeating tokens and paging; parted requests, tokens/s and peak
+    memory reported.
+34. deepseek fp32 parity, 1 dense + 1 MoE layer, capacity factor 32
+    (drop-free): bounded == all-resident == materialize in routing,
+    tokens, and logits within ``LOGIT_RTOL``; a shifted-adapter control.
+35. deepseek ``train_loss`` with the MTP head and its backward at full
+    width, 1 + 1 layers, bf16 base, fp32 LoRA, batch 2 x 128: finite
+    loss, CE, aux and MTP CE, finite LoRA gradients, no base gradient.
 
 The phases' total time is logged last. The last three lines are the card (nvidia-smi), a ``{"kernels": [...]}``
 summary and ``{"ok": true, "device": {...}}``.
@@ -373,6 +397,7 @@ def mix_line(name, x) -> str:
 
 
 LORA_KERNELS = ("sgmv_fused_kernel", "fused_lora_kernel")
+TOP_KERNELS = 6               # device kernels by time a profile keeps
 KERNELS = ("sgmv_fused", "sgmv_rhs", "sgmv_out", "fused_lora", "matmul_rhs",
            "matmul_out")
 
@@ -397,11 +422,13 @@ def profile_step(step):
         stop.record()
         torch.cuda.synchronize()
         window = (time.perf_counter() - t0) * 1e3
-    spans, lora, n_lora = [], 0.0, 0
+    spans, lora, n_lora, by_name = [], 0.0, 0, {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         spans.append((e.time_range.start, e.time_range.end))
+        t, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (t + e.time_range.end - e.time_range.start, n + 1)
         if any(n in e.name for n in LORA_KERNELS):
             lora += e.time_range.end - e.time_range.start
             n_lora += 1
@@ -418,9 +445,11 @@ def profile_step(step):
             busy += b - max(a, end)
             end = b
     total = sum(b - a for a, b in spans)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP_KERNELS]
     res.update(device_ms=busy / 1e3, lora_ms=lora / 1e3,
                other_ms=(total - lora) / 1e3, idle=1 - busy / 1e3 / window,
-               lora_launches=n_lora, kernels=len(spans))
+               lora_launches=n_lora, kernels=len(spans),
+               top=[(name[:60], t / 1e3, n) for name, (t, n) in top])
     return out, res
 
 
@@ -1265,7 +1294,8 @@ def count_forwards():
 
     def wrap(fn):
         def call(self, params, *a, **kw):
-            leaf = params["lora"]["groups"][0]["sub_0"]["mixer"]["wq"]
+            mixer = params["lora"]["groups"][0]["sub_0"]["mixer"]
+            leaf = next(iter(mixer.values()))
             seen.append(len(getattr(leaf, "buckets", (leaf,))))
             return fn(self, params, *a, **kw)
         return call
@@ -2057,11 +2087,11 @@ LONG_PROMPT = 8704     # past the window (4096) and BLOCKWISE_THRESHOLD (8192)
 LONG_NEW = 5           # the prefill's token and 4 decode steps
 
 
-def kernel_case(label, pb, x, seg_tiles, tile_t):
+def kernel_case(label, pb, x, seg_tiles, tile_t, timing=True):
     """``sgmv_fused`` against its plain version on one packed layer: the
     output's shape and finiteness, max |err| within ``RTOL`` x max |y|,
-    two launches bitwise equal; then its times and bound (:func:`timed`).
-    Returns ``(timings, err)``."""
+    two launches bitwise equal; then (with ``timing``) its times and bound
+    (:func:`timed`). Returns ``(timings or None, err)``."""
     import torch
     from repro_torch.kernels.quant_matmul import sgmv_fused, sgmv_fused_ref
     from repro_torch.launch.bench_kernels import packed_args
@@ -2083,6 +2113,9 @@ def kernel_case(label, pb, x, seg_tiles, tile_t):
     if not torch.equal(got, again):
         raise AssertionError(f"sgmv_fused {label}: two launches differ")
     del got, again, want
+    if not timing:
+        log(f"sgmv_fused {label} max|err|={err:.2e} (checked, not timed)")
+        return None, err
     return timed("sgmv_fused", label, sgmv_fused, args, kw, sgmv_fused_ref,
                  *bound(pb, x, seg_tiles, m), err), err
 
@@ -2236,14 +2269,73 @@ def routing_flips(a, b):
     return flips
 
 
+def bounded_serve(label, model, params, store, vocab, device, per_forward,
+                  keep_logits=False):
+    """Phase 13's Zipf stream (8 rows) through ``model``, all-resident and
+    bounded to ``CONT_SLOTS`` slots, then bounded again with one engine
+    step profiled: the reference's paging (``ZIPF_BOUNDED``: the schedule
+    depends on neither width nor depth), the pool at ``CONT_SLOTS`` pages,
+    exactly ``per_forward`` ``sgmv_fused`` per live pool per forward and
+    no other kernel (:func:`run_stream`), and the second bounded run
+    repeating the first's tokens and paging. Logs each run; returns the
+    requests of both first runs and the bounded run's numbers (its
+    launches are the path's)."""
+    ids, prompts = zipf_stream(vocab)
+    kw = dict(device=device, per_forward=per_forward,
+              keep_logits=keep_logits)
+    resident, r_res = run_stream(model, params, store, ids, prompts, vocab,
+                                 **kw)
+    bounded, r_bnd = run_stream(model, params, store, ids, prompts, vocab,
+                                slots=CONT_SLOTS, **kw)
+    eng = r_bnd["engine"]
+    mem = eng.memory_stats()
+    got = {k: mem[k] for k in ("hits", "misses", "evictions", "swap_ins")}
+    got.update({k: r_bnd["stats"][k]
+                for k in ("decode_steps", "admission_waves")})
+    if got != ZIPF_BOUNDED:
+        raise AssertionError(f"{label} bounded paging {got}, the "
+                             f"reference's {ZIPF_BOUNDED}")
+    page = eng.memory.page_bytes
+    if eng.memory.hbm_bytes() != CONT_SLOTS * page or mem["slots"] != 4:
+        raise AssertionError(f"{label} bounded pool holds "
+                             f"{eng.memory.hbm_bytes()} bytes, want "
+                             f"{CONT_SLOTS} x {page}")
+    again, r_again = run_stream(model, params, store, ids, prompts, vocab,
+                                slots=CONT_SLOTS, profile=device == "cuda",
+                                **kw)
+    same_tokens(bounded, again, f"{label} bounded serve, two runs")
+    if r_again["engine"].memory_stats() != mem:
+        raise AssertionError(f"{label} bounded serve: the second run paged "
+                             f"differently")
+    for name, r in (("all-resident", r_res), ("bounded", r_bnd)):
+        steps = sorted(r["step_s"])
+        m = r["engine"].memory_stats()
+        log(f"{label} continuous {name}: {r['tok_s']:.1f} tokens/s "
+            f"({N_REQ * MAX_NEW} tokens in {r['s']:.3f}s, "
+            f"{r['stats']['admission_waves']} prefill groups + "
+            f"{r['stats']['decode_steps']} decode steps, "
+            f"{r['counts']['sgmv_fused']} sgmv_fused launches = "
+            f"{per_forward} x {sum(r['forwards'])} forwards; engine step "
+            f"median {steps[len(steps) // 2] * 1e3:.1f} ms); "
+            f"{m['slots']} slots, page {page} bytes; hits {m['hits']}, "
+            f"misses {m['misses']}, evictions {m['evictions']}, swap-ins "
+            f"{m['swap_ins']} ({m['swap_in_bytes']} bytes)")
+    res = {"resident": resident, "bounded": bounded,
+           "launches": r_bnd["counts"]["sgmv_fused"], "page": page,
+           "tok_s": r_bnd["tok_s"], "tok_s_resident": r_res["tok_s"],
+           "parted": [r.request_id for r, q in zip(resident, bounded)
+                      if r.output.tolist() != q.output.tolist()]}
+    if device == "cuda":
+        res["window"] = r_again["window"]
+        log(window_line(f"{label} continuous bounded serve", res["window"],
+                        "engine-step"))
+    return res
+
+
 def phase_moe_continuous(device="cuda", preset="full"):
     """Phase 19: mixtral at full width, 8 layers, bf16, the ``2@0.9`` fleet
-    served continuously over the Zipf stream (8 rows), all-resident and
-    bounded to 4 slots: the reference's paging (``ZIPF_BOUNDED``: the
-    schedule does not depend on the model), exactly 8 layers x 8 LoRA
-    linears ``sgmv_fused`` per live pool per forward and no other kernel,
-    and a second bounded run (one engine step profiled) that repeats the
-    first's tokens and paging. The bounded run is the MoE main path whose
+    through :func:`bounded_serve` (8 layers x 8 LoRA linears per live
+    pool per forward). The bounded run is the MoE main path whose
     launches the summary reports. (Capacity drops and bf16 rounding depend
     on which requests share a prefill group, which the bound changes, as
     in the reference; so the all-resident tokens are reported against the
@@ -2263,95 +2355,46 @@ def phase_moe_continuous(device="cuda", preset="full"):
     log(f"MoE continuous phase: bf16 mixtral ({layers} layers, "
         f"{weights / 1e9:.2f} GB of base weights) and 8 adapters in "
         f"{time.perf_counter() - t0:.1f}s; stream {ids}")
-    kw = dict(device=device, per_forward=per_forward)
-    resident, r_res = run_stream(model, params, store, ids, prompts, vocab,
-                                 **kw)
-    bounded, r_bnd = run_stream(model, params, store, ids, prompts, vocab,
-                                slots=CONT_SLOTS, **kw)
-    eng = r_bnd["engine"]
-    mem = eng.memory_stats()
-    got = {k: mem[k] for k in ("hits", "misses", "evictions", "swap_ins")}
-    got.update({k: r_bnd["stats"][k]
-                for k in ("decode_steps", "admission_waves")})
-    if got != ZIPF_BOUNDED:
-        raise AssertionError(f"MoE bounded paging {got}, the reference's "
-                             f"{ZIPF_BOUNDED}")
-    page = eng.memory.page_bytes
-    if eng.memory.hbm_bytes() != CONT_SLOTS * page or mem["slots"] != 4:
-        raise AssertionError(f"MoE bounded pool holds "
-                             f"{eng.memory.hbm_bytes()} bytes, want "
-                             f"{CONT_SLOTS} x {page}")
-    again, r_again = run_stream(model, params, store, ids, prompts, vocab,
-                                slots=CONT_SLOTS, profile=device == "cuda",
-                                **kw)
-    same_tokens(bounded, again, "MoE bf16 bounded serve, two runs")
-    if r_again["engine"].memory_stats() != mem:
-        raise AssertionError("MoE bounded serve: the second run paged "
-                             "differently")
-    parted = [r.request_id for r, q in zip(resident, bounded)
-              if r.output.tolist() != q.output.tolist()]
+    res = bounded_serve("MoE bf16", model, params, store, vocab, device,
+                        per_forward)
     # the same pair without capacity drops (capacity factor n_experts):
     # what still parts is bf16 rounding of differently shaped prefill
     # groups, the rest was drops
     free = build_model(moe_config(torch.bfloat16, layers, preset,
                                   cf=float(model.cfg.moe.n_experts)))
+    kw = dict(device=device, per_forward=per_forward)
     free_res = run_stream(free, params, store, ids, prompts, vocab, **kw)[0]
     free_bnd = run_stream(free, params, store, ids, prompts, vocab,
                           slots=CONT_SLOTS, **kw)[0]
-    parted_free = [r.request_id for r, q in zip(free_res, free_bnd)
-                   if r.output.tolist() != q.output.tolist()]
-    del free, free_res, free_bnd
-    rmem = r_res["engine"].memory_stats()
-    for name, r, m in (("all-resident", r_res, rmem),
-                       ("bounded", r_bnd, mem)):
-        steps = sorted(r["step_s"])
-        log(f"MoE continuous bf16 {name}: {r['tok_s']:.1f} tokens/s "
-            f"({N_REQ * MAX_NEW} tokens in {r['s']:.3f}s, "
-            f"{r['stats']['admission_waves']} prefill groups + "
-            f"{r['stats']['decode_steps']} decode steps, "
-            f"{r['counts']['sgmv_fused']} sgmv_fused launches = "
-            f"{per_forward} x {sum(r['forwards'])} forwards; engine step "
-            f"median {steps[len(steps) // 2] * 1e3:.1f} ms); "
-            f"{m['slots']} slots, page {page} bytes; hits {m['hits']}, "
-            f"misses {m['misses']}, evictions {m['evictions']}, swap-ins "
-            f"{m['swap_ins']} ({m['swap_in_bytes']} bytes)")
-    log(f"MoE continuous bf16: the second bounded run repeats tokens and "
-        f"paging; requests whose tokens part from the all-resident "
-        f"serve's: {parted} (capacity factor "
-        f"{model.cfg.moe.capacity_factor:g}), {parted_free} without drops "
-        f"(capacity factor {model.cfg.moe.n_experts})")
-    if device == "cuda":
-        log(window_line("MoE continuous bounded serve", r_again["window"],
-                        "engine-step"))
-    res = {"launches": r_bnd["counts"]["sgmv_fused"], "page": page,
-           "parted": parted, "parted_free": parted_free,
-           "tok_s": r_bnd["tok_s"]}
-    del model, params, store, eng, r_res, r_bnd, r_again
+    res["parted_free"] = [r.request_id for r, q in zip(free_res, free_bnd)
+                          if r.output.tolist() != q.output.tolist()]
+    log(f"MoE continuous bf16: requests whose tokens part from the "
+        f"all-resident serve's: {res['parted']} (capacity factor "
+        f"{model.cfg.moe.capacity_factor:g}), {res['parted_free']} without "
+        f"drops (capacity factor {model.cfg.moe.n_experts})")
+    del model, params, store, free, free_res, free_bnd
     if device == "cuda":
         torch.cuda.empty_cache()
     return res
 
 
-def phase_moe_parity(device="cuda", preset="full"):
-    """Phase 20: mixtral at full width, 2 layers, fp32, capacity factor
-    n_experts (no drops: the reference defines cross-mode parity only
-    drop-free, since a drop depends on the batch): the bounded continuous
-    serve against the all-resident one and against materialize, identical
-    routing of every prompt at every layer, identical greedy tokens,
+def drop_free_parity(label, cfg, device, per_forward):
+    """A model of ``cfg`` (fp32, drop-free: the reference defines
+    cross-mode parity only without capacity drops, since a drop depends
+    on the batch) and phase 13's stream: the bounded continuous serve
+    against the all-resident one and against materialize, identical
+    routing of every prompt at every MoE layer, identical greedy tokens,
     logits within ``LOGIT_RTOL``, and a control in which every request
-    meets another adapter moving them by ``CONTROL_MARGIN`` tolerances."""
+    meets another adapter moving them by ``CONTROL_MARGIN`` tolerances.
+    Returns the largest gap, the tolerance and the peak memory."""
     import torch
-    from repro_torch.launch.bench_kernels import MOE_LINEARS
 
     t0 = time.perf_counter()
-    cfg = moe_config(torch.float32, MOE_PARITY_LAYERS, preset)
-    model, params, store = moe_fleet(torch.float32, MOE_PARITY_LAYERS,
-                                     device, preset,
-                                     cf=float(cfg.moe.n_experts))
-    vocab = cfg.vocab
-    ids, prompts = zipf_stream(vocab)
-    kw = dict(keep_logits=True, device=device,
-              per_forward=MOE_PARITY_LAYERS * len(MOE_LINEARS))
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    model, params, store = fleet_of(cfg, device)
+    ids, prompts = zipf_stream(cfg.vocab)
+    kw = dict(keep_logits=True, device=device, per_forward=per_forward)
     runs, routes = {}, {}
     for name, mode, slots, shift in (
             ("bounded", "continuous", CONT_SLOTS, 0),
@@ -2360,21 +2403,22 @@ def phase_moe_parity(device="cuda", preset="full"):
             ("control", "continuous", CONT_SLOTS, 1)):
         with record_routing() as calls:
             runs[name] = run_stream(model, params, store, ids, prompts,
-                                    vocab, slots=slots, mode=mode,
+                                    cfg.vocab, slots=slots, mode=mode,
                                     shift=shift, **kw)[0]
         routes[name] = prefill_routing(calls)
     for other in ("resident", "materialize"):
         same_tokens(runs["bounded"], runs[other],
-                    f"MoE fp32 bounded vs {other}")
+                    f"{label} fp32 bounded vs {other}")
         if routes[other].keys() != routes["bounded"].keys():
-            raise AssertionError(f"MoE fp32 {other}: other prompts routed")
+            raise AssertionError(f"{label} fp32 {other}: other prompts "
+                                 f"routed")
         flips = [f for key in routes["bounded"]
                  for f in routing_flips(routes["bounded"][key],
                                         routes[other][key])]
         if flips:
-            raise AssertionError(f"MoE fp32 bounded vs {other}: routing "
-                                 f"flips (layer, token, experts, experts, "
-                                 f"margin) {flips[:8]}")
+            raise AssertionError(f"{label} fp32 bounded vs {other}: "
+                                 f"routing flips (layer, token, experts, "
+                                 f"experts, margin) {flips[:8]}")
     n_layers = sorted({len(v) for v in routes["bounded"].values()})
     scale = max(float(abs(r.logits).max()) for r in runs["bounded"])
     tol = LOGIT_RTOL * scale
@@ -2382,27 +2426,46 @@ def phase_moe_parity(device="cuda", preset="full"):
             for o in ("resident", "materialize")}
     for o, gap in gaps.items():
         if max(gap.values()) > tol:
-            raise AssertionError(f"MoE fp32 bounded vs {o} logits differ by "
-                                 f"{gap} > {LOGIT_RTOL:g} x {scale:.3e}")
+            raise AssertionError(f"{label} fp32 bounded vs {o} logits "
+                                 f"differ by {gap} > {LOGIT_RTOL:g} x "
+                                 f"{scale:.3e}")
     moved = logit_gap(runs["bounded"], runs["control"])
     if min(moved.values()) < CONTROL_MARGIN * tol:
-        raise AssertionError(f"MoE: another adapter moves the logits by "
-                             f"only {moved}, under {CONTROL_MARGIN} x "
+        raise AssertionError(f"{label}: another adapter moves the logits "
+                             f"by only {moved}, under {CONTROL_MARGIN} x "
                              f"{tol:.3e}: the parity check is blind")
-    log(f"MoE fp32 parity {time.perf_counter() - t0:.1f}s: bounded "
-        f"({CONT_SLOTS} slots) == all-resident == materialize for all "
-        f"{N_REQ} requests; every prompt routed identically at its "
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if device == "cuda"
+            else None)
+    log(f"{label} fp32 parity (capacity factor "
+        f"{cfg.moe.capacity_factor:g}) {time.perf_counter() - t0:.1f}s: "
+        f"bounded ({CONT_SLOTS} slots) == all-resident == materialize for "
+        f"all {N_REQ} requests; every prompt routed identically at its "
         f"{n_layers} MoE layers ({len(routes['bounded'])} prompts); logits "
         f"max |diff| {max(gaps['resident'].values()):.3e} (resident), "
         f"{max(gaps['materialize'].values()):.3e} (materialize) <= "
         f"{tol:.3e} ({LOGIT_RTOL:g} x max|logit| {scale:.3e}); every "
         f"request meeting another adapter moves by "
-        f"{min(moved.values()):.3e} to {max(moved.values()):.3e}")
-    res = {"gap": max(max(g.values()) for g in gaps.values()), "tol": tol}
+        f"{min(moved.values()):.3e} to {max(moved.values()):.3e}"
+        + (f"; peak device memory {peak:.2f} GiB" if peak else ""))
+    res = {"gap": max(max(g.values()) for g in gaps.values()), "tol": tol,
+           "peak_gib": peak}
     del model, params, store, runs, routes
     if device == "cuda":
         torch.cuda.empty_cache()
     return res
+
+
+def phase_moe_parity(device="cuda", preset="full"):
+    """Phase 20: mixtral at full width, 2 layers, fp32, capacity factor
+    n_experts: :func:`drop_free_parity`."""
+    import torch
+    from repro_torch.launch.bench_kernels import MOE_LINEARS
+
+    n_experts = moe_config(torch.float32, 1, preset).moe.n_experts
+    cfg = moe_config(torch.float32, MOE_PARITY_LAYERS, preset,
+                     cf=float(n_experts))
+    return drop_free_parity("MoE", cfg, device,
+                            MOE_PARITY_LAYERS * len(MOE_LINEARS))
 
 
 def long_serve(model, params, store, prompt, mode, device):
@@ -2570,13 +2633,18 @@ def moe_phases() -> dict:
 
 DENSE_ARCHS = ("gemma2-2b", "olmo-1b", "internlm2-20b", "qwen2-vl-72b")
 MUSICGEN = "musicgen-medium"
-# depth on the card, full width: (bf16 serve, fp32 parity). qwen2-vl's 80
-# layers are 1.76 GB each in bf16 beside 5.0 GB of tables, so 24 fit the
-# 80 GB card; internlm2's 48 are 37.5 GB in bf16, 8 of them 12.5 GB in
-# fp32; qwen2-vl's 2 in fp32 are 7.0 GB beside 10.0 GB of tables. The CPU
-# rehearsal keeps each smoke config's own depth.
-DENSE_LAYERS = {"gemma2-2b": (26, 26), "olmo-1b": (16, 16),
-                "internlm2-20b": (48, 8), "qwen2-vl-72b": (24, 2)}
+# depth on the card, full width: (bf16 serve, fp32 parity). These paths
+# are host-bound (~110 launches per layer per forward), so their depth
+# sets their time, and the whole script has to stay inside its limit:
+# gemma2-2b's bf16 serve keeps its 26 layers (its tokens are held
+# bounded == all-resident), the rest are cut. qwen2-vl's 80 layers are
+# 1.76 GB each in bf16 beside 5.0 GB of tables (24 would fit the card);
+# internlm2's 48 are 37.5 GB in bf16; qwen2-vl's 2 in fp32 are 7.0 GB
+# beside 10.0 GB of tables. The CPU rehearsal keeps each smoke config's
+# own depth.
+DENSE_LAYERS = {"gemma2-2b": (26, 8), "olmo-1b": (16, 8),
+                "internlm2-20b": (16, 8), "qwen2-vl-72b": (8, 2)}
+MUSIC_LAYERS = 16              # of musicgen's 48, fp32, for time
 GEMMA_LONG_LAYERS = 2          # one local/global period
 # bf16 logits of the same requests served all-resident and bounded (other
 # prefill groups, so other matmul shapes and rounding) differ by ~1 % of
@@ -2662,13 +2730,9 @@ def comparable_gap(a, b) -> float:
 
 
 def phase_dense_serve(arch, device="cuda", preset="full"):
-    """Phases 23 and 26 (bf16): ``arch`` at full width served continuously
-    over phase 13's Zipf stream (8 adapters ``2@0.9``, 8 rows),
-    all-resident and bounded to 4 slots: the reference's paging
-    (``ZIPF_BOUNDED``), the pool at 4 pages, exactly one ``sgmv_fused`` per
-    LoRA linear per layer per live pool per forward and no other kernel,
-    and a second bounded run (one engine step profiled) that repeats the
-    first's tokens and paging. gemma2-2b's bounded tokens must equal the
+    """Phases 23 and 26 (bf16): ``arch`` at full width through
+    :func:`bounded_serve` (one ``sgmv_fused`` per LoRA linear per layer
+    per live pool per forward). gemma2-2b's bounded tokens must equal the
     all-resident ones; for the others, whose bf16 logits round
     differently in differently shaped prefill groups, the requests that
     part are reported, and the two runs' logits on the steps before they
@@ -2679,8 +2743,6 @@ def phase_dense_serve(arch, device="cuda", preset="full"):
     cfg = dense_config(arch, torch.bfloat16, dense_layers(arch, device)[0],
                        preset)
     layers = cfg.total_layers()
-    per_forward = layers * len(LINEARS)
-    ids, prompts = zipf_stream(cfg.vocab)
     t0 = time.perf_counter()
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
@@ -2693,67 +2755,24 @@ def phase_dense_serve(arch, device="cuda", preset="full"):
     log(f"{arch}: bf16 model ({layers} layers, {weights / 1e9:.2f} GB of "
         f"base weights) and 8 adapters in {time.perf_counter() - t0:.1f}s"
         f"{peak}")
-    kw = dict(device=device, per_forward=per_forward, keep_logits=True)
-    resident, r_res = run_stream(model, params, store, ids, prompts,
-                                 cfg.vocab, **kw)
-    bounded, r_bnd = run_stream(model, params, store, ids, prompts,
-                                cfg.vocab, slots=CONT_SLOTS, **kw)
-    parted = [r.request_id for r, q in zip(resident, bounded)
-              if r.output.tolist() != q.output.tolist()]
+    res = bounded_serve(f"{arch} bf16", model, params, store, cfg.vocab,
+                        device, layers * len(LINEARS), keep_logits=True)
+    resident, bounded = res.pop("resident"), res.pop("bounded")
     if arch == "gemma2-2b":
         same_tokens(resident, bounded,
                     f"{arch} bf16 bounded vs all-resident continuous")
-    eng = r_bnd["engine"]
-    mem = eng.memory_stats()
-    got = {k: mem[k] for k in ("hits", "misses", "evictions", "swap_ins")}
-    got.update({k: r_bnd["stats"][k]
-                for k in ("decode_steps", "admission_waves")})
-    if got != ZIPF_BOUNDED:
-        raise AssertionError(f"{arch} bounded paging {got}, the "
-                             f"reference's {ZIPF_BOUNDED}")
-    page = eng.memory.page_bytes
-    if eng.memory.hbm_bytes() != CONT_SLOTS * page or mem["slots"] != 4:
-        raise AssertionError(f"{arch} bounded pool holds "
-                             f"{eng.memory.hbm_bytes()} bytes, want "
-                             f"{CONT_SLOTS} x {page}")
-    again, r_again = run_stream(model, params, store, ids, prompts,
-                                cfg.vocab, slots=CONT_SLOTS,
-                                profile=device == "cuda", **kw)
-    same_tokens(bounded, again, f"{arch} bf16 bounded serve, two runs")
-    if r_again["engine"].memory_stats() != mem:
-        raise AssertionError(f"{arch} bounded serve: the second run paged "
-                             f"differently")
-    for name, r in (("all-resident", r_res), ("bounded", r_bnd)):
-        steps = sorted(r["step_s"])
-        m = r["engine"].memory_stats()
-        log(f"{arch} continuous bf16 {name}: {r['tok_s']:.1f} tokens/s "
-            f"({N_REQ * MAX_NEW} tokens in {r['s']:.3f}s, "
-            f"{r['stats']['admission_waves']} prefill groups + "
-            f"{r['stats']['decode_steps']} decode steps, "
-            f"{r['counts']['sgmv_fused']} sgmv_fused launches = "
-            f"{per_forward} x {sum(r['forwards'])} forwards; engine step "
-            f"median {steps[len(steps) // 2] * 1e3:.1f} ms); page {page} "
-            f"bytes; hits {m['hits']}, evictions {m['evictions']}")
     scale = max(float(abs(r.logits).max()) for r in resident)
     gap = comparable_gap(resident, bounded)
     if gap > BF16_GAP_RTOL * scale:
         raise AssertionError(f"{arch} bf16 all-resident vs bounded logits "
                              f"differ by {gap:.3e} > {BF16_GAP_RTOL:g} x "
                              f"{scale:.3e} before their tokens part")
-    log(f"{arch} continuous bf16: the second bounded run repeats tokens "
-        f"and paging; requests whose tokens part from the all-resident "
-        f"serve's: {parted}; bf16 logit gap of the two runs on the steps "
-        f"before they part {gap:.3e} ({gap / scale:.2e} of max|logit| "
-        f"{scale:.3e})")
-    res = {"launches": r_bnd["counts"]["sgmv_fused"], "page": page,
-           "layers": layers, "tok_s": r_bnd["tok_s"],
-           "tok_s_resident": r_res["tok_s"], "parted": parted,
-           "bf16_gap": gap / scale}
-    if device == "cuda":
-        log(window_line(f"{arch} continuous bounded serve",
-                        r_again["window"], "engine-step"))
-        res["window"] = r_again["window"]
-    del model, params, store, eng, r_res, r_bnd, r_again, resident, bounded
+    log(f"{arch} continuous bf16: requests whose tokens part from the "
+        f"all-resident serve's: {res['parted']}; bf16 logit gap of the two "
+        f"runs on the steps before they part {gap:.3e} ({gap / scale:.2e} "
+        f"of max|logit| {scale:.3e})")
+    res.update(layers=layers, bf16_gap=gap / scale)
+    del model, params, store, resident, bounded
     if device == "cuda":
         torch.cuda.empty_cache()
     return res
@@ -2828,10 +2847,10 @@ def music_greedy(model, base, lora_pre, lora_dec, prompts, device):
 
 
 def phase_musicgen(device="cuda", preset="full"):
-    """Phase 27: musicgen-medium at full width and depth (48 layers), fp32,
-    at the model level: 8 adapters ``2@0.9`` as one ``PackedLoRABatch``
+    """Phase 27: musicgen-medium at full width, ``MUSIC_LAYERS`` layers,
+    fp32, at the model level: 8 adapters ``2@0.9`` as one ``PackedLoRABatch``
     (row r meets adapter r mod 8), ``(16, 4, 32)`` prompts, prefill and 7
-    greedy decode steps of ``(16, 4, 1)`` frames: exactly 48 x 7
+    greedy decode steps of ``(16, 4, 1)`` frames: exactly L x 7
     ``sgmv_fused`` per forward; frames identical to materialize (each
     adapter's rows through its dequantized fp factors), the prefill logits
     ``(16, 4, 32, V)`` and every step's within ``LOGIT_RTOL``; a control
@@ -2846,7 +2865,8 @@ def phase_musicgen(device="cuda", preset="full"):
     from repro_torch.serving.engine import SEG_TILE
 
     t0 = time.perf_counter()
-    cfg = dense_config(MUSICGEN, torch.float32, None, preset)
+    cfg = dense_config(MUSICGEN, torch.float32,
+                       MUSIC_LAYERS if device == "cuda" else None, preset)
     model, params, store = fleet_of(cfg, device)
     base = params["base"]
     ids = [f"user_{i}" for i in range(N_ADAPTERS)]
@@ -3551,6 +3571,334 @@ def train_phases(device="cuda", preset="full") -> dict:
     return {"train": train, "table1": table, "eval": ev}
 
 
+# --------------------------------------------------------------------------
+# deepseek-v3-671b (phases 31-35)
+# --------------------------------------------------------------------------
+
+DS_ARCH = "deepseek-v3-671b"
+# Depth cut, full width, forced by memory: a dense layer is 1.17 GB in
+# bf16 (MLA 0.37 + FFN 0.79), an MoE layer 11.75 GB (256 x 3 int8 experts
+# of 7168 x 2048 = 11.27 GB, MLA, the shared expert, the router), the
+# embedding, head and MTP head 3.9 GB: the 61 layers' 58 x 11.27 = 654 GB
+# of int8 experts need ~9 cards. 3 dense + 2 MoE layers are ~31 GB
+# resident, with one 7.5 GB bf16 transient per expert matrix while it is
+# dequantized; the fp32 phases keep 1 + 1 (each dequantized fp32 matrix
+# is 15 GB). The CPU rehearsal keeps the smoke config's 1 + 2 for the
+# serve and cuts 1 + 1 as on the card.
+DS_LAYERS = {"cuda": (3, 2), "cpu": (1, 2)}
+DS_SMALL = (1, 1)
+DS_ATTN_T = 4096      # plain fp32 scores at full width: 8.6 GB (8704: 39 GB)
+DS_PREFILL, DS_DECODE = 64, 8       # phase 32's prefill and decode steps
+DS_TRAIN_BATCH, DS_TRAIN_SEQ = 2, 128
+
+
+def ds_linears(cfg):
+    """(K, M) of each LoRA linear of deepseek's dense and MoE layers."""
+    m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
+    mla = {"wq_down": (d, m.q_lora_rank),
+           "wq_up": (m.q_lora_rank, h * (m.nope_head_dim + m.rope_head_dim)),
+           "wkv_down": (d, m.kv_lora_rank), "wo": (h * m.v_head_dim, d)}
+    f = cfg.moe.d_ff_expert * cfg.moe.n_shared
+    dense = dict(mla, wg=(d, cfg.d_ff), wu=(d, cfg.d_ff), wd=(cfg.d_ff, d))
+    moe = dict(mla, router=(d, cfg.moe.n_experts), shared_wg=(d, f),
+               shared_wu=(d, f), shared_wd=(f, d))
+    return dense, moe
+
+
+def ds_config(dtype, layers=None, preset="full", cf=None):
+    """deepseek-v3-671b at full width (or the smoke preset) in ``dtype``,
+    cut to ``layers`` = (dense, MoE) layers (None keeps the config's);
+    ``cf`` replaces the capacity factor."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(DS_ARCH, preset)
+    moe = cfg.moe if cf is None else dataclasses.replace(
+        cfg.moe, capacity_factor=cf)
+    cfg = dataclasses.replace(cfg, dtype=dtype, moe=moe)
+    if layers is None:
+        return cfg
+    blocks = tuple(dataclasses.replace(b, count=n)
+                   for b, n in zip(cfg.blocks, layers))
+    return dataclasses.replace(cfg, n_layers=sum(layers), blocks=blocks)
+
+
+def ds_per_forward(cfg) -> int:
+    """``sgmv_fused`` launches per forward: one per LoRA linear per layer
+    (7 in a dense layer, 8 in an MoE layer)."""
+    dense, moe = ds_linears(cfg)
+    n_dense, n_moe = (b.count for b in cfg.blocks)
+    return n_dense * len(dense) + n_moe * len(moe)
+
+
+def phase_ds_kernel():
+    """Phase 31: ``sgmv_fused`` against its plain version (TF32 off) at
+    deepseek's nine (K, M), 8 adapters of rank 16 (mixed split h), group
+    128, bits 2 (timed) and 3 / 4 (checked), decode (tile_t 1, 16 rows)
+    and prefill (tile_t 8, 512 rows), x bf16; bitwise repeats. Returns
+    the bits-2 timings per case and the largest error."""
+    import torch
+    from repro_torch.launch.bench_kernels import packed_layer, seg_for
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1357)
+    dense, moe = ds_linears(ds_config(torch.bfloat16))
+    shapes = sorted(set(dense.values()) | set(moe.values()))
+    timings, max_err = {}, 0.0
+    for k, m in shapes:
+        for bits in (2, 3, 4):
+            pb = packed_layer(k, m, bits, 128, N_ADAPTERS, seed=k + m + bits)
+            for phase, (tile_t, rows) in PHASES.items():
+                x = torch.randn(rows, k, generator=gen,
+                                device="cuda").to(torch.bfloat16)
+                t, err = kernel_case(
+                    f"deepseek K={k:5d} M={m:5d} bits={bits} {phase:7s} "
+                    f"T={rows:3d} tile_t {tile_t}", pb, x, seg_for(phase),
+                    tile_t, timing=bits == 2)
+                if bits == 2:
+                    timings[(k, m), phase] = t
+                max_err = max(max_err, err)
+            del pb
+    return timings, max_err
+
+
+def phase_mla(device="cuda", preset="full"):
+    """Phase 32: one MLA layer at full width in fp32, random weights.
+    Two rows (the second left-padded by 3) prefilled with ``DS_PREFILL``
+    tokens and decoded ``DS_DECODE`` steps through the absorbed decode
+    equal the sequence-mode forward of all the tokens at their real
+    positions, within ``RTOL`` of max |out|, and the cache holds the
+    sequence's latents (the reference's ``test_decode_matches_forward`` at
+    full width). Then ``DS_ATTN_T`` tokens through the blockwise path
+    equal the plain one within ``RTOL``."""
+    import torch
+    from repro_torch.models import attention as attn_mod
+
+    cfg = ds_config(torch.float32, preset=preset)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(11)
+    base, _ = attn_mod.init_mla(gen, cfg, None, 1)
+    base = {k: {"w": v["w"][0]} for k, v in base.items()}
+    tp, total = DS_PREFILL, DS_PREFILL + DS_DECODE
+    x = torch.randn((2, total, cfg.d_model), generator=gen, device=device)
+    start = torch.tensor([0, 3], device=device)
+    ar = torch.arange(total, device=device)
+    pad = ar[None, :] >= start[:, None]
+    pos = torch.clamp(ar[None, :] - start[:, None], min=0)
+    t0 = time.perf_counter()
+    seq = attn_mod.mla_attention(x, base, None, cfg, positions=pos,
+                                 pad_mask=pad)
+    cache = {k: v[0] for k, v in attn_mod.init_mla_cache(
+        cfg, 2, total, torch.float32, device, count=1).items()}
+    pre = attn_mod.mla_attention(x[:, :tp], base, None, cfg,
+                                 positions=pos[:, :tp], cache=cache,
+                                 cache_pos=0, pad_mask=pad[:, :tp])
+    dec = torch.cat([attn_mod.mla_attention(
+        x[:, i:i + 1], base, None, cfg, positions=pos[:, i:i + 1],
+        cache=cache, cache_pos=torch.full((2,), i, device=device),
+        valid_start=start) for i in range(tp, total)], dim=1)
+    sync(device)
+    dt = time.perf_counter() - t0
+    mag = seq.abs().max().item()
+    err_pre = max((pre[b, int(start[b]):] - seq[b, int(start[b]):tp])
+                  .abs().max().item() for b in range(2))
+    err_dec = (dec - seq[:, tp:]).abs().max().item()
+    latent = attn_mod.rmsnorm(x @ base["wkv_down"]["w"],
+                              base["kv_norm"]["w"])
+    err_c = (cache["c"] - latent).abs().max().item()
+    if (not torch.isfinite(dec).all()
+            or max(err_pre, err_dec) > RTOL * mag
+            or err_c > RTOL * latent.abs().max().item()):
+        raise AssertionError(f"MLA full width: prefill {err_pre:.3e}, "
+                             f"absorbed decode {err_dec:.3e}, cache "
+                             f"{err_c:.3e} vs {RTOL:g} x {mag:.3e}")
+    log(f"MLA ({cfg.n_heads} heads, ranks {cfg.mla.q_lora_rank} / "
+        f"{cfg.mla.kv_lora_rank}) fp32: prefill {tp} + {DS_DECODE} "
+        f"absorbed decode steps == the sequence forward of {total} tokens "
+        f"(row 1 left-padded by 3): max |err| prefill {err_pre:.3e}, decode "
+        f"{err_dec:.3e} <= {RTOL:g} x {mag:.3e}; latent cache {err_c:.3e}; "
+        f"{dt:.2f}s host wall")
+    del x, seq, pre, dec, cache
+    full = preset == "full"
+    n = DS_ATTN_T if full else 40
+    chunk = attn_mod.KV_CHUNK if full else 16
+    xl = torch.randn((1, n, cfg.d_model), generator=gen, device=device)
+    posl = torch.arange(n, device=device)[None]
+    outs, times = {}, {}
+    for name, force in (("plain", False), ("blockwise", True)):
+        sync(device)
+        t1 = time.perf_counter()
+        outs[name] = attn_mod.mla_attention(
+            xl, base, None, cfg, positions=posl, force_blockwise=force,
+            kv_chunk=chunk)
+        sync(device)
+        times[name] = time.perf_counter() - t1
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    err = (outs["blockwise"] - outs["plain"]).abs().max().item()
+    mag_l = outs["plain"].abs().max().item()
+    if not torch.isfinite(outs["blockwise"]).all() or err > RTOL * mag_l:
+        raise AssertionError(f"MLA blockwise vs plain at T={n}: max |err| "
+                             f"{err:.3e} > {RTOL:g} x {mag_l:.3e}")
+    log(f"MLA T={n} fp32: blockwise == plain within {err:.3e} (<= "
+        f"{RTOL:g} x {mag_l:.3e}); plain {times['plain'] * 1e3:.1f} ms, "
+        f"blockwise {times['blockwise'] * 1e3:.1f} ms (host wall, first "
+        f"calls)")
+    del xl, outs
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"decode_err": err_dec, "prefill_err": err_pre, "tol": RTOL * mag,
+            "attn_err": err, "attn_tol": RTOL * mag_l}
+
+
+def phase_ds_serve(device="cuda", preset="full"):
+    """Phase 33, the slice's main path: deepseek at full width, 3 dense +
+    2 MoE layers, bf16, the ``2@0.9`` fleet through :func:`bounded_serve`
+    (3 x 7 + 2 x 8 = 37 ``sgmv_fused`` per live pool per forward). The
+    requests whose all-resident tokens part from the bounded ones are
+    reported, with the two runs' logit gap on the steps before they part
+    (capacity drops and bf16 rounding depend on the prefill groups), and
+    the profiled step's device time by kernel."""
+    import torch
+
+    cfg = ds_config(torch.bfloat16, DS_LAYERS[device], preset)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, params, store = fleet_of(cfg, device)
+    sync(device)
+    weights = sum(t.nbytes for t in iter_tensors(params["base"]))
+    log(f"deepseek serve phase: bf16 model ({cfg.blocks[0].count} dense + "
+        f"{cfg.blocks[1].count} MoE layers, {weights / 1e9:.2f} GB of base "
+        f"weights) and 8 adapters in {time.perf_counter() - t0:.1f}s")
+    res = bounded_serve("deepseek bf16", model, params, store, cfg.vocab,
+                        device, ds_per_forward(cfg), keep_logits=True)
+    resident, bounded = res.pop("resident"), res.pop("bounded")
+    scale = max(float(abs(r.logits).max()) for r in resident)
+    gap = comparable_gap(resident, bounded)
+    res.update(bf16_gap=gap / scale, peak_gib=(
+        torch.cuda.max_memory_allocated() / 2**30 if device == "cuda"
+        else None))
+    log(f"deepseek continuous bf16: requests whose tokens part from the "
+        f"all-resident serve's: {res['parted']}; logit gap on the steps "
+        f"before they part {gap:.3e} ({gap / scale:.2e} of max|logit| "
+        f"{scale:.3e})" + (f"; peak device memory {res['peak_gib']:.2f} "
+                           f"GiB" if device == "cuda" else ""))
+    if device == "cuda":
+        log("deepseek engine step, device time by kernel: " + "; ".join(
+            f"{name} {ms:.3f} ms x {n}"
+            for name, ms, n in res["window"]["window"].get("top", [])))
+    del model, params, store, resident, bounded
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_ds_parity(device="cuda", preset="full"):
+    """Phase 34: deepseek at full width, 1 dense + 1 MoE layer, fp32,
+    capacity factor E / top_k = 32 (every expert can take every token):
+    :func:`drop_free_parity`."""
+    import torch
+
+    mc = ds_config(torch.float32, preset=preset).moe
+    cfg = ds_config(torch.float32, DS_SMALL, preset,
+                    cf=float(mc.n_experts // mc.top_k))
+    return drop_free_parity("deepseek (1 + 1 layers)", cfg, device,
+                            ds_per_forward(cfg))
+
+
+def phase_ds_train(device="cuda", preset="full"):
+    """Phase 35: deepseek's ``train_loss`` with the MTP head and its
+    backward at full width, 1 dense + 1 MoE layer, bf16 frozen base (int8
+    experts), fp32 LoRA (a random trained-looking adapter), a batch of
+    ``DS_TRAIN_BATCH`` x ``DS_TRAIN_SEQ`` tokens: the loss and its CE,
+    aux and MTP parts finite, every LoRA gradient finite and not all
+    zero, no gradient on any base leaf."""
+    import math
+
+    import torch
+    from repro_torch.launch.serve import random_trained_lora
+    from repro_torch.models import build_model
+
+    t0 = time.perf_counter()
+    cfg = ds_config(torch.bfloat16, DS_SMALL, preset)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    params = model.init(seed=0, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(3)
+    lora = random_trained_lora(params["lora"], gen)
+    leaves = list(iter_tensors(lora))
+    for t in leaves:
+        t.requires_grad_(True)
+    toks = torch.randint(0, cfg.vocab, (DS_TRAIN_BATCH, DS_TRAIN_SEQ + 1),
+                         generator=gen, device=device)
+    sync(device)
+    t1 = time.perf_counter()
+    loss, parts = model.train_loss(
+        {"base": params["base"], "lora": lora},
+        {"tokens": toks[:, :-1], "targets": toks[:, 1:]})
+    loss.backward()
+    sync(device)
+    dt = time.perf_counter() - t1
+    vals = {"loss": loss.item(), "ce": parts["ce"].item(),
+            "aux": parts["aux"].item()}
+    vals["mtp_ce"] = (vals["loss"] - vals["ce"] - vals["aux"]) / 0.3
+    grads = [t.grad for t in leaves]
+    if (not all(math.isfinite(v) for v in vals.values())
+            or any(g is None or not torch.isfinite(g).all() for g in grads)
+            or not any(g.abs().max().item() > 0 for g in grads)):
+        raise AssertionError(f"deepseek train_loss {vals}: a LoRA gradient "
+                             f"is missing, not finite, or all are 0")
+    based = [t for t in iter_tensors(params["base"])
+             if t.requires_grad or t.grad is not None]
+    if based:
+        raise AssertionError(f"{len(based)} base leaves carry gradients")
+    gnorm = math.sqrt(sum(float((g.float() ** 2).sum()) for g in grads))
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if device == "cuda"
+            else None)
+    log(f"deepseek train_loss + backward ({cfg.blocks[0].count} + "
+        f"{cfg.blocks[1].count} layers, bf16 base, batch {DS_TRAIN_BATCH} x "
+        f"{DS_TRAIN_SEQ}) in {dt:.2f}s: loss {vals['loss']:.4f} = CE "
+        f"{vals['ce']:.4f} + aux {vals['aux']:.5f} + 0.3 x MTP CE "
+        f"{vals['mtp_ce']:.4f}; {len(leaves)} LoRA leaves, grad norm "
+        f"{gnorm:.4e}, no base gradient"
+        + (f"; peak device memory {peak:.2f} GiB" if peak else "")
+        + f"; phase {time.perf_counter() - t0:.1f}s")
+    vals.update(grad_norm=gnorm, peak_gib=peak, s=dt)
+    del model, params, lora, leaves, grads, loss, parts
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return vals
+
+
+def deepseek_phases() -> dict:
+    """Phases 31-35 in order; returns the kernel's error at deepseek's
+    shapes, its mix per launch over a dense and an MoE layer, and each
+    phase's numbers (phase 33's bounded serve is the slice's main
+    path)."""
+    import torch
+
+    t0 = time.perf_counter()
+    timings, max_err = phase_ds_kernel()
+    dense, moe = ds_linears(ds_config(torch.bfloat16))
+    mixes = {"dense": main_path_mix(timings, dense),
+             "moe": main_path_mix(timings, moe)}
+    log(f"deepseek kernel phase {time.perf_counter() - t0:.1f}s; "
+        + "; ".join(mix_line(f"sgmv_fused deepseek {n}-layer main-path", x)
+                    for n, x in mixes.items()))
+    out = {"max_err": max_err, "mix": mixes}
+    for name, fn in (("mla", phase_mla), ("serve", phase_ds_serve),
+                     ("parity", phase_ds_parity), ("train", phase_ds_train)):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        log(f"deepseek {name} phase {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3747,6 +4095,9 @@ def main() -> int:
 
     # ---- 28-30. the LoRA train step, Table 1, eval from packed codes -------
     train = train_phases()
+
+    # ---- 31-35. deepseek-v3-671b: kernel, MLA, serve, parity, MTP loss ----
+    ds = deepseek_phases()
     log(f"total {time.perf_counter() - t_start:.1f}s")
 
     # ---- summary -------------------------------------------------------------
@@ -3762,7 +4113,7 @@ def main() -> int:
 
     fused = entry("sgmv_fused", 481, cont["launches"],
                   max(max_err, sgmv_err["sgmv_fused"], moe["max_err"],
-                      dense["max_err"]),
+                      dense["max_err"], ds["max_err"]),
                   fused_mix)
     # the MoE main path (phase 19's bounded serve) and the kernel's mix
     # per launch over mixtral's linears (phase 18)
@@ -3778,6 +4129,12 @@ def main() -> int:
                "ms": x["ms"], "plain_ms": x["plain_ms"],
                "bound_ms": x["bound_ms"]}
         for arch, x in dense["mix"].items()}
+    # deepseek: the slice's main path (phase 33's bounded serve) and the
+    # kernel's mix per launch over a dense and an MoE layer (phase 31)
+    fused["deepseek"] = {
+        "launches": ds["serve"]["launches"],
+        **{f"{kind}_{key}": x[key] for kind, x in ds["mix"].items()
+           for key in ("ms", "plain_ms", "bound_ms")}}
     # phase 30: the trained adapter evaluated from its codes (bf16, full
     # depth), the launches of the slice's main path
     evl = train["eval"]["launches"]

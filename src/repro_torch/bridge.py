@@ -9,8 +9,10 @@ imports neither JAX nor ``repro``; the tests hand it JAX objects (or their
 Covered: nested-dict parameter trees with stacked ``(L, ...)`` leaves
 (``repro/models/model.py``; an MoE layer's expert stacks ``(L, E, ·, ·)``,
 its fp32 router and per-expert LoRA ``(L, E, r, ·)`` keep their shapes
-and dtypes; the dense variants' empty ``{}`` norms, post-block norms and
-stacked ``(K, V, d)`` codebook tables come across as they are),
+and dtypes, as do deepseek's int8 expert codes with their fp32 ``(L, E, 1,
+·)`` scales, its MLA leaves and its ``mtp`` head; the dense variants'
+empty ``{}`` norms, post-block norms and stacked ``(K, V, d)`` codebook
+tables come across as they are),
 ``QuantizedTensor``, ``QuantizedLoRA`` (one
 layer's, or layer-stacked with a leading ``(L,)`` on every array, which
 the arrays keep), trees whose leaves are ``QuantizedLoRA``, and the serving

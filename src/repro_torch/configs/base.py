@@ -6,10 +6,12 @@ identical blocks whose params are stacked ``(L, ...)``; an alternating
 pattern such as gemma2's local/global attention is one group whose block
 holds one period). The port serves the dense GQA family and its variants
 (gemma2's soft-caps and post-norms, olmo's non-parametric LayerNorm,
-qwen2-vl's M-RoPE and vision prefix, musicgen's codebooks) and the
-sparse-MoE family with sliding-window attention (mixtral); ``get_config``
-raises ``NotImplementedError`` for the architectures whose layers are not
-ported yet.
+qwen2-vl's M-RoPE and vision prefix, musicgen's codebooks), the
+sparse-MoE family with sliding-window attention (mixtral) and deepseek's
+multi-head latent attention with a shared expert, an int8 frozen expert
+base and the multi-token-prediction loss; ``get_config`` raises
+``NotImplementedError`` for the recurrent architectures, whose layers are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -31,6 +33,16 @@ class MoEConfig:
     router_noise: float = 0.0
     lora_on_experts: bool = True
     aux_loss_weight: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V3 multi-head latent attention dims."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    rope_head_dim: int = 64
+    nope_head_dim: int = 128
+    v_head_dim: int = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,12 +76,18 @@ class ModelConfig:
     logit_softcap: Optional[float] = None
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    mtp: bool = False                # deepseek multi-token prediction head
     n_codebooks: int = 0             # musicgen: EnCodec codebooks
     vision_stub: bool = False        # qwen2-vl: precomputed patch embeds
     lora_rank: int = 16
     lora_alpha: float = 32.0
     dtype: Any = torch.bfloat16
     lora_dtype: Any = torch.float32
+    # frozen-base weight quantization of the MoE expert stacks: None | 8
+    # (per-(expert, out-column) symmetric int8 codes and fp32 scales,
+    # dequantized on the fly)
+    base_quant_bits: Any = None
     subquadratic: bool = False       # can run long_500k
 
     @property
@@ -85,12 +103,12 @@ def default_blocks(n_layers: int) -> Tuple[BlockSpec, ...]:
 
 
 ARCH_IDS = ("llama3.2-3b", "internlm2-20b", "gemma2-2b", "olmo-1b",
-            "mixtral-8x22b", "musicgen-medium", "qwen2-vl-72b")
+            "mixtral-8x22b", "deepseek-v3-671b", "musicgen-medium",
+            "qwen2-vl-72b")
 
 # Architectures of the JAX package whose layers the port does not have yet,
 # with the ROADMAP item that ports them.
 _NOT_PORTED = {
-    "deepseek-v3-671b": "A6b (MLA and the int8 frozen base)",
     "rwkv6-1.6b": "A6c (RWKV6 and RG-LRU)",
     "recurrentgemma-2b": "A6c (RWKV6 and RG-LRU)",
 }

@@ -12,12 +12,16 @@ variants ``gemma2-2b`` (local/global attention, soft-caps, post-norms),
 ``olmo-1b`` (non-parametric LayerNorm), ``internlm2-20b`` and
 ``qwen2-vl-72b`` (M-RoPE; text only, as the reference serves it), or
 ``mixtral-8x22b`` (sparse MoE, 8 experts top-2, per-expert LoRA served
-straight from packed codes, sliding-window attention); ``--preset smoke``
-is each one's small configuration. At ``--preset full`` mixtral's 56
-layers (~140 GB in bf16) and qwen2-vl's 80 (~146 GB) do not fit one 80 GB
-card. ``musicgen-medium`` is refused: its model takes ``(B, 4, T)``
-codebook tokens, the engine hands it ``(B, T)`` and the reference's serve
-crashes there (ROADMAP C8); it runs at the model level only.
+straight from packed codes, sliding-window attention) or
+``deepseek-v3-671b`` (multi-head latent attention with an absorbed
+decode, 256 int8 experts top-8 and a shared expert; LoRA on attention,
+the dense FFN, the router and the shared expert); ``--preset smoke`` is
+each one's small configuration. At ``--preset full`` mixtral's 56 layers
+(~140 GB in bf16), qwen2-vl's 80 (~146 GB) and deepseek's 61 (~660 GB of
+int8 experts) do not fit one 80 GB card. ``musicgen-medium`` is refused:
+its model takes ``(B, 4, T)`` codebook tokens, the engine hands it ``(B,
+T)`` and the reference's serve crashes there (ROADMAP C8); it runs at the
+model level only.
 
 ``--slots`` bounds the device slot pools of the paged adapter memory to
 that many adapters, ``--hbm-budget`` to that many MB at each recipe's real

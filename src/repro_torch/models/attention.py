@@ -1,4 +1,6 @@
-"""GQA attention (port of the GQA half of ``repro/models/attention.py``).
+"""Attention (port of ``repro/models/attention.py``): GQA (full or
+sliding-window, optional soft-cap) and DeepSeek-V3's multi-head latent
+attention (MLA) with its compressed KV cache.
 
 Two modes, as in the JAX package:
 
@@ -20,7 +22,13 @@ which saves a copy of the whole cache per layer and step.
 
 Rotary positions are standard RoPE, qwen2-vl's M-RoPE (``positions: (3, B,
 T)``) or none, as ``cfg.rope`` says; gemma2 soft-caps the fp32 scores
-(``cfg.attn_softcap``) before the mask. Not ported yet: MLA (ROADMAP A6b).
+(``cfg.attn_softcap``) before the mask.
+
+MLA (:func:`mla_attention`) caches one compressed latent ``c`` and one
+shared rotary key ``kr`` per token. Its sequence mode decompresses them
+into per-head keys and values; its decode attends in the compressed space
+with the key and value up-projections absorbed into the query and the
+context. Its cache is linear, not a ring: slot index == padded index.
 """
 
 from __future__ import annotations
@@ -30,7 +38,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from .common import apply_mrope, apply_rope, init_linear, init_lora, linear
+from .common import (apply_mrope, apply_rope, init_linear, init_lora, linear,
+                     rmsnorm)
 
 Params = Dict[str, Any]
 
@@ -78,9 +87,10 @@ def _pad_key_mask(pad_mask: torch.Tensor, extra_dims: int) -> torch.Tensor:
 
 
 def _sdpa(q, k, v, mask, cap: Optional[float] = None) -> torch.Tensor:
-    """q: (B,T,H,dh), k/v: (B,S,KV,dh) with H = KV·G. fp32 softmax of the
-    scaled scores, soft-capped by ``cap`` before the mask; the
-    probabilities are cast to ``v``'s dtype before the value product."""
+    """q, k: (B,T,H,dh), (B,S,KV,dh) with H = KV·G; v: (B,S,KV,dv). fp32
+    softmax of the scores scaled by 1/√dh, soft-capped by ``cap`` before
+    the mask; the probabilities are cast to ``v``'s dtype before the value
+    product. Returns (B, T, H·dv)."""
     b, t, h, dh = q.shape
     kvh = k.shape[2]
     g = h // kvh
@@ -92,7 +102,17 @@ def _sdpa(q, k, v, mask, cap: Optional[float] = None) -> torch.Tensor:
     scores = scores + mask
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgts,bskd->btkgd", probs, v)
-    return out.reshape(b, t, h * dh)
+    return out.reshape(b, t, -1)
+
+
+def _row_positions(cache_pos, valid_start, b: int, device):
+    """Per-row ``(B,)`` int64 cache index of the incoming token and first
+    real cache index (0 without ``valid_start``)."""
+    pos = cache_pos.to(torch.int64).reshape(-1).expand(b)
+    start = (torch.zeros((b,), dtype=torch.int64, device=device)
+             if valid_start is None
+             else valid_start.to(torch.int64).reshape(-1).expand(b))
+    return pos, start
 
 
 def _sdpa_blockwise(q, k, v, offset: int, window: Optional[int],
@@ -192,10 +212,7 @@ def gqa_attention(
         # Pad slots (p' < valid_start) and stale slots of a previous
         # occupant (p' < 0) are masked; the window is free (cap ≤ window).
         cap = cache["k"].shape[1]
-        pos_b = cache_pos.to(torch.int64).reshape(-1).expand(b)
-        start_b = (torch.zeros((b,), dtype=torch.int64, device=x.device)
-                   if valid_start is None
-                   else valid_start.to(torch.int64).reshape(-1).expand(b))
+        pos_b, start_b = _row_positions(cache_pos, valid_start, b, x.device)
         slot = torch.remainder(pos_b, cap)
         rows = torch.arange(b, device=x.device)
         cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
@@ -236,3 +253,148 @@ def init_gqa_cache(cfg, batch: int, capacity: int, dtype, device,
     shape = (count, batch, capacity, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V3)
+# --------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, cfg, lora_rank: Optional[int],
+             count: int):
+    """Stacked ``(count, ...)`` MLA params: the query's low-rank pair
+    ``wq_down`` / ``wq_up`` with ``q_norm`` between them, the KV latent's
+    ``wkv_down`` and ``kv_norm``, the shared rotary key ``wk_rope``, the
+    up-projections ``wk_up`` / ``wv_up`` and ``wo``; LoRA on ``wq_down``,
+    ``wq_up``, ``wkv_down`` and ``wo``."""
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    qd = m.nope_head_dim + m.rope_head_dim
+    lead = (count,)
+    shapes = {"wq_down": (d, m.q_lora_rank),
+              "wq_up": (m.q_lora_rank, h * qd),
+              "wkv_down": (d, m.kv_lora_rank),
+              "wk_rope": (d, m.rope_head_dim),
+              "wk_up": (m.kv_lora_rank, h * m.nope_head_dim),
+              "wv_up": (m.kv_lora_rank, h * m.v_head_dim),
+              "wo": (h * m.v_head_dim, d)}
+    base = {n: init_linear(gen, i, o, cfg.dtype, lead)
+            for n, (i, o) in shapes.items()}
+    for name, width in (("q_norm", m.q_lora_rank),
+                        ("kv_norm", m.kv_lora_rank)):
+        base[name] = {"w": torch.ones(lead + (width,), dtype=torch.float32,
+                                      device=gen.device)}
+    lora = None
+    if lora_rank is not None:
+        lora = {n: init_lora(gen, *shapes[n], lora_rank, cfg.lora_dtype,
+                             lead)
+                for n in ("wq_down", "wq_up", "wkv_down", "wo")}
+    return base, lora
+
+
+def mla_attention(
+    x: torch.Tensor,
+    base: Params,
+    lora: Optional[Params],
+    cfg,
+    *,
+    positions: torch.Tensor,                   # (B, T)
+    cache: Optional[Params] = None,  # {"c": (B,S,kv_rank), "kr": (B,S,rd)}
+    cache_pos: Optional[torch.Tensor] = None,  # (B,) padded index
+    valid_start: Optional[torch.Tensor] = None,  # (B,) first real index
+    pad_mask: Optional[torch.Tensor] = None,     # (B, T) True = real token
+    scaling: float = 2.0,
+    force_blockwise: Optional[bool] = None,
+    kv_chunk: int = KV_CHUNK,
+) -> torch.Tensor:
+    """MLA over one layer's params. Sequence mode decompresses the latent
+    into 192-wide keys (``[k_nope, kr]``, ``kr`` shared by the heads) and
+    128-wide values; a prefill then writes the last ``min(T, cap)``
+    latents to slots ``[0, keep)``. Decode (``T == 1`` with a cache)
+    writes the token at ``min(cache_pos, cap - 1)`` and attends in the
+    compressed space: keys ``kpos <= cache_pos`` and ``kpos >=
+    valid_start`` count, ``W_uk`` is absorbed into the query and ``W_uv``
+    into the context."""
+    m = cfg.mla
+    h = cfg.n_heads
+    b, t, _ = x.shape
+    nd, rd, vd = m.nope_head_dim, m.rope_head_dim, m.v_head_dim
+    dev = x.device
+
+    # queries (low rank)
+    cq = linear(x, base["wq_down"], lora and lora.get("wq_down"), scaling)
+    cq = rmsnorm(cq, base["q_norm"]["w"])
+    q = linear(cq, base["wq_up"], lora and lora.get("wq_up"), scaling)
+    q = q.reshape(b, t, h, nd + rd)
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    # compressed KV latent and the shared rotary key (no LoRA)
+    c = linear(x, base["wkv_down"], lora and lora.get("wkv_down"), scaling)
+    c = rmsnorm(c, base["kv_norm"]["w"])                  # (B, T, kv_rank)
+    kr = linear(x, base["wk_rope"], None)                 # (B, T, rd)
+    kr = apply_rope(kr[..., None, :], positions, cfg.rope_theta)[..., 0, :]
+
+    wk_up = base["wk_up"]["w"].reshape(m.kv_lora_rank, h, nd)
+    wv_up = base["wv_up"]["w"].reshape(m.kv_lora_rank, h, vd)
+
+    if cache is None or t > 1:
+        k_nope = torch.einsum("btc,chd->bthd", c, wk_up)
+        v = torch.einsum("btc,chd->bthd", c, wv_up)
+        kfull = torch.cat([k_nope, kr[:, :, None, :].expand(b, t, h, rd)],
+                          dim=-1)
+        qfull = torch.cat([q_nope, q_rope], dim=-1)
+        use_blockwise = (t > BLOCKWISE_THRESHOLD if force_blockwise is None
+                         else force_blockwise and t > 1)
+        if use_blockwise:
+            # v's head dim is not the qk one: pad it for the blockwise
+            # SDPA and slice the output back
+            vp = torch.nn.functional.pad(v, (0, nd + rd - vd))
+            out = _sdpa_blockwise(qfull, kfull, vp, 0, None, None,
+                                  chunk=kv_chunk, pad_mask=pad_mask)
+            out = out.reshape(b, t, h, nd + rd)[..., :vd]
+        else:
+            mask = _causal_window_mask(t, t, 0, None, dev)
+            if pad_mask is not None:
+                mask = mask + _pad_key_mask(pad_mask, 3)
+            out = _sdpa(qfull, kfull, v, mask)
+        if cache is not None:
+            # prefill: the latents are small, write the prefix
+            keep = min(t, cache["c"].shape[1])
+            cache["c"][:, :keep] = c[:, t - keep:].to(cache["c"].dtype)
+            cache["kr"][:, :keep] = kr[:, t - keep:].to(cache["kr"].dtype)
+    else:
+        # absorbed decode on the linear cache: a row past capacity keeps
+        # overwriting the last slot, as the reference's clamped write does
+        cc, ckr = cache["c"], cache["kr"]
+        s = cc.shape[1]
+        pos_b, start_b = _row_positions(cache_pos, valid_start, b, dev)
+        rows = torch.arange(b, device=dev)
+        wpos = torch.clamp(pos_b, max=s - 1)
+        cc[rows, wpos] = c[:, 0].to(cc.dtype)
+        ckr[rows, wpos] = kr[:, 0].to(ckr.dtype)
+        q_abs = torch.einsum("bthd,chd->bthc", q_nope, wk_up)
+        scores = (torch.einsum("bthc,bsc->bhts", q_abs, cc)
+                  + torch.einsum("bthd,bsd->bhts", q_rope, ckr))
+        scores = scores.to(torch.float32) / np.sqrt(nd + rd)
+        kpos = torch.arange(s, device=dev)
+        ok = ((kpos[None, :] <= pos_b[:, None])
+              & (kpos[None, :] >= start_b[:, None]))
+        probs = torch.softmax(scores + _pad_key_mask(ok, 2),
+                              dim=-1).to(cc.dtype)
+        ctx = torch.einsum("bhts,bsc->bthc", probs, cc)
+        out = torch.einsum("bthc,chd->bthd", ctx, wv_up)
+
+    return linear(out.reshape(b, t, h * vd), base["wo"],
+                  lora and lora.get("wo"), scaling)
+
+
+def init_mla_cache(cfg, batch: int, capacity: int, dtype, device,
+                   count: int) -> Params:
+    """Zeroed ``(count, B, capacity, kv_rank)`` latent and ``(count, B,
+    capacity, rope_dim)`` rotary-key caches."""
+    m = cfg.mla
+    lead = (count, batch, capacity)
+    return {"c": torch.zeros(lead + (m.kv_lora_rank,), dtype=dtype,
+                             device=device),
+            "kr": torch.zeros(lead + (m.rope_head_dim,), dtype=dtype,
+                              device=device)}

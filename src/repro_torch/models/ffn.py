@@ -11,9 +11,15 @@ in fp form, or packed stacks whose expert axis is folded into the adapter
 axis (``fold == E``), applied by one ``sgmv_fused`` launch per linear at
 ``tile_t = 1`` with folded ``adapter·E + expert`` seg ids per buffer row.
 
+deepseek's MoE adds two things, as the reference has them: a frozen
+expert base stored as int8 codes with per-(expert, out-column) fp32
+scales (``base_quant_bits=8``), dequantized in the compute dtype right
+before each batched product, and a shared expert (a dense GLU of width
+``d_ff_expert · n_shared`` over every token, with its own LoRA under
+``"shared"``) added after the dispatch.
+
 Not ported: the reference's ``shard_map`` expert path under a device mesh
-(ROADMAP A9), and deepseek's shared expert and int8 frozen expert base
-(ROADMAP A6b).
+(ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -64,39 +70,65 @@ def dense_ffn(x, base, lora, *, activation: str = "silu",
 # --------------------------------------------------------------------------
 
 def _expert_stack(gen: torch.Generator, d_in: int, d_out: int, dtype,
-                  lead) -> dict:
+                  lead, quant_bits=None) -> dict:
     """Uniform(±1/√d_in) ``(*lead, d_in, d_out)`` weights drawn one
     ``(d_in, d_out)`` matrix at a time, so a bf16 stack never has an fp32
-    copy of itself beside it."""
-    scale = 1.0 / np.sqrt(d_in)
-    w = torch.empty(tuple(lead) + (d_in, d_out), dtype=dtype,
-                    device=gen.device)
-    tmp = torch.empty((d_in, d_out), dtype=torch.float32, device=gen.device)
+    copy of itself beside it. With ``quant_bits`` each matrix is stored
+    as the reference quantizes its stacks: symmetric codes
+    ``round(w / scale)`` clipped to ``±qmax`` (int8) with one scale per
+    out-column, ``max |w| / qmax`` over the column in ``dtype`` (1 where
+    the column is 0), kept in fp32."""
+    bound = 1.0 / np.sqrt(d_in)
+    dev = gen.device
+    tmp = torch.empty((d_in, d_out), dtype=torch.float32, device=dev)
+    if not quant_bits:
+        w = torch.empty(tuple(lead) + (d_in, d_out), dtype=dtype, device=dev)
+        for idx in np.ndindex(*lead):
+            tmp.uniform_(-bound, bound, generator=gen)
+            w[idx].copy_(tmp)
+        return {"w": w}
+    qmax = 2 ** (quant_bits - 1) - 1
+    codes = torch.empty(tuple(lead) + (d_in, d_out), dtype=torch.int8,
+                        device=dev)
+    scales = torch.empty(tuple(lead) + (1, d_out), dtype=torch.float32,
+                         device=dev)
     for idx in np.ndindex(*lead):
-        tmp.uniform_(-scale, scale, generator=gen)
-        w[idx].copy_(tmp)
-    return {"w": w}
+        tmp.uniform_(-bound, bound, generator=gen)
+        w = tmp.to(dtype)
+        sc = w.abs().amax(dim=0, keepdim=True) / qmax
+        sc = torch.where(sc <= 0, torch.ones_like(sc), sc).to(torch.float32)
+        codes[idx] = torch.clamp(torch.round(w / sc), -qmax, qmax).to(
+            torch.int8)
+        scales[idx] = sc
+    return {"w": codes, "scale": scales}
 
 
 def init_moe(gen: torch.Generator, cfg, lora_rank: Optional[int],
              count: int):
-    """Stacked MoE params: an fp32 router ``(count, d, E)`` and expert
-    stacks ``(count, E, ·, ·)``; LoRA on the router and, per expert, on
-    ``wg`` / ``wu`` / ``wd`` (``(count, E, r, ·)``)."""
+    """Stacked MoE params: an fp32 router ``(count, d, E)``, expert
+    stacks ``(count, E, ·, ·)`` (int8 codes and ``(count, E, 1, ·)`` fp32
+    scales under ``base_quant_bits``) and, with ``n_shared``, a dense
+    ``"shared"`` expert of width ``d_ff_expert · n_shared``; LoRA on the
+    router, on the shared expert and, with ``lora_on_experts``, per expert
+    on ``wg`` / ``wu`` / ``wd`` (``(count, E, r, ·)``)."""
     mc = cfg.moe
-    if mc.n_shared:
-        raise NotImplementedError("shared experts are not ported yet "
-                                  "(ROADMAP A6b, with deepseek)")
     d, f, e = cfg.d_model, mc.d_ff_expert, mc.n_experts
     lead = (count, e)
     shapes = {"wg": (d, f), "wu": (d, f), "wd": (f, d)}
     base = {"router": init_linear(gen, d, e, torch.float32, (count,)),
-            "experts": {n: _expert_stack(gen, i, o, cfg.dtype, lead)
+            "experts": {n: _expert_stack(gen, i, o, cfg.dtype, lead,
+                                         cfg.base_quant_bits)
                         for n, (i, o) in shapes.items()}}
+    shared_lora = None
+    if mc.n_shared:
+        base["shared"], shared_lora = init_dense_ffn(
+            gen, cfg, lora_rank, count, d_ff=f * mc.n_shared)
     lora = None
     if lora_rank is not None:
         lora = {"router": init_lora(gen, d, e, lora_rank, cfg.lora_dtype,
                                     (count,))}
+        if mc.n_shared:
+            lora["shared"] = shared_lora
         if mc.lora_on_experts:
             lora["experts"] = {
                 n: init_lora(gen, i, o, lora_rank, cfg.lora_dtype, lead)
@@ -155,7 +187,21 @@ def moe_ffn(x: torch.Tensor, base, lora, cfg, *,
     lex = lora.get("experts") if (lora and mc.lora_on_experts) else None
     y = _moe_dense_dispatch(xf, gate, top_idx, base["experts"], lex, e, k,
                             moe_capacity(n_tok, mc), scaling)
+    if mc.n_shared:
+        y = y + dense_ffn(xf, base["shared"], lora and lora.get("shared"),
+                          scaling=scaling)
     return y.reshape(b, t, d), aux
+
+
+def expert_weight(leaf, dtype) -> torch.Tensor:
+    """An expert stack in the compute ``dtype``: an int8 ``{"w",
+    "scale"}`` leaf dequantized as the reference does it, ``w.to(dtype) *
+    scale.to(dtype)`` (the scale rounded to ``dtype`` first), into one
+    transient the size of the stack; a float leaf as it is."""
+    w = leaf["w"]
+    if w.dtype != torch.int8:
+        return w
+    return w.to(dtype).mul_(leaf["scale"].to(dtype))
 
 
 def _expert_ffw(ex, lex, name, inp, scaling, buf_seg=None):
@@ -165,8 +211,9 @@ def _expert_ffw(ex, lex, name, inp, scaling, buf_seg=None):
     folded into the adapter axis (one ``sgmv_fused`` launch at
     ``tile_t = 1`` over folded ``buf_seg·fold + expert`` seg ids), or a
     :class:`~repro_torch.kernels.PackedLoRABuckets` (one launch per bucket,
-    the expert folded in bucket-locally, non-member rows masked out)."""
-    y = torch.bmm(inp, ex[name]["w"])
+    the expert folded in bucket-locally, non-member rows masked out). An
+    int8 stack is dequantized first (:func:`expert_weight`)."""
+    y = torch.bmm(inp, expert_weight(ex[name], inp.dtype))
     if lex is None:
         return y
     leaf = lex[name]
@@ -236,8 +283,16 @@ def _moe_dense_dispatch(x_loc, gate_loc, idx_loc, ex, lex, e, k, cap,
         keep[:, None],
         out_flat[torch.clamp(sorted_e * cap + pos_in_e, 0, e * cap - 1)],
         torch.zeros((), dtype=out_flat.dtype, device=dev))
-    # combine in the compute dtype, as the reference does
+    # combine in the compute dtype, as the reference does: its scatter-add
+    # takes each token's k terms in sorted order (by expert), rounding after
+    # every add. The adds go in that order here too, one per rank of a
+    # term within its token, so the sum does not depend on the order in
+    # which the card's atomics would land (top-8 terms in bf16 do)
+    contrib = gate_loc.reshape(-1)[order].to(x_loc.dtype)[:, None] * slot
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(tok * k, device=dev)
+    seq = rank.view(tok, k).sort(dim=1).values      # (tok, k) sorted slots
     y = torch.zeros((tok, d), dtype=x_loc.dtype, device=dev)
-    y.index_add_(0, src, gate_loc.reshape(-1)[order].to(x_loc.dtype)[:, None]
-                 * slot)
+    for j in range(k):
+        y = y + contrib[seq[:, j]]
     return y

@@ -1,6 +1,7 @@
 """Decoder-LM assembly (port of ``repro/models/model.py``) for the dense
-GQA family and its variants and the sparse-MoE family with sliding-window
-attention (``attn`` / ``local_attn`` mixers, ``dense`` / ``moe``
+GQA family and its variants, the sparse-MoE family with sliding-window
+attention and deepseek's MLA with its shared expert and int8 expert base
+(``attn`` / ``local_attn`` / ``mla`` mixers, ``dense`` / ``moe``
 feed-forwards): stacked ``(L, ...)`` layer params walked by a Python loop
 over layers, LoRA trees mirroring every targeted linear, and the prefill /
 decode-with-cache modes the serving engine drives.
@@ -24,7 +25,13 @@ sub-blocks also carry ``post_mixer_norm`` / ``post_ffn_norm``; musicgen's
 An ``moe`` feed-forward has ``{"router": {"w"} (fp32), "experts": {"wg":
 {"w"}, ...}}`` with expert stacks ``(L, E, ·, ·)``, and LoRA leaves
 ``"router"`` ``(L, r, ·)`` and ``"experts"`` ``{"wg": {"a", "b"}, ...}``
-``(L, E, r, ·)``.
+``(L, E, r, ·)``. deepseek's MoE also has a ``"shared"`` dense expert
+(base and LoRA), its expert stacks are ``{"w": int8, "scale": fp32 (L, E,
+1, ·)}``, an ``mla`` mixer has ``wq_down`` / ``wq_up`` / ``wkv_down`` /
+``wk_rope`` / ``wk_up`` / ``wv_up`` / ``wo`` and the ``q_norm`` /
+``kv_norm`` norms (LoRA on ``wq_down``, ``wq_up``, ``wkv_down``, ``wo``),
+and ``base["mtp"]`` holds the multi-token-prediction head's ``norm`` and
+``proj`` ``(2d, d)``.
 
 Three execution modes, as in the reference: the sequence forward and
 training loss (:meth:`Model.forward`, :meth:`Model.train_loss`; autograd on,
@@ -59,19 +66,19 @@ from repro_torch.kernels.quant_matmul.ops import qlora_layer
 
 from . import attention as attn_mod
 from . import ffn as ffn_mod
-from .common import (apply_norm, embed, init_embedding, init_norm, softcap,
-                     unembed)
+from .common import (apply_norm, embed, init_embedding, init_linear,
+                     init_norm, softcap, unembed)
 
 Params = Dict[str, Any]
 
 
 def _not_ported(what: str):
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP A6a-A6c, the other model "
-        f"families)")
+        f"{what} is not ported yet (ROADMAP A6c, the recurrent mixers "
+        f"RWKV6 and RG-LRU)")
 
 
-MIXERS = ("attn", "local_attn")
+MIXERS = ("attn", "local_attn", "mla")
 FFNS = ("dense", "moe")
 
 
@@ -121,6 +128,11 @@ class Model:
                                                 device=dev)}
         if not cfg.tie_embeddings:
             base["head"] = self._init_table(gen)
+        if cfg.mtp:
+            base["mtp"] = {"norm": init_norm(cfg.d_model, cfg.norm,
+                                             device=dev),
+                           "proj": init_linear(gen, 2 * cfg.d_model,
+                                               cfg.d_model, cfg.dtype)}
         base["groups"] = []
         lora: Params = {"groups": []}
         for block in cfg.blocks:
@@ -128,8 +140,9 @@ class Model:
             for j, (mk, fk) in enumerate(zip(block.pattern, block.ffn)):
                 if mk not in MIXERS or fk not in FFNS:
                     raise _not_ported(f"layer kind {mk}/{fk}")
-                mb, ml = attn_mod.init_gqa(gen, cfg, cfg.lora_rank,
-                                           block.count)
+                init_mixer = (attn_mod.init_mla if mk == "mla"
+                              else attn_mod.init_gqa)
+                mb, ml = init_mixer(gen, cfg, cfg.lora_rank, block.count)
                 init_ffn = (ffn_mod.init_moe if fk == "moe"
                             else ffn_mod.init_dense_ffn)
                 fb, fl = init_ffn(gen, cfg, cfg.lora_rank, block.count)
@@ -156,20 +169,33 @@ class Model:
     # ----- caches -----
 
     def init_cache(self, batch: int, capacity: int, device="cuda") -> list:
-        """Per group and sub-block, zeroed ``(L, B, cap, KV, dh)`` caches: a
-        ring of ``min(capacity, window)`` slots for ``local_attn``."""
+        """Per group and sub-block, zeroed caches: ``{"k", "v"}`` ``(L, B,
+        cap, KV, dh)`` for attention (a ring of ``min(capacity, window)``
+        slots for ``local_attn``), ``{"c", "kr"}`` ``(L, B, cap, ·)`` for
+        ``mla``."""
         cfg = self.cfg
         dev = resolve_device(device)
-        return [{f"sub_{j}": attn_mod.init_gqa_cache(
-                    cfg, batch,
-                    min(capacity, cfg.window) if mk == "local_attn"
-                    else capacity, cfg.dtype, dev, count=block.count)
+
+        def one(mk, count):
+            if mk == "mla":
+                return attn_mod.init_mla_cache(cfg, batch, capacity,
+                                               cfg.dtype, dev, count=count)
+            cap = (min(capacity, cfg.window) if mk == "local_attn"
+                   else capacity)
+            return attn_mod.init_gqa_cache(cfg, batch, cap, cfg.dtype, dev,
+                                           count=count)
+
+        return [{f"sub_{j}": one(mk, block.count)
                  for j, mk in enumerate(block.pattern)}
                 for block in cfg.blocks]
 
     # ----- sub-block forward -----
 
     def _run_mixer(self, kind, x, bparams, lparams, **kw):
+        if kind == "mla":
+            return attn_mod.mla_attention(
+                x, bparams, lparams, self.cfg, scaling=self.scaling,
+                force_blockwise=self.force_blockwise, **kw)
         return attn_mod.gqa_attention(
             x, bparams, lparams, self.cfg,
             window=self.cfg.window if kind == "local_attn" else None,
@@ -332,21 +358,32 @@ class Model:
         """``(loss, {"ce", "aux"})`` of a batch of ``tokens`` / ``targets``
         (``(B, K, T)`` with codebooks, whose ``(B, K, T, V)`` logits go
         into one CE); a vision stub's ``vision_embeds`` positions are
-        sliced off the logits before the CE. Autograd stays on."""
+        sliced off the logits (and the states) before the CE. With
+        ``cfg.mtp`` (deepseek) the loss adds 0.3 x the CE of the
+        multi-token-prediction head, which predicts token t+2 from the
+        trunk's output at t joined with the embedding of token t+1 (the
+        reference's single-projection MTP module). Autograd stays on."""
         cfg = self.cfg
-        if getattr(cfg, "mtp", False):
-            raise NotImplementedError(
-                "the multi-token-prediction loss is not ported yet "
-                "(ROADMAP A6b, with deepseek)")
-        x = self._embed(params["base"], batch)
+        base = params["base"]
+        x = self._embed(base, batch)
         b, t = x.shape[0], x.shape[1]
         h, aux = self._backbone(params, x, self._positions(batch, t, b),
                                 None, None)
-        logits = self._logits(params["base"], h)
+        logits = self._logits(base, h)
+        targets = batch["targets"]
         if cfg.vision_stub and "vision_embeds" in batch:
-            logits = logits[:, batch["vision_embeds"].shape[1]:]
-        ce = self._ce(logits, batch["targets"])
-        return ce + aux, {"ce": ce, "aux": aux}
+            tv = batch["vision_embeds"].shape[1]
+            logits, h, x = logits[:, tv:], h[:, tv:], x[:, tv:]
+        ce = self._ce(logits, targets)
+        loss = ce + aux
+        if cfg.mtp:
+            nxt = torch.cat([x[:, 1:], torch.zeros_like(x[:, :1])], dim=1)
+            h2 = torch.cat([h, nxt], dim=-1) @ base["mtp"]["proj"]["w"]
+            h2 = apply_norm(h2, base["mtp"]["norm"], cfg.norm)
+            t2 = torch.cat([targets[:, 1:],
+                            -torch.ones_like(targets[:, :1])], dim=-1)
+            loss = loss + 0.3 * self._ce(self._logits(base, h2), t2)
+        return loss, {"ce": ce, "aux": aux}
 
     @torch.no_grad()
     def prefill(self, params, batch, capacity: int):

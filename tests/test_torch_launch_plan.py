@@ -76,6 +76,15 @@ SHAPES = [
     (1280, 16384, 6144, 1, (128, 128, 128, 128)),
     (64, 6144, 8, 1, (128, 8, 128, 8)),
     (256, 6144, 8, 8, (128, 8, 128, 8)),
+    # deepseek-v3-671b's nine LoRA linears at decode (16 one-row tiles)
+    # and prefill (512 rows in tiles of 8): wq_up's K of 12 groups on an
+    # 8-block cluster (blocks of 2 units, the last two idle), the
+    # router's M = 256, K up to the dense wd's 18432
+    *[(t, k, m, kt, (128, 128, 128, 128))
+      for k, m in ((7168, 1536), (1536, 24576), (7168, 512), (16384, 7168),
+                   (7168, 256), (7168, 2048), (2048, 7168), (7168, 18432),
+                   (18432, 7168))
+      for t, kt in ((16, 1), (512, 8))],
     # A-only (matmul_rhs: kt None; sgmv_rhs: kt 1 / 3 / 8): m = 0, no B
     (16, 3072, 0, None, (128, None, None, None)),
     (512, 8192, 0, None, (128, None, None, None)),

@@ -121,8 +121,8 @@ def test_config_matches_reference():
             [dataclasses.astuple(b) for b in j.blocks]
         assert dataclasses.asdict(t.moe) == dataclasses.asdict(j.moe)
     assert get_config(ARCH).window == 4096
-    with pytest.raises(NotImplementedError, match="A6b"):
-        get_config("deepseek-v3-671b")
+    with pytest.raises(NotImplementedError, match="A6c"):
+        get_config("rwkv6-1.6b")
 
 
 # --------------------------------------------------------------------------
@@ -279,8 +279,8 @@ def test_eight_lora_linears_per_layer(models):
 def test_model_rejects_unported_layers():
     cfg = dataclasses.replace(get_config(ARCH, "smoke"), blocks=(
         dataclasses.replace(get_config(ARCH, "smoke").blocks[0],
-                            pattern=("mla",)),))
-    with pytest.raises(NotImplementedError, match="A6"):
+                            pattern=("rwkv",)),))
+    with pytest.raises(NotImplementedError, match="A6c"):
         build_model(cfg).init(device="cpu")
 
 
