@@ -12,7 +12,11 @@ its fp32 router and per-expert LoRA ``(L, E, r, ·)`` keep their shapes
 and dtypes, as do deepseek's int8 expert codes with their fp32 ``(L, E, 1,
 ·)`` scales, its MLA leaves and its ``mtp`` head; the dense variants'
 empty ``{}`` norms, post-block norms and stacked ``(K, V, d)`` codebook
-tables come across as they are),
+tables; the recurrent trees: RWKV-6's fp32 mixing, decay and group-norm
+leaves with the raw ``ddlerp_w2 (L, 5, 32, d)``, the RG-LRU's fp32
+``conv_w`` / ``conv_b`` / ``lambda_p`` / ``w_ix`` / ``w_ax`` beside its
+bf16 projections, and their caches' fp32 states — all come across as
+they are),
 ``QuantizedTensor``, ``QuantizedLoRA`` (one
 layer's, or layer-stacked with a leading ``(L,)`` on every array, which
 the arrays keep), trees whose leaves are ``QuantizedLoRA``, and the serving

@@ -9,9 +9,10 @@ holds one period). The port serves the dense GQA family and its variants
 qwen2-vl's M-RoPE and vision prefix, musicgen's codebooks), the
 sparse-MoE family with sliding-window attention (mixtral) and deepseek's
 multi-head latent attention with a shared expert, an int8 frozen expert
-base and the multi-token-prediction loss; ``get_config`` raises
-``NotImplementedError`` for the recurrent architectures, whose layers are
-not ported yet.
+base and the multi-token-prediction loss, and the recurrent families:
+RWKV-6's attention-free time / channel mix (rwkv6) and RecurrentGemma's
+RG-LRU blocks beside local attention. Every architecture of the JAX
+package is ported.
 """
 
 from __future__ import annotations
@@ -47,7 +48,11 @@ class MLAConfig:
 
 @dataclasses.dataclass(frozen=True)
 class BlockSpec:
-    """One layer group: ``count`` repeats of a pattern of sub-blocks."""
+    """One layer group: ``count`` repeats of a pattern of sub-blocks.
+
+    ``pattern`` entries: "attn" | "local_attn" | "mla" | "rglru" | "rwkv";
+    ``ffn`` entries (parallel list): "dense" | "moe" | "rwkv_cm".
+    """
 
     count: int
     pattern: Tuple[str, ...] = ("attn",)
@@ -78,6 +83,10 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     mtp: bool = False                # deepseek multi-token prediction head
+    # rwkv / rglru
+    rwkv_head_dim: int = 64
+    rglru_width: Optional[int] = None   # recurrence width (defaults d_model)
+    conv_width: int = 4
     n_codebooks: int = 0             # musicgen: EnCodec codebooks
     vision_stub: bool = False        # qwen2-vl: precomputed patch embeds
     lora_rank: int = 16
@@ -103,24 +112,13 @@ def default_blocks(n_layers: int) -> Tuple[BlockSpec, ...]:
 
 
 ARCH_IDS = ("llama3.2-3b", "internlm2-20b", "gemma2-2b", "olmo-1b",
-            "mixtral-8x22b", "deepseek-v3-671b", "musicgen-medium",
-            "qwen2-vl-72b")
-
-# Architectures of the JAX package whose layers the port does not have yet,
-# with the ROADMAP item that ports them.
-_NOT_PORTED = {
-    "rwkv6-1.6b": "A6c (RWKV6 and RG-LRU)",
-    "recurrentgemma-2b": "A6c (RWKV6 and RG-LRU)",
-}
+            "rwkv6-1.6b", "mixtral-8x22b", "deepseek-v3-671b",
+            "recurrentgemma-2b", "musicgen-medium", "qwen2-vl-72b")
 
 _MODULES = {a: a.replace("-", "_").replace(".", "_") for a in ARCH_IDS}
 
 
 def get_config(name: str, preset: str = "full") -> ModelConfig:
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported to repro_torch yet "
-            f"(ROADMAP {_NOT_PORTED[name]}); ported: {list(ARCH_IDS)}")
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[name]}")

@@ -15,8 +15,13 @@ variants ``gemma2-2b`` (local/global attention, soft-caps, post-norms),
 straight from packed codes, sliding-window attention) or
 ``deepseek-v3-671b`` (multi-head latent attention with an absorbed
 decode, 256 int8 experts top-8 and a shared expert; LoRA on attention,
-the dense FFN, the router and the shared expert); ``--preset smoke`` is
-each one's small configuration. At ``--preset full`` mixtral's 56 layers
+the dense FFN, the router and the shared expert), or the recurrent
+``rwkv6-1.6b`` (RWKV-6 time and channel mix) and ``recurrentgemma-2b``
+(RG-LRU blocks beside local attention), whose states carry a left-padded
+row's pad tokens, as the reference's do, and whose full configs fit one
+card at full depth; ``--preset smoke`` is each one's small
+configuration. An rwkv6 prompt that pads to more than 64 tokens and not a
+multiple of 64 raises, as in the reference (ROADMAP C10). At ``--preset full`` mixtral's 56 layers
 (~140 GB in bf16), qwen2-vl's 80 (~146 GB) and deepseek's 61 (~660 GB of
 int8 experts) do not fit one 80 GB card. ``musicgen-medium`` is refused:
 its model takes ``(B, 4, T)`` codebook tokens, the engine hands it ``(B,

@@ -1,7 +1,8 @@
 """Decoder-LM assembly (port of ``repro/models/model.py``) for the dense
 GQA family and its variants, the sparse-MoE family with sliding-window
-attention and deepseek's MLA with its shared expert and int8 expert base
-(``attn`` / ``local_attn`` / ``mla`` mixers, ``dense`` / ``moe``
+attention, deepseek's MLA with its shared expert and int8 expert base,
+and the recurrent families (``attn`` / ``local_attn`` / ``mla`` /
+``rglru`` / ``rwkv`` mixers, ``dense`` / ``moe`` / ``rwkv_cm``
 feed-forwards): stacked ``(L, ...)`` layer params walked by a Python loop
 over layers, LoRA trees mirroring every targeted linear, and the prefill /
 decode-with-cache modes the serving engine drives.
@@ -32,6 +33,15 @@ An ``moe`` feed-forward has ``{"router": {"w"} (fp32), "experts": {"wg":
 ``kv_norm`` norms (LoRA on ``wq_down``, ``wq_up``, ``wkv_down``, ``wo``),
 and ``base["mtp"]`` holds the multi-token-prediction head's ``norm`` and
 ``proj`` ``(2d, d)``.
+
+The recurrent mixers (``models/recurrent.py``) have their own leaves: an
+``rwkv`` time mix ``mu_base``, ``mu``, ``ddlerp_w1`` / ``ddlerp_w2``,
+``decay_base`` / ``decay_w1`` / ``decay_w2``, ``bonus``, ``gn_w`` /
+``gn_b`` (fp32) and ``wr`` / ``wk`` / ``wv`` / ``wg`` / ``wo`` with LoRA;
+an ``rwkv_cm`` channel mix ``mu_k`` / ``mu_r`` and ``wk`` / ``wv`` /
+``wr`` with LoRA; an ``rglru`` block ``w_in`` / ``w_gate`` / ``w_out``
+with LoRA and the fp32 ``conv_w`` / ``conv_b`` / ``lambda_p`` / ``w_ix``
+/ ``w_ax``.
 
 Three execution modes, as in the reference: the sequence forward and
 training loss (:meth:`Model.forward`, :meth:`Model.train_loss`; autograd on,
@@ -66,20 +76,43 @@ from repro_torch.kernels.quant_matmul.ops import qlora_layer
 
 from . import attention as attn_mod
 from . import ffn as ffn_mod
+from . import recurrent as rec_mod
 from .common import (apply_norm, embed, init_embedding, init_linear,
                      init_norm, softcap, unembed)
 
 Params = Dict[str, Any]
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP A6c, the recurrent mixers "
-        f"RWKV6 and RG-LRU)")
+def _init_mixer(gen, cfg, kind: str, lora_rank, count: int):
+    if kind in ("attn", "local_attn"):
+        return attn_mod.init_gqa(gen, cfg, lora_rank, count)
+    if kind == "mla":
+        return attn_mod.init_mla(gen, cfg, lora_rank, count)
+    if kind == "rglru":
+        return rec_mod.init_rglru(gen, cfg, lora_rank, count)
+    if kind == "rwkv":
+        return rec_mod.init_rwkv_tmix(gen, cfg, lora_rank, count)
+    raise ValueError(kind)
 
 
-MIXERS = ("attn", "local_attn", "mla")
-FFNS = ("dense", "moe")
+def _init_ffn(gen, cfg, kind: str, lora_rank, count: int):
+    if kind == "dense":
+        return ffn_mod.init_dense_ffn(gen, cfg, lora_rank, count)
+    if kind == "moe":
+        return ffn_mod.init_moe(gen, cfg, lora_rank, count)
+    if kind == "rwkv_cm":
+        return rec_mod.init_rwkv_cmix(gen, cfg, lora_rank, count)
+    raise ValueError(kind)
+
+
+def _write_state(dst, src):
+    """Copy a recurrent mixer's new state into the cache views it was
+    handed (the caches are updated in place)."""
+    for k, v in src.items():
+        if isinstance(v, dict):
+            _write_state(dst[k], v)
+        else:
+            dst[k].copy_(v)
 
 
 def _layer_slice(tree, i: int):
@@ -108,6 +141,9 @@ class Model:
     # the attention algorithm: None picks blockwise above
     # ``attention.BLOCKWISE_THRESHOLD`` tokens, True / False force it
     force_blockwise: Any = None
+    # RWKV's sequence-mode chunk (a prefill of T tokens needs T % min(
+    # rwkv_chunk, T) == 0, as in the reference)
+    rwkv_chunk: int = 64
 
     @property
     def scaling(self) -> float:
@@ -138,14 +174,9 @@ class Model:
         for block in cfg.blocks:
             gb, gl = {}, {}
             for j, (mk, fk) in enumerate(zip(block.pattern, block.ffn)):
-                if mk not in MIXERS or fk not in FFNS:
-                    raise _not_ported(f"layer kind {mk}/{fk}")
-                init_mixer = (attn_mod.init_mla if mk == "mla"
-                              else attn_mod.init_gqa)
-                mb, ml = init_mixer(gen, cfg, cfg.lora_rank, block.count)
-                init_ffn = (ffn_mod.init_moe if fk == "moe"
-                            else ffn_mod.init_dense_ffn)
-                fb, fl = init_ffn(gen, cfg, cfg.lora_rank, block.count)
+                mb, ml = _init_mixer(gen, cfg, mk, cfg.lora_rank,
+                                     block.count)
+                fb, fl = _init_ffn(gen, cfg, fk, cfg.lora_rank, block.count)
                 names = ["mixer_norm", "ffn_norm"] + (
                     ["post_mixer_norm", "post_ffn_norm"] if cfg.post_norm
                     else [])
@@ -172,7 +203,10 @@ class Model:
         """Per group and sub-block, zeroed caches: ``{"k", "v"}`` ``(L, B,
         cap, KV, dh)`` for attention (a ring of ``min(capacity, window)``
         slots for ``local_attn``), ``{"c", "kr"}`` ``(L, B, cap, ·)`` for
-        ``mla``."""
+        ``mla``, ``{"h", "conv"}`` for ``rglru`` and ``{"x_prev", "s"}``
+        for ``rwkv``; a sub-block whose feed-forward is ``rwkv_cm`` nests
+        its mixer's cache under ``"tmix"`` beside the channel mix's
+        ``{"x_prev"}`` under ``"cmix"``."""
         cfg = self.cfg
         dev = resolve_device(device)
 
@@ -180,33 +214,75 @@ class Model:
             if mk == "mla":
                 return attn_mod.init_mla_cache(cfg, batch, capacity,
                                                cfg.dtype, dev, count=count)
+            if mk == "rglru":
+                return rec_mod.init_rglru_state(cfg, batch, dev, count)
+            if mk == "rwkv":
+                return rec_mod.init_rwkv_state(cfg, batch, dev,
+                                               count)["tmix"]
+            if mk not in ("attn", "local_attn"):
+                raise ValueError(mk)
             cap = (min(capacity, cfg.window) if mk == "local_attn"
                    else capacity)
             return attn_mod.init_gqa_cache(cfg, batch, cap, cfg.dtype, dev,
                                            count=count)
 
-        return [{f"sub_{j}": one(mk, block.count)
-                 for j, mk in enumerate(block.pattern)}
+        def sub(mk, fk, count):
+            cache = one(mk, count)
+            if fk == "rwkv_cm":
+                cmix = rec_mod.init_rwkv_state(cfg, batch, dev,
+                                               count)["cmix"]
+                cache = {"tmix": cache, "cmix": cmix}
+            return cache
+
+        return [{f"sub_{j}": sub(mk, fk, block.count)
+                 for j, (mk, fk) in enumerate(zip(block.pattern, block.ffn))}
                 for block in cfg.blocks]
 
     # ----- sub-block forward -----
 
-    def _run_mixer(self, kind, x, bparams, lparams, **kw):
+    def _run_mixer(self, kind, x, bparams, lparams, *, cache, **kw):
+        """The mixer's output; a recurrent mixer's new state is written
+        into ``cache`` in place (attention writes its own)."""
+        cfg = self.cfg
+        if kind in ("rglru", "rwkv"):
+            if kind == "rglru":
+                out, new = rec_mod.rglru_block(x, bparams, lparams, cfg,
+                                               state=cache,
+                                               scaling=self.scaling)
+            else:
+                out, new = rec_mod.rwkv_tmix(x, bparams, lparams, cfg,
+                                             state=cache,
+                                             chunk=self.rwkv_chunk,
+                                             scaling=self.scaling)
+            if cache is not None:
+                _write_state(cache, new)
+            return out
         if kind == "mla":
             return attn_mod.mla_attention(
-                x, bparams, lparams, self.cfg, scaling=self.scaling,
-                force_blockwise=self.force_blockwise, **kw)
+                x, bparams, lparams, cfg, scaling=self.scaling,
+                force_blockwise=self.force_blockwise, cache=cache, **kw)
+        if kind not in ("attn", "local_attn"):
+            raise ValueError(kind)
         return attn_mod.gqa_attention(
-            x, bparams, lparams, self.cfg,
-            window=self.cfg.window if kind == "local_attn" else None,
-            scaling=self.scaling, force_blockwise=self.force_blockwise, **kw)
+            x, bparams, lparams, cfg,
+            window=cfg.window if kind == "local_attn" else None,
+            scaling=self.scaling, force_blockwise=self.force_blockwise,
+            cache=cache, **kw)
 
-    def _run_ffn(self, kind, x, bparams, lparams):
-        """``(output, aux)``: an MoE's load-balance loss, 0 for a dense
-        feed-forward."""
+    def _run_ffn(self, kind, x, bparams, lparams, state=None):
+        """``(output, aux)``: an MoE's load-balance loss, 0 otherwise. The
+        RWKV channel mix's new ``state`` is written in place."""
         if kind == "moe":
             return ffn_mod.moe_ffn(x, bparams, lparams, self.cfg,
                                    scaling=self.scaling)
+        if kind == "rwkv_cm":
+            out, new = rec_mod.rwkv_cmix(x, bparams, lparams, self.cfg,
+                                         state=state, scaling=self.scaling)
+            if state is not None:
+                _write_state(state, new)
+            return out, 0.0
+        if kind != "dense":
+            raise ValueError(kind)
         act = "gelu" if self.cfg.norm == "rmsnorm_plus1" else "silu"
         return ffn_mod.dense_ffn(x, bparams, lparams, activation=act,
                                  scaling=self.scaling), 0.0
@@ -230,15 +306,19 @@ class Model:
         cfg = self.cfg
         for j, (mk, fk) in enumerate(zip(block.pattern, block.ffn)):
             sb, sl = lb[f"sub_{j}"], ll[f"sub_{j}"]
+            cache = None if sc is None else sc[f"sub_{j}"]
+            cm_state = None
+            if cache is not None and "cmix" in cache:
+                cache, cm_state = cache["tmix"], cache["cmix"]
             hin = apply_norm(x, sb["mixer_norm"], cfg.norm)
             out = self._run_mixer(mk, hin, sb["mixer"], sl["mixer"],
-                                  cache=None if sc is None else sc[f"sub_{j}"],
-                                  **kw)
+                                  cache=cache, **kw)
             if cfg.post_norm:
                 out = apply_norm(out, sb["post_mixer_norm"], cfg.norm)
             x = x + out
             fin = apply_norm(x, sb["ffn_norm"], cfg.norm)
-            out, aux_j = self._run_ffn(fk, fin, sb["ffn"], sl["ffn"])
+            out, aux_j = self._run_ffn(fk, fin, sb["ffn"], sl["ffn"],
+                                       state=cm_state)
             if cfg.post_norm:
                 out = apply_norm(out, sb["post_ffn_norm"], cfg.norm)
             x = x + out
@@ -253,7 +333,10 @@ class Model:
         sequence mode aux is the MoE load-balance losses summed over layers
         in order (an fp32 scalar); the cached serve modes drop it (None).
         With ``remat`` and autograd on, each layer of a sequence forward
-        runs under ``torch.utils.checkpoint``."""
+        runs under ``torch.utils.checkpoint``. The recurrent mixers
+        (rglru / rwkv) ignore ``pad_mask`` and ``valid_start``: their
+        states accumulate pad tokens, so only attention architectures are
+        position-exact under left-padding, as in the reference."""
         cfg = self.cfg
         base, lora = params["base"], params["lora"]
         seg = lora.get("seg") if isinstance(lora, dict) else None
@@ -435,5 +518,5 @@ class Model:
         return self._logits(params["base"], h), caches
 
 
-def build_model(cfg, remat: bool = False) -> Model:
-    return Model(cfg, remat=remat)
+def build_model(cfg, remat: bool = False, **overrides) -> Model:
+    return Model(cfg, remat=remat, **overrides)

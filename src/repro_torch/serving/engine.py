@@ -19,7 +19,8 @@
   (prefill at ``tile_t = SEG_TILE = 8``, decode at ``tile_t = 1``) and
   ``mode="materialize"`` the per-adapter loop over dequantized fp trees,
   as references. All modes mask pad slots and use real rotary positions,
-  so they agree token for token.
+  so they agree token for token (attention architectures; recurrent
+  states carry pad tokens, see :class:`MultiLoRAEngine`).
 
 The engine honours the reference's failure contract
 (``repro_torch.serving.faults``): deadlines, a bounded queue with
@@ -558,6 +559,19 @@ class _Row:
     logits: Optional[List[np.ndarray]] = None   # per token, if kept
 
 
+def _copy_rows(dst, src, idx: torch.Tensor):
+    """Copy the batch rows of every cache leaf of ``src`` into rows ``idx``
+    (axis 1) of ``dst``'s, walking nested dicts and lists."""
+    if isinstance(dst, torch.Tensor):
+        dst.index_copy_(1, idx, src.to(dst.dtype))
+    elif isinstance(dst, dict):
+        for k, v in dst.items():
+            _copy_rows(v, src[k], idx)
+    else:
+        for d, s in zip(dst, src):
+            _copy_rows(d, s, idx)
+
+
 class MultiLoRAEngine:
     """Step-based continuous-batching scheduler over many users' adapters.
 
@@ -580,8 +594,14 @@ class MultiLoRAEngine:
     straight from packed codes (prefill at ``tile_t = SEG_TILE``, decode at
     ``tile_t = 1``). ``mode="materialize"``: the per-adapter loop over
     dequantized fp trees (the reference). All three mask pad slots and use
-    real rotary positions, so they agree token for token. The engine runs
-    on the device of ``base_params``.
+    real rotary positions, so they agree token for token for attention
+    architectures. The recurrent mixers (RWKV, RG-LRU) carry pad tokens
+    through their states, as the reference's do (the pad masks cover
+    attention only): a left-padded row's tokens depend on its padded
+    length, so the modes agree only where no request is padded. Inactive
+    rows of the continuous decode advance junk states; admission
+    overwrites a row's states. The engine runs on the device of
+    ``base_params``.
 
     **Failure contract.** ``queue_limit`` bounds the pending queue
     (``queue_policy``: ``"reject"`` the new arrival or ``"shed_oldest"``
@@ -940,14 +960,11 @@ class MultiLoRAEngine:
         if tel is not None:
             tel.on_prefill(self._wave, [r.request_id for r in reqs],
                            int(tpad), now - t_pre)
-        # cache rows land on axis 1 of every (count, B, cap, KV, dh) leaf;
-        # the group's caches have this engine's capacity, so ring slots line
-        # up with the persistent cache's
-        idx = upload(np.asarray(rows, np.int64), dev)
-        for dst_block, src_block in zip(self._caches, grp):
-            for sub, dst in dst_block.items():
-                for name, t in dst.items():
-                    t.index_copy_(1, idx, src_block[sub][name].to(t.dtype))
+        # cache rows land on axis 1 of every (count, B, ...) leaf (rwkv's
+        # nest a level deeper, under "tmix" / "cmix"); the group's caches
+        # have this engine's capacity, so ring slots line up with the
+        # persistent cache's
+        _copy_rows(self._caches, grp, upload(np.asarray(rows, np.int64), dev))
         out = []
         for b, (req, row_idx) in enumerate(zip(reqs, rows)):
             req.t_first = now

@@ -85,6 +85,14 @@ SHAPES = [
                    (7168, 256), (7168, 2048), (2048, 7168), (7168, 18432),
                    (18432, 7168))
       for t, kt in ((16, 1), (512, 8))],
+    # rwkv6-1.6b's and recurrentgemma-2b's seven distinct (K, M) at decode
+    # and prefill: K = 7680 is 60 groups, 7.5 per block of the 8-block
+    # cluster (the last block owns 4 units), recurrentgemma's M = 256 of
+    # its single-KV-head wk / wv
+    *[(t, k, m, kt, (128, 128, 128, 128))
+      for k, m in ((2048, 2048), (2048, 7168), (7168, 2048), (2560, 2560),
+                   (2560, 256), (2560, 7680), (7680, 2560))
+      for t, kt in ((16, 1), (512, 8))],
     # A-only (matmul_rhs: kt None; sgmv_rhs: kt 1 / 3 / 8): m = 0, no B
     (16, 3072, 0, None, (128, None, None, None)),
     (512, 8192, 0, None, (128, None, None, None)),

@@ -57,14 +57,15 @@ def _close(got, want):
 
 
 PORTED = ("llama3.2-3b", "internlm2-20b", "gemma2-2b", "olmo-1b",
-          "mixtral-8x22b", "deepseek-v3-671b", "musicgen-medium",
-          "qwen2-vl-72b")
+          "rwkv6-1.6b", "mixtral-8x22b", "deepseek-v3-671b",
+          "recurrentgemma-2b", "musicgen-medium", "qwen2-vl-72b")
 CONFIG_FIELDS = (
     "name", "family", "n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
     "vocab", "head_dim", "resolved_head_dim", "norm", "post_norm", "rope",
     "rope_theta", "mrope_sections", "window", "attn_softcap",
     "logit_softcap", "tie_embeddings", "n_codebooks", "vision_stub",
-    "subquadratic", "lora_rank", "lora_alpha", "mtp", "base_quant_bits")
+    "subquadratic", "lora_rank", "lora_alpha", "mtp", "base_quant_bits",
+    "rwkv_head_dim", "rglru_width", "conv_width")
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -87,11 +88,24 @@ def test_config_matches_reference(arch, preset):
     assert t.total_layers() == j.total_layers()
 
 
-@pytest.mark.parametrize("arch,item", [("rwkv6-1.6b", "A6c"),
-                                       ("recurrentgemma-2b", "A6c")])
-def test_unported_archs_raise_with_their_item(arch, item):
-    with pytest.raises(NotImplementedError, match=item):
-        get_config(arch)
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "recurrentgemma-2b"])
+def test_recurrent_configs_load_and_match_reference(arch):
+    """The recurrent configs load at both presets and equal the
+    reference's field for field (the RWKV head, RG-LRU width and conv
+    width included), block for block; every architecture of the JAX
+    package is one the port's registry knows."""
+    from repro.configs import get_config as j_get_config
+    from repro.configs.base import ARCH_IDS as J_ARCH_IDS
+    from repro_torch.configs import ARCH_IDS
+
+    assert ARCH_IDS == J_ARCH_IDS
+    for preset in ("full", "smoke"):
+        j, t = j_get_config(arch, preset), get_config(arch, preset)
+        assert {f: getattr(t, f) for f in CONFIG_FIELDS} == \
+            {f: getattr(j, f) for f in CONFIG_FIELDS}, preset
+        assert [dataclasses.astuple(b) for b in t.blocks] == \
+            [dataclasses.astuple(b) for b in j.blocks]
+        assert t.subquadratic and t.total_layers() == t.n_layers
 
 
 def test_prefill_and_decode_logits_match_reference(models):

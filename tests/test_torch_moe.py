@@ -121,8 +121,7 @@ def test_config_matches_reference():
             [dataclasses.astuple(b) for b in j.blocks]
         assert dataclasses.asdict(t.moe) == dataclasses.asdict(j.moe)
     assert get_config(ARCH).window == 4096
-    with pytest.raises(NotImplementedError, match="A6c"):
-        get_config("rwkv6-1.6b")
+    assert get_config("rwkv6-1.6b").blocks[0].pattern == ("rwkv",)
 
 
 # --------------------------------------------------------------------------
@@ -277,11 +276,16 @@ def test_eight_lora_linears_per_layer(models):
 
 
 def test_model_rejects_unported_layers():
-    cfg = dataclasses.replace(get_config(ARCH, "smoke"), blocks=(
-        dataclasses.replace(get_config(ARCH, "smoke").blocks[0],
-                            pattern=("rwkv",)),))
-    with pytest.raises(NotImplementedError, match="A6c"):
-        build_model(cfg).init(device="cpu")
+    """A layer kind neither package has raises ``ValueError`` naming it in
+    both inits, as the reference's ``_init_mixer`` / ``_init_ffn`` do."""
+    for field, kind in (("pattern", "ssm"), ("ffn", "swiglu_moe")):
+        cfg, jcfg = get_config(ARCH, "smoke"), smoke_cfg(ARCH)
+        cfg, jcfg = (dataclasses.replace(c, blocks=(dataclasses.replace(
+            c.blocks[0], **{field: (kind,)}),)) for c in (cfg, jcfg))
+        with pytest.raises(ValueError, match=kind):
+            build_model(cfg).init(device="cpu")
+        with pytest.raises(ValueError, match=kind):
+            j_build_model(jcfg).init(jax.random.PRNGKey(0))
 
 
 # --------------------------------------------------------------------------
