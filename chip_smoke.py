@@ -254,6 +254,24 @@ Phases (a failure raises and the script exits non-zero):
     recurrentgemma one period and its tail group): bounded continuous ==
     materialize in tokens, logits within ``LOGIT_RTOL``, a
     shifted-adapter control.
+41. The mesh and EF-int8 compression on the card: ``make_host_mesh()``
+    (NCCL, world size 1); llama3.2-3b's full-size parameter tree (meta)
+    under ``shard_tree`` on it, every leaf whole; the sharded leaves and
+    bytes per device on the two production meshes, (16, 16) and (2, 16,
+    16); ``compressed_psum_mean`` over the NCCL group on the LoRA
+    gradients of one full-width step (a 1e-6 residual carried in): equal
+    bit for bit to the single-process arithmetic, the new residual at most
+    scale / 2 per element; its time per call.
+42. The training driver at full width: ``repro_torch.launch.train.main``
+    for llama3.2-3b, ``--preset full`` (bf16 base, remat), batch 8 x 128,
+    a checkpoint every 4 steps. Run A goes 12 steps; run B is sent SIGTERM
+    after 6 and resumed to 12: its steps 6-11 (every metric) and its final
+    LoRA params and optimizer state equal A's bit for bit, and both keep
+    exactly 3 step directories. A driver subprocess sent SIGTERM after its
+    step-3 line exits 0 with the checkpoint of its last finished step;
+    resumed, it ends where A ends, bit for bit. Step time, tokens/s, peak
+    memory, a checkpoint's bytes and seconds, the steps that overlap an
+    async write against the median, and one profiled step's idle share.
 
 The phases' total time is logged last. The last three lines are the card (nvidia-smi), a ``{"kernels": [...]}``
 summary and ``{"ok": true, "device": {...}}``.
@@ -4333,6 +4351,382 @@ def recurrent_phases() -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# the mesh, compression and the training driver (phases 41-42)
+# --------------------------------------------------------------------------
+
+DRIVER_ARCH = "llama3.2-3b"
+DRIVER_STEPS = 12
+DRIVER_CUT = 6                 # run B stops after this many steps, resumes
+DRIVER_BATCH = 8
+DRIVER_SEQ = 128
+DRIVER_CKPT_EVERY = 4
+DRIVER_KEEP = 3                # the driver's keep-K
+DRIVER_PROFILED = 9            # run A's step under torch.profiler
+SIGTERM_AFTER = 3              # the subprocess is sent SIGTERM after this line
+COMPRESS_CALLS = 10
+
+
+def tree_bytes(tree, specs=None, mesh=None) -> int:
+    """Bytes of a tree's leaves; with specs and a mesh, per device."""
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.parallel.sharding import block_index
+
+    sizes = []
+    if specs is None:
+        tree_map(lambda t: sizes.append(t.numel() * t.element_size()), tree)
+        return sum(sizes)
+
+    def one(t, spec):
+        parts = 1
+        for e in spec:
+            parts *= block_index(e, mesh, {a: 0 for a in mesh.axis_names})[1]
+        sizes.append(t.numel() * t.element_size() // parts)
+
+    tree_map(one, tree, specs)
+    return sum(sizes)
+
+
+def spec_list(tree, specs) -> list:
+    """The specs of a spec tree, one per leaf of ``tree``."""
+    from repro_torch.optim.adamw import tree_map
+
+    out = []
+    tree_map(lambda t, s: out.append(s), tree, specs)
+    return out
+
+
+def phase_mesh(device="cuda", preset="full"):
+    """Phase 41: ``make_host_mesh()`` (NCCL on the card, world size 1);
+    llama3.2-3b's full-size parameter tree (meta) under ``shard_tree`` on
+    it, every leaf whole on the one device; the sharded leaves and bytes
+    per device on the two production meshes; ``compressed_psum_mean`` over
+    the mesh's group on the LoRA gradients of one full-width step, equal
+    bit for bit to the single-process arithmetic, with the EF residual at
+    most scale / 2 per element; its time per call."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    from repro_torch.launch.step import _lora_grads
+    from repro_torch.models import build_model
+    from repro_torch.optim import (compress_with_feedback,
+                                   compressed_psum_mean, dequantize_int8,
+                                   init_error_feedback)
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.parallel.sharding import local_block, shard_tree
+
+    t0 = time.perf_counter()
+    cfg = get_config(DRIVER_ARCH, preset)
+    tree = build_model(cfg).init(0, device="meta")
+    mesh = make_host_mesh(device)
+    out = {}
+    try:
+        import torch.distributed as dist
+
+        group = mesh.fsdp_group()
+        specs = shard_tree(tree, mesh)
+        whole = []
+        tree_map(lambda t, s: whole.append(tuple(local_block(
+            t, s, mesh, mesh.coords).shape) == tuple(t.shape)), tree, specs)
+        if not all(whole):
+            raise AssertionError("a leaf is cut on the one-device mesh")
+        log(f"mesh phase: make_host_mesh({device!r}) -> {mesh.shape} over "
+            f"{dist.get_backend(group)}, world size {dist.get_world_size()}; "
+            f"{cfg.name}'s {len(whole)} leaves "
+            f"({tree_bytes(tree) / 2**30:.2f} GiB) all whole on it")
+        out["production"] = {}
+        for multi in (False, True):
+            pm = make_production_mesh(multi_pod=multi)
+            ps = shard_tree(tree, pm)
+            cut = sum(any(e is not None for e in s)
+                      for s in spec_list(tree, ps))
+            per_dev = tree_bytes(tree, ps, pm)
+            out["production"][pm.sizes] = {"sharded": cut, "bytes": per_dev}
+            log(f"  {pm.sizes} {pm.axis_names}: {cut} of {len(whole)} leaves "
+                f"sharded; {per_dev / 2**20:.1f} MiB of params per device "
+                f"({tree_bytes(tree) / per_dev:.1f}x less than one copy)")
+        del tree
+
+        # the LoRA gradients of one full-width step, in the port's dtype
+        model = build_model(cfg, remat=True)
+        params = model.init(0, device=device)
+        dc = DataConfig(seq_len=DRIVER_SEQ, global_batch=DRIVER_BATCH,
+                        vocab=cfg.vocab, seed=0)
+        batch = train_batch(dc, 0, device)
+        _, _, grads = _lora_grads(model, params, batch)
+        del params, model
+        error = tree_map(lambda g: torch.randn_like(g) * 1e-6, grads)
+        red, new_e = compressed_psum_mean(grads, error, group)
+        q, s, want_e = compress_with_feedback(grads, error)
+        want = tree_map(lambda qi, si: dequantize_int8(qi, si) / 1, q, s)
+        for a, b in zip(tree_leaves(red) + tree_leaves(new_e),
+                        tree_leaves(want) + tree_leaves(want_e)):
+            if not torch.equal(a, b):
+                raise AssertionError("compressed_psum_mean over the group "
+                                     "differs from the local arithmetic")
+        # |residual| <= scale / 2, up to the rounding of |g + e| <= 127
+        # scales in fp32 (127 x 2^-23 of a scale)
+        worst = max(float((e.abs() / si).max())
+                    for e, si in zip(tree_leaves(new_e), tree_leaves(s)))
+        if worst > 0.5 + 127 * 2.0 ** -23:
+            raise AssertionError(f"EF residual {worst} x scale > 1/2")
+        sync(device)
+        t1 = time.perf_counter()
+        for _ in range(COMPRESS_CALLS):
+            compressed_psum_mean(grads, error, group)
+        sync(device)
+        ms = (time.perf_counter() - t1) / COMPRESS_CALLS * 1e3
+        n_leaves = len(tree_leaves(grads))
+        n_bytes = tree_bytes(grads)
+        log(f"  compressed_psum_mean over {dist.get_backend(group)} on "
+            f"{n_leaves} LoRA gradient leaves ({n_bytes / 2**20:.1f} MiB "
+            f"fp32, {n_bytes / 4 / 2**20:.1f} MiB of int8 codes): == the "
+            f"local arithmetic bit for bit, |residual| <= {worst:.4f} x "
+            f"scale; {ms:.3f} ms per call ({COMPRESS_CALLS} calls, host "
+            f"clock, synchronized); phase {time.perf_counter() - t0:.1f}s")
+        out.update(compress_ms=ms, residual=worst, leaves=n_leaves)
+        del grads, error, red, new_e, q, s, want, want_e
+    finally:
+        mesh.close()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def recorded_driver(device, profiled=None):
+    """While active, every run of ``repro_torch.launch.train.main`` appends
+    each step's metrics (copied) and time (synchronized) to the yielded
+    dict's lists, and each checkpoint write's seconds and bytes; the step
+    index ``profiled`` of the next run is profiled; with ``stop_after``
+    set, the run is sent SIGTERM after that many steps."""
+    import os
+    import signal
+
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.launch import train as train_mod
+
+    rec = {"metrics": [], "times": [], "writes": [], "stop_after": None,
+           "window": None, "async_steps": []}
+    make, write = train_mod.make_train_step, ckpt.CheckpointManager._write
+    save_async = ckpt.CheckpointManager.save_async
+
+    def wrapped(*a, **kw):
+        fn = make(*a, **kw)
+        done = [0]
+
+        def step(*sa):
+            sync(device)
+            t1 = time.perf_counter()
+            if (profiled is not None and device == "cuda"
+                    and len(rec["metrics"]) == profiled):
+                out, rec["window"] = profile_step(lambda: fn(*sa))
+            else:
+                out = fn(*sa)
+            sync(device)
+            rec["times"].append(time.perf_counter() - t1)
+            rec["metrics"].append({k: v.clone() for k, v in out[2].items()})
+            done[0] += 1
+            if done[0] == rec["stop_after"]:
+                signal.raise_signal(signal.SIGTERM)
+            return out
+        return step
+
+    def timed_write(self, step, payload, meta):
+        t1 = time.perf_counter()
+        write(self, step, payload, meta)
+        d = os.path.join(self.directory, f"step_{step:08d}")
+        size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+        rec["writes"].append((time.perf_counter() - t1, size))
+
+    def marked_async(self, step, *a, **kw):
+        rec["async_steps"].append(len(rec["metrics"]))
+        return save_async(self, step, *a, **kw)
+
+    train_mod.make_train_step = wrapped
+    ckpt.CheckpointManager._write = timed_write
+    ckpt.CheckpointManager.save_async = marked_async
+    try:
+        yield rec
+    finally:
+        train_mod.make_train_step = make
+        ckpt.CheckpointManager._write = write
+        ckpt.CheckpointManager.save_async = save_async
+
+
+def ckpt_arrays(directory, step) -> dict:
+    import numpy as np
+
+    d = Path(directory) / f"step_{step:08d}"
+    out = {}
+    for name in ("params.npz", "opt_state.npz"):
+        with np.load(d / name) as z:
+            out.update({f"{name}:{k}": z[k] for k in z.files})
+    return out
+
+
+def same_ckpt(a, b, what):
+    import numpy as np
+
+    diff = [k for k in a if k not in b or a[k].dtype != b[k].dtype
+            or not np.array_equal(a[k], b[k])]
+    if diff or sorted(a) != sorted(b):
+        raise AssertionError(f"{what}: checkpoints differ in {diff[:5]} "
+                             f"({len(diff)} arrays)")
+
+
+def driver_args(ckpt, preset, steps=DRIVER_STEPS, device="cuda"):
+    return ["--arch", DRIVER_ARCH, "--preset", preset, "--steps", str(steps),
+            "--batch", str(DRIVER_BATCH), "--seq", str(DRIVER_SEQ),
+            "--ckpt-every", str(DRIVER_CKPT_EVERY), "--ckpt-dir", str(ckpt),
+            "--log-every", "1", "--device", device]
+
+
+def phase_driver(device="cuda", preset="full"):
+    """Phase 42: ``repro_torch.launch.train.main`` for llama3.2-3b at full
+    width and depth (``--preset full``: bf16 base, remat), batch 8 x 128,
+    a checkpoint every 4 steps. Run A goes 12 steps; run B is sent SIGTERM
+    after 6 steps and resumed to 12: its steps 6-11 (every metric) and its
+    final LoRA params and optimizer state equal A's bit for bit, and each
+    directory keeps exactly 3 steps. A driver subprocess sent SIGTERM after
+    its step-3 line exits 0, leaves the checkpoint of its last finished
+    step, and resumed (in process) ends where A ends, bit for bit. Reports
+    step time, tokens/s, peak memory, a checkpoint's bytes and seconds,
+    the step that overlaps an async write against the median, and one
+    profiled step's idle share."""
+    import math
+    import os
+    import shutil
+    import signal
+    import statistics
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import train as train_mod
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    res = {}
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    # run A: uninterrupted
+    with recorded_driver(device, profiled=DRIVER_PROFILED) as a:
+        train_mod.main(driver_args(tmp / "a", preset, device=device))
+    peak = (torch.cuda.max_memory_allocated() / 2**30 if device == "cuda"
+            else None)
+    if len(a["metrics"]) != DRIVER_STEPS:
+        raise AssertionError(f"run A took {len(a['metrics'])} steps")
+    # run B: SIGTERM after DRIVER_CUT steps, then resumed
+    with recorded_driver(device) as b:
+        b["stop_after"] = DRIVER_CUT
+        train_mod.main(driver_args(tmp / "b", preset, device=device))
+        cut_steps = CheckpointManager(str(tmp / "b")).list_steps()
+        if len(b["metrics"]) != DRIVER_CUT or cut_steps[-1] != DRIVER_CUT - 1:
+            raise AssertionError(f"run B stopped after {len(b['metrics'])} "
+                                 f"steps with checkpoints {cut_steps}")
+        b["stop_after"] = None
+        train_mod.main(driver_args(tmp / "b", preset, device=device))
+    if len(b["metrics"]) != DRIVER_STEPS:
+        raise AssertionError(f"run B took {len(b['metrics'])} steps in all")
+    for i in range(DRIVER_CUT, DRIVER_STEPS):
+        for k, v in a["metrics"][i].items():
+            if not torch.equal(v, b["metrics"][i][k]):
+                raise AssertionError(
+                    f"resumed step {i} {k}: {float(b['metrics'][i][k])!r} "
+                    f"!= uninterrupted {float(v)!r}")
+    last = DRIVER_STEPS - 1
+    final = ckpt_arrays(tmp / "a", last)
+    same_ckpt(ckpt_arrays(tmp / "b", last), final, "resumed run B vs A")
+    for run in ("a", "b"):
+        kept = CheckpointManager(str(tmp / run)).list_steps()
+        if len(kept) != DRIVER_KEEP:
+            raise AssertionError(f"run {run} keeps {kept}")
+    losses = [float(m["loss"]) for m in a["metrics"]]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"losses {losses}")
+    log(f"driver runs A (12 steps) and B (6, SIGTERM, resumed to 12): steps "
+        f"{DRIVER_CUT}-{last} equal bit for bit in every metric, final LoRA "
+        f"params and optimizer state equal ({len(final)} arrays); kept "
+        f"{CheckpointManager(str(tmp / 'a')).list_steps()} / "
+        f"{CheckpointManager(str(tmp / 'b')).list_steps()}; losses "
+        + ", ".join(f"{v:.4f}" for v in losses))
+
+    # a subprocess sent SIGTERM after its step-3 line
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train",
+         *driver_args(tmp / "c", preset, device=device)],
+        cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith(f"[train] step {SIGTERM_AFTER} "):
+                proc.send_signal(signal.SIGTERM)
+                break
+        lines += proc.communicate(timeout=600)[0].splitlines(keepends=True)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    done = [int(l.split()[2]) for l in lines if l.startswith("[train] step ")]
+    kept = CheckpointManager(str(tmp / "c")).list_steps()
+    if (proc.returncode != 0 or not done or not kept or kept[-1] != done[-1]
+            or not any("caught signal" in l for l in lines)):
+        raise AssertionError(f"SIGTERM'd driver: exit {proc.returncode}, "
+                             f"steps {done}, checkpoints {kept}: "
+                             + "".join(lines)[-2000:])
+    with recorded_driver(device) as c:
+        train_mod.main(driver_args(tmp / "c", preset, device=device))
+    same_ckpt(ckpt_arrays(tmp / "c", last), final,
+              "SIGTERM'd and resumed vs A")
+    log(f"driver subprocess: SIGTERM after the step-{SIGTERM_AFTER} line, "
+        f"exit 0 after step {done[-1]} with its checkpoint; resumed in "
+        f"process for {len(c['metrics'])} steps; final LoRA params and "
+        f"optimizer state == run A's")
+
+    times = a["times"]
+    plain = [t for i, t in enumerate(times)
+             if i not in a["async_steps"] and i != DRIVER_PROFILED and i > 0]
+    med = statistics.median(plain)
+    tokens = DRIVER_BATCH * DRIVER_SEQ
+    overlap = [times[i] for i in a["async_steps"] if i < len(times)]
+    w_s = [s for s, _ in a["writes"]]
+    w_b = a["writes"][0][1] if a["writes"] else 0
+    log(f"driver at full width ({preset}): median step {med * 1e3:.1f} ms "
+        f"({tokens / med:.0f} tokens/s), first step {times[0] * 1e3:.1f} ms;"
+        f" peak device memory "
+        + (f"{peak:.2f} GiB" if peak is not None else "not measured")
+        + f"; a checkpoint {w_b / 2**20:.1f} MiB written in "
+        + ", ".join(f"{s:.3f}" for s in w_s) + " s; steps overlapping an "
+        f"async write " + ", ".join(f"{t * 1e3:.1f}" for t in overlap)
+        + f" ms vs median {med * 1e3:.1f} ms")
+    if a["window"] is not None:
+        log(window_line("driver", {"window": a["window"],
+                                   "unprofiled_ms": med * 1e3},
+                        what="train-step"))
+    res.update(step_ms=med * 1e3, tokens_per_s=tokens / med, peak_gib=peak,
+               ckpt_bytes=w_b, ckpt_s=w_s, overlap_ms=[t * 1e3
+                                                       for t in overlap],
+               window=a["window"], losses=losses)
+    shutil.rmtree(tmp, ignore_errors=True)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    log(f"driver phase {time.perf_counter() - t0:.1f}s")
+    return res
+
+
+def driver_phases(device="cuda", preset="full") -> dict:
+    """Phases 41-42 in order."""
+    t0 = time.perf_counter()
+    mesh = phase_mesh(device, preset)
+    log(f"mesh phase {time.perf_counter() - t0:.1f}s")
+    return {"mesh": mesh, "driver": phase_driver(device, preset)}
+
+
 def main() -> int:
     import torch
 
@@ -4535,6 +4929,9 @@ def main() -> int:
 
     # ---- 36-40. rwkv6-1.6b and recurrentgemma-2b ---------------------------
     rec = recurrent_phases()
+
+    # ---- 41-42. the mesh, compression and the training driver --------------
+    driver_phases()
     log(f"total {time.perf_counter() - t_start:.1f}s")
 
     # ---- summary -------------------------------------------------------------

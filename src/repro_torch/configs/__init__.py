@@ -1,5 +1,5 @@
 from .base import (ARCH_IDS, BlockSpec, MLAConfig, ModelConfig, MoEConfig,
-                   default_blocks, get_config)
+                   SHAPE_CELLS, default_blocks, get_config)
 
 __all__ = ["ARCH_IDS", "BlockSpec", "MLAConfig", "ModelConfig", "MoEConfig",
-           "default_blocks", "get_config"]
+           "SHAPE_CELLS", "default_blocks", "get_config"]

@@ -127,3 +127,12 @@ def get_config(name: str, preset: str = "full") -> ModelConfig:
     if preset == "smoke":
         return mod.smoke_config()
     raise ValueError(f"unknown preset {preset!r}")
+
+
+SHAPE_CELLS = {
+    # name: (seq_len, global_batch, kind)
+    "train_4k": (4096, 256, "train"),
+    "prefill_32k": (32768, 32, "prefill"),
+    "decode_32k": (32768, 128, "decode"),
+    "long_500k": (524288, 1, "decode"),
+}

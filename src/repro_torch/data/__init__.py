@@ -1,5 +1,7 @@
-"""Deterministic synthetic data (numpy only; PyTorch port)."""
+"""Deterministic synthetic data (numpy batches; PyTorch port)."""
 
-from .pipeline import DataConfig, make_batch, synthetic_batches
+from .pipeline import (DataConfig, make_batch, make_batch_specs,
+                       synthetic_batches)
 
-__all__ = ["DataConfig", "make_batch", "synthetic_batches"]
+__all__ = ["DataConfig", "make_batch", "make_batch_specs",
+           "synthetic_batches"]

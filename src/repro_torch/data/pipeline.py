@@ -17,8 +17,10 @@ import dataclasses
 from typing import Dict, Iterator
 
 import numpy as np
+import torch
 
-__all__ = ["DataConfig", "make_batch", "synthetic_batches"]
+__all__ = ["DataConfig", "make_batch", "make_batch_specs",
+           "synthetic_batches"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,3 +90,22 @@ def synthetic_batches(cfg: DataConfig,
     while True:
         yield make_batch(cfg, step)
         step += 1
+
+
+def make_batch_specs(cfg: DataConfig) -> Dict[str, torch.Tensor]:
+    """Stand-ins of a *global* batch for the sharding rules: the keys,
+    shapes and dtypes of :func:`make_batch`'s batch as ``meta`` tensors (no
+    storage)."""
+    b, t = cfg.global_batch, cfg.seq_len
+    meta = lambda shape, dtype: torch.empty(shape, dtype=dtype,
+                                            device="meta")
+    if cfg.n_codebooks:
+        specs = {"tokens": meta((b, cfg.n_codebooks, t), torch.int32),
+                 "targets": meta((b, cfg.n_codebooks, t), torch.int32)}
+    else:
+        specs = {"tokens": meta((b, t), torch.int32),
+                 "targets": meta((b, t), torch.int32)}
+    if cfg.vision_tokens:
+        specs["vision_embeds"] = meta((b, cfg.vision_tokens, cfg.d_model),
+                                      torch.float32)
+    return specs

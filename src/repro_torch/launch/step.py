@@ -6,11 +6,17 @@
 * microbatch gradient accumulation in fp32 (activation memory is one
   microbatch), then one AdamW update with the paper's Appendix-A schedule;
 * per-layer recomputation on the backward pass when the model has
-  ``remat`` set.
+  ``remat`` set;
+* under the model's mesh, data parallelism over its data ranks: each rank
+  takes its rows of the global batch (:func:`local_batch`), the loss and
+  metrics are averaged across the ranks, the gradients of replicated LoRA
+  leaves are all-reduced, and an expert-sharded leaf keeps the gradient
+  its experts' all-to-all brought home. The reference gets the same
+  global loss and gradients from ``pjit`` over the sharded global batch.
 
-The reference's error-feedback int8 gradient compression across a pod
-axis belongs to the training entry point ``launch/train.py`` (ROADMAP
-A8b).
+Under a mesh the ranks split each microbatch of their own rows, where the
+reference splits the global batch first: with several microbatches, MoE
+capacity drops see other token groups than the reference's.
 """
 
 from __future__ import annotations
@@ -19,9 +25,56 @@ import torch
 
 from repro_torch.optim import OptimizerConfig, adamw_update
 from repro_torch.optim.adamw import tree_leaves, tree_map
+from repro_torch.parallel.sharding import (batch_specs, data_ranks,
+                                           local_block)
 
-__all__ = ["make_train_step", "make_eval_step", "make_serve_step",
-           "make_prefill_step"]
+__all__ = ["local_batch", "make_train_step", "make_eval_step",
+           "make_serve_step", "make_prefill_step"]
+
+
+def local_batch(batch, mesh):
+    """This rank's rows of a global batch under ``mesh``: rows ``[r·B/S,
+    (r+1)·B/S)`` of the batch dim (dim 1 of ``(3, B, T)`` positions).
+    Raises when S does not divide the batch."""
+    s = data_ranks(mesh)
+    if s == 1:
+        return batch
+    specs = batch_specs(batch, mesh)
+    for k, v in batch.items():
+        if all(e is None for e in specs[k]):
+            raise ValueError(
+                f"batch leaf {k!r} of shape {tuple(v.shape)}: its batch dim "
+                f"does not divide over the mesh's {s} data ranks")
+    return {k: local_block(v, specs[k], mesh, mesh.coords)
+            for k, v in batch.items()}
+
+
+def _mesh_mean(model, loss, metrics, grads):
+    """The global loss, metrics and gradients from each rank's: the mean
+    across the data ranks of the loss and metrics and of replicated
+    leaves' gradients; an expert-sharded leaf's gradient (summed over the
+    ranks' losses by the all-to-all's backward) over S. Returns them with
+    the global gradient norm (each replicated leaf counted once)."""
+    import torch.distributed as dist
+
+    s = data_ranks(model.mesh)
+    group = model.mesh.fsdp_group()
+
+    def mean(t):
+        t = t.to(torch.float32).clone()
+        dist.all_reduce(t, group=group)
+        return t / s
+
+    loss, metrics = mean(loss), {k: mean(v) for k, v in metrics.items()}
+    sharded = tree_map(lambda g, sp: any(e is not None for e in sp), grads,
+                       model.param_specs(grads))
+    grads = tree_map(lambda g, sh: g / s if sh else mean(g), grads, sharded)
+    sq = {True: torch.zeros((), dtype=torch.float32, device=loss.device),
+          False: torch.zeros((), dtype=torch.float32, device=loss.device)}
+    for g, sh in zip(tree_leaves(grads), tree_leaves(sharded)):
+        sq[sh] = sq[sh] + torch.sum(torch.square(g.to(torch.float32)))
+    dist.all_reduce(sq[True], group=group)
+    return loss, metrics, grads, torch.sqrt(sq[False] + sq[True])
 
 
 def _split_microbatches(batch, n_micro: int):
@@ -74,13 +127,20 @@ def _lora_grads(model, params, batch, n_microbatches: int = 1):
 def make_train_step(model, opt_cfg: OptimizerConfig, n_microbatches: int = 1):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``; ``metrics`` holds ``loss``, ``ce``, ``aux``, ``lr`` and
-    ``grad_norm``. ``batch`` is a dict of tensors on the params' device."""
+    ``grad_norm``. ``batch`` is a dict of tensors on the params' device:
+    under the model's mesh this rank's rows (:func:`local_batch`) and
+    params (``Model.local_params``)."""
     def train_step(params, opt_state, batch):
         loss, metrics, grads = _lora_grads(model, params, batch,
                                            n_microbatches)
+        norm = None
         with torch.no_grad():
+            if data_ranks(model.mesh) > 1:
+                loss, metrics, grads, norm = _mesh_mean(model, loss, metrics,
+                                                        grads)
             new_lora, new_opt, om = adamw_update(grads, opt_state,
-                                                 params["lora"], opt_cfg)
+                                                 params["lora"], opt_cfg,
+                                                 norm)
         out_params = {"base": params["base"], "lora": new_lora}
         return out_params, new_opt, {"loss": loss, **metrics, **om}
 

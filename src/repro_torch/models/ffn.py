@@ -18,8 +18,25 @@ before each batched product, and a shared expert (a dense GLU of width
 ``d_ff_expert · n_shared`` over every token, with its own LoRA under
 ``"shared"``) added after the dispatch.
 
-Not ported: the reference's ``shard_map`` expert path under a device mesh
-(ROADMAP A9).
+Under a mesh whose data axis has S > 1 ranks (:func:`moe_ffn`'s
+``mesh``), each rank holds its rows of the batch and the expert path is
+the reference's ``shard_map`` one (``_moe_shard_map``), in one of its two
+weight layouts, chosen by divisibility (:func:`expert_layout`):
+
+* **EP** (``E % S == 0``): each rank holds E/S experts (base and LoRA),
+  dispatches its own tokens at the per-shard capacity ``cap_loc``, and an
+  ``all_to_all`` moves the capacity slots to the experts' owners and back;
+* **weight-FSDP** (otherwise): each rank holds a d-slice of every expert's
+  base weights, all-gathers them per layer and dispatches its own tokens
+  over all experts.
+
+Too few tokens per rank (``n_tok // S < 8``) fall back to one dispatch over
+all tokens at the global capacity, as the reference's ``s_count = 1``
+does: the ranks all-gather rows and experts and keep their own rows. The
+load-balance loss is global: the sums of the router probabilities and of
+the routed counts are all-reduced over the data group. Collectives carry
+gradients (``repro_torch.parallel.collectives``). Tensor parallelism over
+a ``model`` axis is ROADMAP A9b.
 """
 
 from __future__ import annotations
@@ -29,11 +46,15 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.kernels.quant_matmul import (PackedLoRABatch,
                                                PackedLoRABuckets,
                                                sgmv_apply_packed)
+from repro_torch.parallel.collectives import (all_gather, all_reduce_sum,
+                                              all_to_all)
+from repro_torch.parallel.sharding import data_ranks
 
 from .common import init_linear, init_lora, linear
 
@@ -80,10 +101,12 @@ def _expert_stack(gen: torch.Generator, d_in: int, d_out: int, dtype,
     the column is 0), kept in fp32."""
     bound = 1.0 / np.sqrt(d_in)
     dev = gen.device
+    # a meta stack has shapes only: nothing to draw per matrix
+    mats = () if dev.type == "meta" else np.ndindex(*lead)
     tmp = torch.empty((d_in, d_out), dtype=torch.float32, device=dev)
     if not quant_bits:
         w = torch.empty(tuple(lead) + (d_in, d_out), dtype=dtype, device=dev)
-        for idx in np.ndindex(*lead):
+        for idx in mats:
             tmp.uniform_(-bound, bound, generator=gen)
             w[idx].copy_(tmp)
         return {"w": w}
@@ -92,7 +115,7 @@ def _expert_stack(gen: torch.Generator, d_in: int, d_out: int, dtype,
                         device=dev)
     scales = torch.empty(tuple(lead) + (1, d_out), dtype=torch.float32,
                          device=dev)
-    for idx in np.ndindex(*lead):
+    for idx in mats:
         tmp.uniform_(-bound, bound, generator=gen)
         w = tmp.to(dtype)
         sc = w.abs().amax(dim=0, keepdim=True) / qmax
@@ -164,33 +187,131 @@ def moe_capacity(n_tok: int, mc) -> int:
                            * mc.capacity_factor)), 8)
 
 
-def moe_ffn(x: torch.Tensor, base, lora, cfg, *,
-            scaling: float = 2.0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Token-choice top-k MoE with capacity drops. ``x: (B, T, d)``;
-    returns ``(y, aux_load_balance_loss)``."""
+def expert_layout(cfg, mesh):
+    """``None`` (single device), ``"ep"`` or ``"fsdp"``: how the expert
+    stacks are spread over the data ranks (the reference's ``ep = e %
+    s_count == 0``)."""
+    s = data_ranks(mesh)
+    if s == 1:
+        return None
+    return "ep" if cfg.moe.n_experts % s == 0 else "fsdp"
+
+
+# the per-layer expert leaves' specs of each layout, as the reference's
+# shard_map in_specs have them with a ``model`` axis of 1: "F" is the FSDP
+# axes. The weight-FSDP layout keeps ``wd``'s scale d-sliced, so that the
+# gather the reference does on it (its ``ffn.py:419-426``) restores it.
+_EXPERT_SPECS = {
+    "ep": {"w": ("F", None, None), "scale": ("F", None, None),
+           "a": ("F", None, None), "b": ("F", None, None)},
+    "fsdp": {("wg", "w"): (None, "F", None), ("wu", "w"): (None, "F", None),
+             ("wd", "w"): (None, None, "F"),
+             ("wd", "scale"): (None, None, "F")},
+}
+
+
+def expert_spec(layout, name: str, field: str, fsdp):
+    """The spec of one per-layer expert leaf ``(E, ·, ·)`` of linear
+    ``name`` (``wg`` / ``wu`` / ``wd``), field ``w`` / ``scale`` / ``a`` /
+    ``b``, with ``fsdp`` for the FSDP axes."""
+    table = _EXPERT_SPECS[layout]
+    spec = table.get(field) if layout == "ep" else table.get((name, field))
+    spec = spec or (None, None, None)
+    return tuple(fsdp if e == "F" else e for e in spec)
+
+
+def _gather_experts(tree, layout, group):
+    """The whole per-layer expert stacks from each rank's block (the
+    gathers are the inverse of :func:`expert_spec`'s placement)."""
+    out = {}
+    for name, leaf in tree.items():
+        out[name] = {}
+        for field, t in leaf.items():
+            spec = expert_spec(layout, name, field, "F")
+            out[name][field] = (all_gather(t, spec.index("F"), group)
+                                if "F" in spec else t)
+    return out
+
+
+def moe_ffn(x: torch.Tensor, base, lora, cfg, *, scaling: float = 2.0,
+            mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Token-choice top-k MoE with capacity drops. ``x: (B, T, d)`` (this
+    rank's rows under a ``mesh``); returns ``(y, aux_load_balance_loss)``."""
     mc = cfg.moe
     b, t, d = x.shape
-    n_tok = b * t
     e, k = mc.n_experts, mc.top_k
-    xf = x.reshape(n_tok, d)
+    xf = x.reshape(b * t, d)
+    s_count = data_ranks(mesh)
+    group = mesh.fsdp_group() if s_count > 1 else None
+    n_tok = b * t * s_count                             # the global tokens
 
     logits = linear(xf, base["router"], lora and lora.get("router"), scaling)
     probs = torch.softmax(logits.to(torch.float32), dim=-1)
     gate, top_idx = _top_k(probs, k)                     # (n_tok, k)
     gate = gate / gate.sum(dim=-1, keepdim=True)         # renormalize top-k
 
-    # Switch-style aux loss: mean routed fraction × mean router prob
-    me = probs.mean(dim=0)
-    ce = F.one_hot(top_idx, e).to(torch.float32).sum(dim=1).mean(dim=0) / k
+    # Switch-style aux loss: mean routed fraction × mean router prob, over
+    # the global tokens
+    routed = F.one_hot(top_idx, e).to(torch.float32).sum(dim=1)
+    if group is None:
+        me, ce = probs.mean(dim=0), routed.mean(dim=0) / k
+    else:
+        me = all_reduce_sum(probs.sum(dim=0), group) / n_tok
+        ce = all_reduce_sum(routed.sum(dim=0), group) / n_tok / k
     aux = mc.aux_loss_weight * e * torch.sum(me * ce)
 
     lex = lora.get("experts") if (lora and mc.lora_on_experts) else None
-    y = _moe_dense_dispatch(xf, gate, top_idx, base["experts"], lex, e, k,
-                            moe_capacity(n_tok, mc), scaling)
+    if group is None:
+        y = _moe_dense_dispatch(xf, gate, top_idx, base["experts"], lex, e,
+                                k, moe_capacity(n_tok, mc), scaling)
+    else:
+        y = _moe_shard_map(xf, gate, top_idx, base, lex, cfg, mesh, group,
+                           scaling)
     if mc.n_shared:
         y = y + dense_ffn(xf, base["shared"], lora and lora.get("shared"),
                           scaling=scaling)
     return y.reshape(b, t, d), aux
+
+
+def _moe_shard_map(xf, gate, top_idx, base, lex, cfg, mesh, group, scaling):
+    """The expert path over S data ranks (the reference's ``_moe_shard_map``
+    and its ``s_count = 1`` fallback); each rank's ``xf`` is its own rows."""
+    mc = cfg.moe
+    e, k = mc.n_experts, mc.top_k
+    s_count = data_ranks(mesh)
+    tok_loc = xf.shape[0]
+    layout = expert_layout(cfg, mesh)
+    if lex is not None and any(isinstance(l, _PACKED) for l in lex.values()):
+        raise NotImplementedError(
+            "packed multi-adapter expert LoRA is a serving-path feature "
+            "(no mesh); under a mesh serve with mode='materialize'")
+    ex = base["experts"]
+    if tok_loc < 8:
+        # the reference's fallback: one dispatch over all the tokens
+        rank = dist.get_rank(group)
+        n_tok = tok_loc * s_count
+        ex = _gather_experts(ex, layout, group)
+        lx = None if lex is None else _gather_experts(lex, layout, group)
+        y = _moe_dense_dispatch(
+            all_gather(xf, 0, group), all_gather(gate, 0, group),
+            all_gather(top_idx, 0, group), ex, lx, e, k,
+            moe_capacity(n_tok, mc), scaling)
+        return y.narrow(0, rank * tok_loc, tok_loc)
+    cap_loc = moe_capacity(tok_loc, mc)
+    if layout == "fsdp":
+        # ZeRO-3: gather the d-sliced expert weights for this layer
+        return _moe_dense_dispatch(xf, gate, top_idx,
+                                   _gather_experts(ex, layout, group), lex,
+                                   e, k, cap_loc, scaling)
+    buf, plan = _dispatch(xf, top_idx, e, k, cap_loc)
+    d = xf.shape[1]
+    # slots → expert owners (split E, concat capacity in rank order)
+    buf = all_to_all(buf, group).reshape(s_count, e // s_count, cap_loc, d)
+    buf = buf.transpose(0, 1).reshape(e // s_count, s_count * cap_loc, d)
+    out = _experts(ex, lex, buf, scaling)                # (E/S, S·cap, d)
+    out = out.reshape(e // s_count, s_count, cap_loc, d).transpose(0, 1)
+    out = all_to_all(out, group).reshape(e, cap_loc, d)
+    return _combine(out, gate, plan)
 
 
 def expert_weight(leaf, dtype) -> torch.Tensor:
@@ -246,9 +367,10 @@ def _expert_ffw(ex, lex, name, inp, scaling, buf_seg=None):
     return y + (scaling * upd).to(y.dtype)
 
 
-def _moe_dense_dispatch(x_loc, gate_loc, idx_loc, ex, lex, e, k, cap,
-                        scaling):
-    """Sort-gather-scatter token-choice dispatch of one device's tokens."""
+def _dispatch(x_loc, idx_loc, e, k, cap):
+    """Sort the ``(tok·k,)`` assignments by expert and scatter the kept
+    ones into an ``(E, cap, d)`` buffer; returns it with the plan
+    :func:`_combine` needs."""
     tok, d = x_loc.shape
     dev = x_loc.device
     flat_e = idx_loc.reshape(-1)                          # (tok·k,)
@@ -260,8 +382,50 @@ def _moe_dense_dispatch(x_loc, gate_loc, idx_loc, ex, lex, e, k, cap,
     src = src_tok[order]
     buf = torch.zeros((e * cap + 1, d), dtype=x_loc.dtype, device=dev)
     buf[dest] = x_loc[src]
-    buf = buf[:-1].reshape(e, cap, d)
+    plan = dict(order=order, sorted_e=sorted_e, pos_in_e=pos_in_e,
+                keep=keep, dest=dest, src=src, k=k)
+    return buf[:-1].reshape(e, cap, d), plan
 
+
+def _experts(ex, lex, buf, scaling, buf_seg=None):
+    """The experts' GLU over their ``(E, C, d)`` buffer rows."""
+    g = _expert_ffw(ex, lex, "wg", buf, scaling, buf_seg)
+    u = _expert_ffw(ex, lex, "wu", buf, scaling, buf_seg)
+    h = F.silu(g) * u
+    return _expert_ffw(ex, lex, "wd", h, scaling, buf_seg)
+
+
+def _combine(out, gate_loc, plan):
+    """Each token's kept expert outputs times their gates, summed."""
+    e, cap, d = out.shape
+    k, order, sorted_e = plan["k"], plan["order"], plan["sorted_e"]
+    tok = gate_loc.shape[0]
+    dev = out.device
+    out_flat = out.reshape(e * cap, d)
+    slot = torch.where(
+        plan["keep"][:, None],
+        out_flat[torch.clamp(sorted_e * cap + plan["pos_in_e"], 0,
+                             e * cap - 1)],
+        torch.zeros((), dtype=out_flat.dtype, device=dev))
+    # combine in the compute dtype, as the reference does: its scatter-add
+    # takes each token's k terms in sorted order (by expert), rounding after
+    # every add. The adds go in that order here too, one per rank of a
+    # term within its token, so the sum does not depend on the order in
+    # which the card's atomics would land (top-8 terms in bf16 do)
+    contrib = gate_loc.reshape(-1)[order].to(out.dtype)[:, None] * slot
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(tok * k, device=dev)
+    seq = rank.view(tok, k).sort(dim=1).values      # (tok, k) sorted slots
+    y = torch.zeros((tok, d), dtype=out.dtype, device=dev)
+    for j in range(k):
+        y = y + contrib[seq[:, j]]
+    return y
+
+
+def _moe_dense_dispatch(x_loc, gate_loc, idx_loc, ex, lex, e, k, cap,
+                        scaling):
+    """Sort-gather-scatter token-choice dispatch of one device's tokens."""
+    buf, plan = _dispatch(x_loc, idx_loc, e, k, cap)
     buf_seg = None
     if lex is not None and any(isinstance(l, _PACKED) for l in lex.values()):
         # the per-token adapter ids ride the packed leaves (attached by the
@@ -269,30 +433,8 @@ def _moe_dense_dispatch(x_loc, gate_loc, idx_loc, ex, lex, e, k, cap,
         # knows its adapter. Empty capacity slots keep seg 0 with zero x
         # rows, which adds nothing (LoRA is linear).
         seg_tok = next(l.seg for l in lex.values() if isinstance(l, _PACKED))
-        buf_seg = torch.zeros((e * cap + 1,), dtype=torch.int32, device=dev)
-        buf_seg[dest] = seg_tok[src].to(torch.int32)
+        buf_seg = torch.zeros((e * cap + 1,), dtype=torch.int32,
+                              device=x_loc.device)
+        buf_seg[plan["dest"]] = seg_tok[plan["src"]].to(torch.int32)
         buf_seg = buf_seg[:-1]
-
-    g = _expert_ffw(ex, lex, "wg", buf, scaling, buf_seg)
-    u = _expert_ffw(ex, lex, "wu", buf, scaling, buf_seg)
-    h = F.silu(g) * u
-    out = _expert_ffw(ex, lex, "wd", h, scaling, buf_seg)  # (E, cap, d)
-
-    out_flat = out.reshape(e * cap, d)
-    slot = torch.where(
-        keep[:, None],
-        out_flat[torch.clamp(sorted_e * cap + pos_in_e, 0, e * cap - 1)],
-        torch.zeros((), dtype=out_flat.dtype, device=dev))
-    # combine in the compute dtype, as the reference does: its scatter-add
-    # takes each token's k terms in sorted order (by expert), rounding after
-    # every add. The adds go in that order here too, one per rank of a
-    # term within its token, so the sum does not depend on the order in
-    # which the card's atomics would land (top-8 terms in bf16 do)
-    contrib = gate_loc.reshape(-1)[order].to(x_loc.dtype)[:, None] * slot
-    rank = torch.empty_like(order)
-    rank[order] = torch.arange(tok * k, device=dev)
-    seq = rank.view(tok, k).sort(dim=1).values      # (tok, k) sorted slots
-    y = torch.zeros((tok, d), dtype=x_loc.dtype, device=dev)
-    for j in range(k):
-        y = y + contrib[seq[:, j]]
-    return y
+    return _combine(_experts(ex, lex, buf, scaling, buf_seg), gate_loc, plan)

@@ -49,6 +49,13 @@ each layer optionally recomputed on the backward pass when ``remat``) and
 the prefill / decode-with-cache modes the serving engine drives (no
 autograd).
 
+Under a mesh (``Model.mesh``: data parallelism over its ``data`` axis)
+each rank holds its rows of the batch and its block of the params
+(:meth:`Model.param_specs`), and each moe layer takes the expert path of
+``ffn.moe_ffn`` across the ranks. The reference's ``_constrain_act`` is not
+ported: it only hints XLA where to lay activations out
+(``with_sharding_constraint``); a rank here holds its rows by construction.
+
 A LoRA leaf may also be applied straight from packed codes: a
 layer-stacked :class:`~repro_torch.core.QuantizedLoRA` (one adapter for the
 whole batch; every array carries the leading ``(L,)`` axis and all layers
@@ -62,6 +69,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import re
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -73,6 +81,9 @@ from repro_torch.core.loraquant import QuantizedLoRA
 from repro_torch.kernels.quant_matmul import (PackedLoRABatch,
                                                PackedLoRABuckets)
 from repro_torch.kernels.quant_matmul.ops import qlora_layer
+from repro_torch.optim.adamw import tree_map, tree_map_with_path
+from repro_torch.parallel.sharding import (data_ranks, fsdp_axes,
+                                           local_block)
 
 from . import attention as attn_mod
 from . import ffn as ffn_mod
@@ -81,6 +92,10 @@ from .common import (apply_norm, embed, init_embedding, init_linear,
                      init_norm, softcap, unembed)
 
 Params = Dict[str, Any]
+
+# a moe layer's per-expert leaf: ``['experts'][linear][field]``
+_EXPERT_LEAF = re.compile(
+    r"\['experts'\]\['(wg|wu|wd)'\]\['(w|scale|a|b)'\]$")
 
 
 def _init_mixer(gen, cfg, kind: str, lora_rank, count: int):
@@ -132,6 +147,16 @@ def _layer_slice(tree, i: int):
     return tree
 
 
+class _MetaGenerator(torch.Generator):
+    """A CPU generator that reports the meta device, so the init functions
+    (which allocate on ``gen.device``) build meta tensors; random fills of
+    a meta tensor are no-ops."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
 @dataclasses.dataclass
 class Model:
     cfg: Any
@@ -144,6 +169,16 @@ class Model:
     # RWKV's sequence-mode chunk (a prefill of T tokens needs T % min(
     # rwkv_chunk, T) == 0, as in the reference)
     rwkv_chunk: int = 64
+    # a mesh (``repro_torch.launch.mesh.HostMesh``) over ("data", "model"),
+    # or None: a single device. A ``model`` axis above 1 is ROADMAP A9b
+    mesh: Any = None
+
+    def __post_init__(self):
+        if self.mesh is not None and self.mesh.shape.get("model", 1) > 1:
+            raise NotImplementedError(
+                f"a mesh whose 'model' axis has {self.mesh.shape['model']} "
+                f"ranks needs tensor parallelism over 'model', which the port "
+                f"does not have yet (ROADMAP A9b)")
 
     @property
     def scaling(self) -> float:
@@ -153,10 +188,12 @@ class Model:
 
     def init(self, seed: int = 0, device="cuda") -> Params:
         """Random params from a ``torch.Generator`` seeded with ``seed`` on
-        ``device`` (the card unless the caller asks for the CPU)."""
+        ``device`` (the card unless the caller asks for the CPU); on
+        ``"meta"`` the tree's paths, shapes and dtypes without storage."""
         cfg = self.cfg
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev)
+        gen = (_MetaGenerator() if dev.type == "meta"
+               else torch.Generator(device=dev))
         gen.manual_seed(seed)
         embed_key = "embed_tied" if cfg.tie_embeddings else "embed"
         base: Params = {embed_key: self._init_table(gen),
@@ -196,6 +233,40 @@ class Model:
         return {"e": torch.stack([
             init_embedding(gen, cfg.vocab, cfg.d_model, cfg.dtype)["e"]
             for _ in range(cfg.n_codebooks)])}
+
+    # ----- placement under a mesh -----
+
+    def param_specs(self, tree):
+        """The spec of every leaf of a params tree (or of its LoRA or
+        gradient subtree) as this rank holds it under :attr:`mesh`: a moe
+        layer's expert stacks, base and LoRA, in the layout of
+        :func:`~repro_torch.models.ffn.expert_layout` (the reference's
+        ``shard_map`` in_specs), every other leaf replicated. The
+        reference's rule table (``parallel.sharding``) also shards the
+        dense weights; the port runs dense layers on replicated weights
+        until ROADMAP A9b."""
+        layout = (ffn_mod.expert_layout(self.cfg, self.mesh)
+                  if self.cfg.moe else None)
+        fa = fsdp_axes(self.mesh) if self.mesh is not None else ()
+        fsdp = fa[0] if len(fa) == 1 else fa
+
+        def one(path, leaf):
+            m = _EXPERT_LEAF.search(path)
+            if layout is None or m is None:
+                return (None,) * leaf.dim()
+            return ((None,) * (leaf.dim() - 3)
+                    + ffn_mod.expert_spec(layout, m[1], m[2], fsdp))
+
+        return tree_map_with_path(one, tree)
+
+    def local_params(self, params):
+        """This rank's blocks (copies) of a global params tree."""
+        if data_ranks(self.mesh) == 1:
+            return params
+        return tree_map(
+            lambda t, s: local_block(t, s, self.mesh, self.mesh.coords
+                                     ).clone(),
+            params, self.param_specs(params))
 
     # ----- caches -----
 
@@ -274,7 +345,7 @@ class Model:
         RWKV channel mix's new ``state`` is written in place."""
         if kind == "moe":
             return ffn_mod.moe_ffn(x, bparams, lparams, self.cfg,
-                                   scaling=self.scaling)
+                                   scaling=self.scaling, mesh=self.mesh)
         if kind == "rwkv_cm":
             out, new = rec_mod.rwkv_cmix(x, bparams, lparams, self.cfg,
                                          state=state, scaling=self.scaling)
@@ -518,5 +589,5 @@ class Model:
         return self._logits(params["base"], h), caches
 
 
-def build_model(cfg, remat: bool = False, **overrides) -> Model:
-    return Model(cfg, remat=remat, **overrides)
+def build_model(cfg, remat: bool = False, mesh=None, **overrides) -> Model:
+    return Model(cfg, remat=remat, mesh=mesh, **overrides)

@@ -6,7 +6,9 @@ Plain functions on trees of tensors (nested dicts / lists / tuples), all
 arithmetic in fp32 as the reference does it: the schedule, ``b**step`` and
 the bias corrections are float32 tensors. :func:`tree_leaves` walks a tree
 in ``jax.tree_util.tree_leaves`` order (dict keys sorted), so
-:func:`global_norm` sums the leaves in the reference's order.
+:func:`global_norm` sums the leaves in the reference's order, and
+:func:`tree_paths` names each leaf as ``jax.tree_util.keystr`` does (the
+sharding rules and the checkpoint files key on those names).
 """
 
 from __future__ import annotations
@@ -19,7 +21,8 @@ import torch
 
 __all__ = ["OptimizerConfig", "OptState", "adamw_update",
            "clip_by_global_norm", "cosine_with_warmup", "global_norm",
-           "init_opt_state", "tree_leaves", "tree_map"]
+           "init_opt_state", "tree_leaves", "tree_map", "tree_map_with_path",
+           "tree_paths"]
 
 
 def tree_leaves(tree) -> List[Any]:
@@ -34,6 +37,43 @@ def tree_leaves(tree) -> List[Any]:
     return [tree]
 
 
+def tree_paths(tree, prefix: str = "") -> List[Tuple[str, Any]]:
+    """``(path, leaf)`` pairs in :func:`tree_leaves` order, each path
+    spelled as ``jax.tree_util.keystr`` spells it: ``['key']`` for a dict
+    entry, ``[i]`` for a list or tuple item and ``.name`` for a named
+    tuple's field (``.mu['groups'][0]['sub_0']['mixer']['wq']['a']``)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in tree_paths(tree[k], f"{prefix}[{k!r}]")]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [pl for f in tree._fields
+                for pl in tree_paths(getattr(tree, f), f"{prefix}.{f}")]
+    if isinstance(tree, (list, tuple)):
+        return [pl for i, v in enumerate(tree)
+                for pl in tree_paths(v, f"{prefix}[{i}]")]
+    return [(prefix, tree)]
+
+
+def tree_map_with_path(fn: Callable, tree, prefix: str = ""):
+    """``fn(path, leaf)`` over the leaves of ``tree`` (paths as in
+    :func:`tree_paths`); the result has ``tree``'s structure."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{prefix}[{k!r}]")
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map_with_path(fn, getattr(tree, f),
+                                               f"{prefix}.{f}")
+                            for f in tree._fields))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map_with_path(fn, v, f"{prefix}[{i}]")
+                          for i, v in enumerate(tree))
+    return fn(prefix, tree)
+
+
 def tree_map(fn: Callable, tree, *rest):
     """``fn`` over the leaves of ``tree`` and the matching leaves of
     ``rest`` (trees of the same structure); the result has ``tree``'s."""
@@ -42,6 +82,9 @@ def tree_map(fn: Callable, tree, *rest):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v, *(r[i] for r in rest))
+                            for i, v in enumerate(tree)))
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
                           for i, v in enumerate(tree))
@@ -93,18 +136,21 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, norm=None):
+    """``grads`` scaled to at most ``max_norm``; ``norm`` is their global
+    norm when the caller has it (gradients held in blocks across ranks)."""
+    norm = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return tree_map(lambda g: g * scale, grads), norm
 
 
-def adamw_update(grads, opt_state: OptState, params, cfg: OptimizerConfig
-                 ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
+def adamw_update(grads, opt_state: OptState, params, cfg: OptimizerConfig,
+                 norm=None) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step on ``params`` (gradients clipped by global norm
-    first). Returns ``(new_params, new_state, {"lr", "grad_norm"})``; the
-    new params keep each leaf's dtype."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    first; ``norm`` as in :func:`clip_by_global_norm`). Returns
+    ``(new_params, new_state, {"lr", "grad_norm"})``; the new params keep
+    each leaf's dtype."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, norm)
     b1, b2 = cfg.betas
     step = opt_state.step + 1
     lr = cosine_with_warmup(step, cfg)
