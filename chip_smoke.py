@@ -273,6 +273,15 @@ Phases (a failure raises and the script exits non-zero):
     memory, a checkpoint's bytes and seconds, the steps that overlap an
     async write against the median, and one profiled step's idle share.
 
+43. The dry run (``repro_torch.launch.dryrun``) at (16, 16) on the card,
+    rank 0's local program under a fake process group of 256 ranks, for
+    llama3.2-3b x train_4k (16 microbatches, remat), llama3.2-3b x
+    decode_32k and deepseek-v3-671b x decode_32k, each cell a subprocess
+    beside its ``--device meta`` count: parameter bytes and counted FLOPs
+    equal the meta count exactly, the peak memory is below the card's;
+    per cell the collective bytes by kind, the three roofline terms of the
+    H100 hardware model and the local step's wall time.
+
 The phases' total time is logged last. The last three lines are the card (nvidia-smi), a ``{"kernels": [...]}``
 summary and ``{"ok": true, "device": {...}}``.
 """
@@ -4727,6 +4736,90 @@ def driver_phases(device="cuda", preset="full") -> dict:
     return {"mesh": mesh, "driver": phase_driver(device, preset)}
 
 
+DRYRUN_CELLS = (("llama3.2-3b", "train_4k"), ("llama3.2-3b", "decode_32k"),
+                ("deepseek-v3-671b", "decode_32k"))
+DRYRUN_TIMEOUT = 600          # seconds per dry-run subprocess
+
+
+def phase_dryrun(device="cuda", cells=DRYRUN_CELLS) -> dict:
+    """Phase 43: ``repro_torch.launch.dryrun`` at (16, 16) on the card, each
+    cell in its own subprocess (a fresh fake process group and memory
+    counters), beside the same cell's ``--device meta`` count (run in
+    parallel on the host): per-device parameter bytes and counted FLOPs
+    equal the meta count exactly, and the peak memory is below the card's.
+    Prints per cell the parameter bytes, peak memory against 80 GiB,
+    counted FLOPs, collective bytes by kind, the three roofline terms and
+    the local step's wall time beside its compute term."""
+    import os
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    tmp = Path(tempfile.mkdtemp(prefix="dryrun"))
+
+    def start(arch, shape, dev):
+        report = tmp / f"{arch}.{shape}.{dev}.json"
+        return report, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--device",
+             dev, "--arch", arch, "--shape", shape, "--report", str(report)],
+            cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+
+    def finish(report, proc, what):
+        out = proc.communicate(timeout=DRYRUN_TIMEOUT)[0]
+        if proc.returncode != 0:
+            raise AssertionError(f"dry run {what}: exit {proc.returncode}: "
+                                 + out[-3000:])
+        (r,) = json.loads(report.read_text())
+        if "error" in r or "skipped" in r:
+            raise AssertionError(f"dry run {what}: {r}")
+        return r
+
+    metas = [start(a, s, "meta") for a, s in cells]
+    out = {}
+    try:
+        for (arch, shape), meta in zip(cells, metas):
+            r = finish(*start(arch, shape, device), f"{arch} {shape}")
+            m = finish(*meta, f"{arch} {shape} meta")
+            for key in ("params_bytes_per_chip", "counted_flops_per_chip"):
+                if r[key] != m[key]:
+                    raise AssertionError(f"{arch} {shape}: {key} "
+                                         f"{r[key]} on the card, {m[key]} "
+                                         f"on meta")
+            mem = r["memory"]
+            if device == "cuda" and not mem["peak_bytes"] < mem["card_bytes"]:
+                raise AssertionError(f"{arch} {shape}: peak {mem}")
+            peak = (f"{mem['peak_bytes'] / 2**30:.3f} GiB of the card's "
+                    f"{mem['card_bytes'] / 2**30:.2f} GiB (model: 80 GiB)"
+                    if "peak_bytes" in mem else "not measured")
+            step = (f"{r['step_s']:.3f} s" if r["step_s"] is not None
+                    else "not measured")
+            colls = ", ".join(f"{k} {v / 2**20:.1f} MiB" for k, v in
+                              sorted(r["collective_bytes_per_chip"].items()))
+            log(f"dry run {arch} x {shape} at (16, 16), rank 0 of 256 "
+                f"({r['microbatches']} microbatches): params "
+                f"{r['params_bytes_per_chip'] / 2**20:.1f} MiB/device "
+                f"(== meta); peak {peak}; counted {r['counted_flops_per_chip']:.6g} "
+                f"FLOPs (== meta), {r['counted_bytes_per_chip']:.6g} bytes; "
+                f"collectives {colls}; roofline terms compute "
+                f"{r['compute_term_s']:.6g} s, memory "
+                f"{r['memory_term_s']:.6g} s, collective "
+                f"{r['collective_term_s']:.6g} s ({r['dominant_term']}, "
+                f"roofline fraction {r['roofline_fraction']:.4g}); local "
+                f"step {step} on the card vs its compute term "
+                f"{r['compute_term_s']:.6g} s; counted run {r['run_s']:.1f} s")
+            out[(arch, shape)] = r
+    finally:
+        for _, proc in metas:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"dry-run phase {time.perf_counter() - t0:.1f}s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4932,6 +5025,9 @@ def main() -> int:
 
     # ---- 41-42. the mesh, compression and the training driver --------------
     driver_phases()
+
+    # ---- 43. the dry run at (16, 16) under a fake process group ------------
+    phase_dryrun()
     log(f"total {time.perf_counter() - t_start:.1f}s")
 
     # ---- summary -------------------------------------------------------------

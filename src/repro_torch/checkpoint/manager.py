@@ -11,9 +11,13 @@ package restores in the other:
   ``list_steps`` ignores the ``.tmp`` directories.
 * **Restartable**: ``restore_latest`` picks the highest complete step; the
   data pipeline is a pure function of step, so a restart is exactly-once.
-* **Elastic**: arrays are saved whole; ``restore`` casts each leaf to its
-  template leaf's dtype and device and, given specs and a mesh, keeps the
-  calling rank's block (:func:`~repro_torch.parallel.sharding.local_block`).
+* **Elastic**: arrays are saved whole; under a mesh (``save(...,
+  specs=, mesh=)``) each rank's blocks are all-gathered into the global
+  arrays and the rank at coordinate 0 writes them. ``restore`` casts each
+  leaf to its template leaf's dtype and device and, given specs and a
+  mesh, keeps the calling rank's block of the params and of the
+  optimizer's moments (:func:`~repro_torch.parallel.sharding.local_block`),
+  so a checkpoint written at one world size restores at another.
 * **Async**: ``save_async`` snapshots to host memory synchronously and
   writes on a background thread — training never blocks on disk.
 * **keep-K GC** bounds disk usage.
@@ -31,8 +35,11 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.optim.adamw import tree_map, tree_map_with_path, tree_paths
+from repro_torch.optim.adamw import (OptState, tree_map, tree_map_with_path,
+                                     tree_paths)
+from repro_torch.parallel.collectives import gather_frozen
 from repro_torch.parallel.sharding import local_block
+from repro_torch.parallel.tensor import axes_of
 
 __all__ = ["CheckpointManager"]
 
@@ -62,6 +69,27 @@ def _unflatten(template, flat: Dict[str, np.ndarray]):
     return tree_map_with_path(one, template)
 
 
+def _global(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """The global array of this rank's block ``t`` of ``spec``: each split
+    dim all-gathered over its axes' group."""
+    for d, e in enumerate(spec):
+        ax = axes_of(e)
+        if ax:
+            group = (mesh.model_group() if ax == ("model",)
+                     else mesh.fsdp_group())
+            t = gather_frozen(t, d, group)
+    return t
+
+
+def _global_tree(tree, specs, mesh):
+    return tree_map(lambda t, s: _global(t, s, mesh), tree, specs)
+
+
+def _blocks(tree, specs, mesh):
+    return tree_map(lambda t, s: local_block(t, s, mesh, mesh.coords
+                                             ).clone(), tree, specs)
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.directory = directory
@@ -88,23 +116,43 @@ class CheckpointManager:
         os.rename(tmp, final)
         self._gc()
 
-    def _payload(self, step, params, opt_state, extra_meta):
+    def _payload(self, step, params, opt_state, extra_meta, specs, mesh):
+        """Host copies of the global arrays (None on a rank that does not
+        write) and the metadata."""
+        if specs is not None:
+            params = _global_tree(params, specs, mesh)
+            if opt_state is not None:
+                opt_state = OptState(opt_state.step,
+                                     _global_tree(opt_state.mu, specs, mesh),
+                                     _global_tree(opt_state.nu, specs, mesh))
+            if any(mesh.coords.values()):
+                return None, None
         payload = {"params": _flatten(params)}
         if opt_state is not None:
             payload["opt_state"] = _flatten(opt_state)
         return payload, {"step": step, **(extra_meta or {})}
 
     def save(self, step: int, params, opt_state=None,
-             extra_meta: Optional[Dict[str, Any]] = None):
+             extra_meta: Optional[Dict[str, Any]] = None, specs=None,
+             mesh=None):
+        """Write ``step``; under a mesh (``specs``, a spec tree shaped like
+        ``params`` that the moments share, and ``mesh``) every rank takes
+        part in the gathers and the rank at coordinate 0 writes."""
         self.wait()  # never race an in-flight async write for the same step
-        self._write(step, *self._payload(step, params, opt_state,
-                                         extra_meta))
+        payload, meta = self._payload(step, params, opt_state, extra_meta,
+                                      specs, mesh)
+        if payload is not None:
+            self._write(step, payload, meta)
 
     def save_async(self, step: int, params, opt_state=None,
-                   extra_meta: Optional[Dict[str, Any]] = None):
+                   extra_meta: Optional[Dict[str, Any]] = None, specs=None,
+                   mesh=None):
         """Snapshot to host synchronously, write on a background thread."""
-        payload, meta = self._payload(step, params, opt_state, extra_meta)
+        payload, meta = self._payload(step, params, opt_state, extra_meta,
+                                      specs, mesh)
         self.wait()
+        if payload is None:
+            return
         self._thread = threading.Thread(
             target=self._write, args=(step, payload, meta), daemon=True)
         self._thread.start()
@@ -135,7 +183,8 @@ class CheckpointManager:
                 specs=None, mesh=None) -> Tuple[Any, Any, Dict[str, Any]]:
         """``(params, opt_state, meta)`` of ``step``; with ``specs`` (a spec
         tree shaped like the params) and ``mesh`` (one with ``coords``),
-        each param leaf is this rank's block of the saved array."""
+        each param leaf and each moment is this rank's block of the saved
+        array."""
         name = os.path.join(self.directory, f"step_{step:08d}")
         with open(os.path.join(name, "meta.json")) as f:
             meta = json.load(f)
@@ -143,14 +192,16 @@ class CheckpointManager:
             pflat = dict(z)
         params = _unflatten(params_template, pflat)
         if specs is not None:
-            params = tree_map(
-                lambda t, s: local_block(t, s, mesh, mesh.coords).clone(),
-                params, specs)
+            params = _blocks(params, specs, mesh)
         opt_state = None
         opt_path = os.path.join(name, "opt_state.npz")
         if opt_template is not None and os.path.exists(opt_path):
             with np.load(opt_path) as z:
                 opt_state = _unflatten(opt_template, dict(z))
+            if specs is not None:
+                opt_state = OptState(opt_state.step,
+                                     _blocks(opt_state.mu, specs, mesh),
+                                     _blocks(opt_state.nu, specs, mesh))
         return params, opt_state, meta
 
     def restore_latest(self, params_template, opt_template=None, specs=None,

@@ -8,7 +8,10 @@ no device and starts no process, so the sharding rules can be read at
 ``make_host_mesh`` is what this host has: it starts the process group
 (NCCL on the card, gloo with ``device="cpu"``) and returns a
 :class:`HostMesh` over ``init_device_mesh(device, (1, world), ("data",
-"model"))``, the reference's ``(1, n)`` layout. Under ``torchrun`` it
+"model"))``, the reference's ``(1, n)`` layout. :func:`mesh_over` lays
+any shape over a process group that is already up: ``(d, m)`` over ``d·m``
+gloo ranks in the tests, ``(16, 16)`` / ``(2, 16, 16)`` over the fake
+backend in the dry run. Under ``torchrun`` it
 joins the job the environment names; alone it is world size 1 over an
 in-process store (no port). :meth:`HostMesh.close` tears the group down,
 so a later caller can start one again.
@@ -31,7 +34,8 @@ import torch.distributed as dist
 from repro_torch import resolve_device
 from repro_torch.parallel.sharding import AbstractMesh, fsdp_axes
 
-__all__ = ["HostMesh", "make_host_mesh", "make_production_mesh"]
+__all__ = ["HostMesh", "make_host_mesh", "make_production_mesh",
+           "mesh_over"]
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
@@ -43,11 +47,13 @@ def make_production_mesh(*, multi_pod: bool = False) -> AbstractMesh:
 class HostMesh:
     """A torch ``DeviceMesh`` with the attributes the sharding rules and
     the model read: ``axis_names``, ``shape`` (name → size), ``coords``
-    (name → this rank's coordinate) and :meth:`fsdp_group`."""
+    (name → this rank's coordinate), :meth:`fsdp_group` and
+    :meth:`model_group`."""
 
     def __init__(self, device_mesh, owns_group: bool = False):
         self.device_mesh = device_mesh
         self.owns_group = owns_group
+        self._fsdp = None
 
     @property
     def axis_names(self) -> Tuple[str, ...]:
@@ -62,12 +68,20 @@ class HostMesh:
         return dict(zip(self.axis_names, self.device_mesh.get_coordinate()))
 
     def fsdp_group(self):
-        """The process group along the FSDP axes."""
-        fa = fsdp_axes(self)
-        if len(fa) != 1:
-            raise NotImplementedError(
-                f"a process group over the axes {fa} (ROADMAP A9b)")
-        return self.device_mesh.get_group(fa[0])
+        """The process group along the FSDP axes: ``data``, or ``("pod",
+        "data")`` flattened in row-major order (the order of a
+        ``PartitionSpec`` entry naming both)."""
+        if self._fsdp is None:
+            fa = fsdp_axes(self)
+            if not fa:
+                raise ValueError(f"mesh {self.axis_names} has no FSDP axis")
+            self._fsdp = (self.device_mesh.get_group(fa[0]) if len(fa) == 1
+                          else self.device_mesh[fa]._flatten().get_group())
+        return self._fsdp
+
+    def model_group(self):
+        """The process group along the ``model`` axis."""
+        return self.device_mesh.get_group("model")
 
     def close(self):
         """Destroy the process group if :func:`make_host_mesh` started it."""
@@ -92,7 +106,18 @@ def make_host_mesh(device="cuda") -> HostMesh:
                                     world_size=1)
     if dev.type == "cuda":
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
-    world = dist.get_world_size()
-    dm = init_device_mesh(dev.type, (1, world),
-                          mesh_dim_names=("data", "model"))
-    return HostMesh(dm, owns_group=owns)
+    mesh = mesh_over((1, dist.get_world_size()), device=dev)
+    mesh.owns_group = owns
+    return mesh
+
+
+def mesh_over(shape, names=("data", "model"), device="cpu") -> HostMesh:
+    """A :class:`HostMesh` of ``shape`` over the process group that is up
+    (its world size must be the product of ``shape``); ranks are laid out
+    row-major, as ``Mesh(devices.reshape(shape))`` lays devices out."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dev = torch.device(device)
+    dm = init_device_mesh("cpu" if dev.type == "meta" else dev.type,
+                          tuple(shape), mesh_dim_names=tuple(names))
+    return HostMesh(dm)

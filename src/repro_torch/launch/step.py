@@ -11,7 +11,10 @@
   takes its rows of the global batch (:func:`local_batch`), the loss and
   metrics are averaged across the ranks, the gradients of replicated LoRA
   leaves are all-reduced, and an expert-sharded leaf keeps the gradient
-  its experts' all-to-all brought home. The reference gets the same
+  its experts' all-to-all brought home; and tensor parallelism over its
+  ``model`` ranks, which hold one loss and each its block of every
+  ``model``-split leaf and of its gradient. The global norm sums each
+  leaf's squares over the axes that split it. The reference gets the same
   global loss and gradients from ``pjit`` over the sharded global batch.
 
 Under a mesh the ranks split each microbatch of their own rows, where the
@@ -25,8 +28,10 @@ import torch
 
 from repro_torch.optim import OptimizerConfig, adamw_update
 from repro_torch.optim.adamw import tree_leaves, tree_map
+from repro_torch.parallel.collectives import all_reduce_sum
 from repro_torch.parallel.sharding import (batch_specs, data_ranks,
                                            local_block)
+from repro_torch.parallel.tensor import axes_of
 
 __all__ = ["local_batch", "make_train_step", "make_eval_step",
            "make_serve_step", "make_prefill_step"]
@@ -51,30 +56,42 @@ def local_batch(batch, mesh):
 
 def _mesh_mean(model, loss, metrics, grads):
     """The global loss, metrics and gradients from each rank's: the mean
-    across the data ranks of the loss and metrics and of replicated
-    leaves' gradients; an expert-sharded leaf's gradient (summed over the
-    ranks' losses by the all-to-all's backward) over S. Returns them with
-    the global gradient norm (each replicated leaf counted once)."""
-    import torch.distributed as dist
-
-    s = data_ranks(model.mesh)
-    group = model.mesh.fsdp_group()
+    across the data ranks of the loss and metrics and of the gradients of
+    leaves whole over the data axes; an expert-sharded leaf's gradient
+    (summed over the ranks' losses by the all-to-all's backward) over S.
+    The ranks of a ``model`` group hold one loss, and each its block of a
+    ``model``-split leaf's gradient, so nothing is averaged over them.
+    Returns them with the global gradient norm: each leaf's squares summed
+    over the axes that split it, each replicated leaf counted once."""
+    tp = model.tp
+    s = tp.s
 
     def mean(t):
-        t = t.to(torch.float32).clone()
-        dist.all_reduce(t, group=group)
-        return t / s
+        t = t.to(torch.float32)
+        return t if s == 1 else all_reduce_sum(t, tp.dgroup) / s
 
     loss, metrics = mean(loss), {k: mean(v) for k, v in metrics.items()}
-    sharded = tree_map(lambda g, sp: any(e is not None for e in sp), grads,
-                       model.param_specs(grads))
-    grads = tree_map(lambda g, sh: g / s if sh else mean(g), grads, sharded)
-    sq = {True: torch.zeros((), dtype=torch.float32, device=loss.device),
-          False: torch.zeros((), dtype=torch.float32, device=loss.device)}
-    for g, sh in zip(tree_leaves(grads), tree_leaves(sharded)):
-        sq[sh] = sq[sh] + torch.sum(torch.square(g.to(torch.float32)))
-    dist.all_reduce(sq[True], group=group)
-    return loss, metrics, grads, torch.sqrt(sq[False] + sq[True])
+    specs = model.param_specs(grads)
+
+    def split(sp, model_axis):
+        return any(("model" in axes_of(e)) == model_axis and e is not None
+                   for e in sp)
+
+    over_data = tree_map(lambda g, sp: split(sp, False), grads, specs)
+    over_model = tree_map(lambda g, sp: split(sp, True), grads, specs)
+    grads = tree_map(lambda g, sh: g / s if sh else mean(g), grads,
+                     over_data)
+    # squares by (split over data, split over model)
+    sq = torch.zeros((2, 2), dtype=torch.float32, device=loss.device)
+    for g, dsh, msh in zip(tree_leaves(grads), tree_leaves(over_data),
+                           tree_leaves(over_model)):
+        sq[int(dsh), int(msh)] += torch.sum(torch.square(g.to(torch.float32)))
+    if s > 1:
+        sq = torch.stack([sq[0], all_reduce_sum(sq[1], tp.dgroup)])
+    if tp.m > 1:
+        sq = torch.stack([sq[:, 0], all_reduce_sum(sq[:, 1], tp.group)],
+                         dim=1)
+    return loss, metrics, grads, torch.sqrt(sq.sum())
 
 
 def _split_microbatches(batch, n_micro: int):
@@ -135,7 +152,7 @@ def make_train_step(model, opt_cfg: OptimizerConfig, n_microbatches: int = 1):
                                            n_microbatches)
         norm = None
         with torch.no_grad():
-            if data_ranks(model.mesh) > 1:
+            if model.tp is not None:
                 loss, metrics, grads, norm = _mesh_mean(model, loss, metrics,
                                                         grads)
             new_lora, new_opt, om = adamw_update(grads, opt_state,

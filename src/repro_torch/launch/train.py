@@ -14,10 +14,12 @@ reference:
   finishes, its checkpoint is written, and the process exits cleanly.
 
 The mesh is the host's, ``(1, world)`` over ``("data", "model")``, as the
-reference builds it. At world size 1 the parameters stay plain tensors on
-the device; above 1 the ``model`` axis exceeds 1, which is ROADMAP A9b, and
-the model refuses it. ``--preset smoke`` or ``--fp32`` trains in fp32;
-``--preset full`` recomputes each layer on the backward pass.
+reference builds it: at world size ``n`` pure tensor parallelism over
+``n`` ranks (gloo with ``--device cpu``, NCCL on cards), each rank holding
+its blocks of the parameters; at world size 1 they stay plain tensors on
+the device. Checkpoints hold the global arrays whatever the world size, so
+a run restores at another. ``--preset smoke`` or ``--fp32`` trains in
+fp32; ``--preset full`` recomputes each layer on the backward pass.
 """
 
 from __future__ import annotations
@@ -113,9 +115,13 @@ def _train(args, cfg, mesh, device):
 
     start_step = 0
     manager = None
+    # the LoRA leaves' specs (shared by the moments) under a mesh
+    place = ({} if model.tp is None
+             else {"specs": model.param_specs(params["lora"]), "mesh": mesh})
     if args.ckpt_dir:
         manager = CheckpointManager(args.ckpt_dir, keep=3)
-        restored = manager.restore_latest(params["lora"], opt_state)
+        restored = manager.restore_latest(params["lora"], opt_state,
+                                          **place)
         if restored is not None:
             lora_p, opt_state, meta = restored
             params = {"base": params["base"], "lora": lora_p}
@@ -153,7 +159,7 @@ def _train(args, cfg, mesh, device):
                     msg += "  [STRAGGLER FLAGGED]"
                 print(msg, flush=True)
             if manager and (step + 1) % args.ckpt_every == 0:
-                manager.save_async(step, params["lora"], opt_state)
+                manager.save_async(step, params["lora"], opt_state, **place)
             if stop["flag"]:
                 print("[train] caught signal — saving and exiting",
                       flush=True)
@@ -163,7 +169,7 @@ def _train(args, cfg, mesh, device):
             signal.signal(sig, h)
         if manager:
             last = start_step if not losses else start_step + len(losses) - 1
-            manager.save(last, params["lora"], opt_state)
+            manager.save(last, params["lora"], opt_state, **place)
             manager.wait()
 
     if losses:

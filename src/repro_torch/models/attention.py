@@ -20,6 +20,15 @@ Unlike the JAX package, which returns new cache arrays, the cache tensors
 are updated in place (the engine never reuses a cache it has handed on),
 which saves a copy of the whole cache per layer and step.
 
+Under tensor parallelism (``tp``) each rank runs the heads its block of
+``wo``'s input needs: its own heads where the projections split on head
+boundaries, else the heads overlapping its columns, their q / k / v
+columns gathered from the ranks that hold them. Decode caches are held as
+``cache_specs`` places them: by kv heads, where a rank attends its own;
+else by head dim (or whole), where the ranks' partial scores are summed.
+MLA's latent and rotary-key caches are split by their feature dims, so its
+absorbed decode sums the ranks' partial scores too.
+
 Rotary positions are standard RoPE, qwen2-vl's M-RoPE (``positions: (3, B,
 T)``) or none, as ``cfg.rope`` says; gemma2 soft-caps the fp32 scores
 (``cfg.attn_softcap``) before the mask.
@@ -37,6 +46,10 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.parallel.collectives import (copy_to_region,
+                                              gather_from_region,
+                                              reduce_from_region)
 
 from .common import (apply_mrope, apply_rope, init_linear, init_lora, linear,
                      rmsnorm)
@@ -189,7 +202,14 @@ def gqa_attention(
     scaling: float = 2.0,
     force_blockwise: Optional[bool] = None,
     kv_chunk: int = KV_CHUNK,
+    tp=None,
 ) -> torch.Tensor:
+    if tp is not None:
+        return _gqa_attention_tp(
+            x, base, lora, cfg, tp, positions=positions, window=window,
+            cache=cache, cache_pos=cache_pos, valid_start=valid_start,
+            pad_mask=pad_mask, scaling=scaling,
+            force_blockwise=force_blockwise, kv_chunk=kv_chunk)
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
     b, t, _ = x.shape
     use_blockwise = (t > BLOCKWISE_THRESHOLD if force_blockwise is None
@@ -232,19 +252,135 @@ def gqa_attention(
                 mask = mask + _pad_key_mask(pad_mask, 3)
             out = _sdpa(q, k, v, mask, cfg.attn_softcap)
         if cache is not None:
-            # stateful prefill from position 0: write the last min(T, cap)
-            # tokens at their ring slots (pad slots too; decode masks them)
-            cap = cache["k"].shape[1]
-            keep = min(t, cap)
-            start = (t - keep) % cap
-            wrap = max(start + keep - cap, 0)
-            for name, val in (("k", k), ("v", v)):
-                src = val[:, t - keep:].to(cache[name].dtype)
-                cache[name][:, start:start + keep - wrap] = src[:, :keep - wrap]
-                if wrap:
-                    cache[name][:, :wrap] = src[:, keep - wrap:]
+            _ring_write(cache, k, v)
 
     return linear(out, base["wo"], lora and lora.get("wo"), scaling)
+
+
+def _ring_write(cache, k, v):
+    """A stateful prefill from position 0: write the last min(T, cap)
+    tokens at their ring slots (pad slots too; decode masks them)."""
+    t = k.shape[1]
+    cap = cache["k"].shape[1]
+    keep = min(t, cap)
+    start = (t - keep) % cap
+    wrap = max(start + keep - cap, 0)
+    for name, val in (("k", k), ("v", v)):
+        src = val[:, t - keep:].to(cache[name].dtype)
+        cache[name][:, start:start + keep - wrap] = src[:, :keep - wrap]
+        if wrap:
+            cache[name][:, :wrap] = src[:, keep - wrap:]
+
+
+def _rotate(z, positions, cfg):
+    if cfg.rope == "standard":
+        return apply_rope(z, positions, cfg.rope_theta)
+    if cfg.rope == "mrope":
+        return apply_mrope(z, positions, cfg.mrope_sections, cfg.rope_theta)
+    return z
+
+
+def _cache_split(tp, cache_t, kv: int, dh: int):
+    """The kv-head and head-dim ranges ``[lo, hi)`` a rank's ``(B, S,
+    KVl, dhl)`` cache block holds (whole where not split)."""
+    kvr = tp.block(kv) if cache_t.shape[2] < kv else (0, kv)
+    dhr = tp.block(dh) if cache_t.shape[3] < dh else (0, dh)
+    return kvr, dhr
+
+
+def _gqa_attention_tp(x, base, lora, cfg, tp, *, positions, window, cache,
+                      cache_pos, valid_start, pad_mask, scaling,
+                      force_blockwise, kv_chunk):
+    """GQA over this rank's blocks (see the module notes)."""
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    g = h // kv
+    b, t, _ = x.shape
+    la = lora or {}
+    (q, qs), (k, ks), (v, vs) = tp.linears(
+        x, [(base[n], la.get(n)) for n in ("wq", "wk", "wv")], scaling)
+    if cache is not None and t == 1:
+        out, osh = _gqa_decode_tp(tp, cfg, q, qs, k, ks, v, vs, cache,
+                                  positions, cache_pos, valid_start)
+        y, ysh = tp.linear(out, base["wo"], la.get("wo"), scaling, osh)
+        return tp.rep(y, ysh)
+    distinct, c0, c1, h0, h1 = tp.heads(base["wo"], h, dh)
+    k0, k1 = h0 // g, (h1 - 1) // g + 1
+    qh = tp.cols(q, qs, h0 * dh, h1 * dh, distinct).reshape(b, t, h1 - h0,
+                                                              dh)
+    kh = tp.cols(k, ks, k0 * dh, k1 * dh, distinct).reshape(b, t, k1 - k0,
+                                                              dh)
+    vh = tp.cols(v, vs, k0 * dh, k1 * dh, distinct).reshape(b, t, k1 - k0,
+                                                              dh)
+    qh, kh = _rotate(qh, positions, cfg), _rotate(kh, positions, cfg)
+    ka, va = kh, vh
+    if h0 % g or (h1 - h0) % g:
+        # the rank's heads do not start or end on a kv group: give each
+        # query head its own copy of its kv head
+        idx = torch.arange(h0, h1, device=x.device) // g - k0
+        ka, va = kh[:, :, idx], vh[:, :, idx]
+    use_blockwise = (t > BLOCKWISE_THRESHOLD if force_blockwise is None
+                     else force_blockwise and t > 1)
+    if use_blockwise:
+        out = _sdpa_blockwise(qh, ka, va, 0, window, cfg.attn_softcap,
+                              chunk=kv_chunk, pad_mask=pad_mask)
+    else:
+        mask = _causal_window_mask(t, t, 0, window, x.device)
+        if pad_mask is not None:
+            mask = mask + _pad_key_mask(pad_mask, 3)
+        out = _sdpa(qh, ka, va, mask, cfg.attn_softcap)
+    out = out[..., c0 - h0 * dh:c1 - h0 * dh]
+    if cache is not None:
+        (a0, a1), (d0, d1) = _cache_split(tp, cache["k"], kv, dh)
+        kc = _rotate(tp.cols(k, ks, a0 * dh, a1 * dh, False).reshape(
+            b, t, a1 - a0, dh), positions, cfg)
+        vc = tp.cols(v, vs, a0 * dh, a1 * dh, False).reshape(b, t, a1 - a0,
+                                                              dh)
+        _ring_write(cache, kc[..., d0:d1], vc[..., d0:d1])
+    y, ysh = tp.linear(out, base["wo"], la.get("wo"), scaling, distinct)
+    return tp.rep(y, ysh)
+
+
+def _gqa_decode_tp(tp, cfg, q, qs, k, ks, v, vs, cache, positions,
+                   cache_pos, valid_start):
+    """One decode step against this rank's cache block; returns the
+    attention output and whether it is the rank's block of columns."""
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    g = h // kv
+    b = q.shape[0]
+    qf = _rotate(tp.rep(q, qs).reshape(b, 1, h, dh), positions, cfg)
+    kf = _rotate(tp.rep(k, ks).reshape(b, 1, kv, dh), positions, cfg)
+    vf = tp.rep(v, vs).reshape(b, 1, kv, dh)
+    ck, cv = cache["k"], cache["v"]
+    (a0, a1), (d0, d1) = _cache_split(tp, ck, kv, dh)
+    cap = ck.shape[1]
+    pos_b, start_b = _row_positions(cache_pos, valid_start, b, q.device)
+    slot = torch.remainder(pos_b, cap)
+    rows = torch.arange(b, device=q.device)
+    ck[rows, slot] = kf[:, 0, a0:a1, d0:d1].to(ck.dtype)
+    cv[rows, slot] = vf[:, 0, a0:a1, d0:d1].to(cv.dtype)
+    s_idx = torch.arange(cap, device=q.device)
+    abs_pos = pos_b[:, None] - torch.remainder(
+        pos_b[:, None] - s_idx[None, :], cap)
+    mask = _pad_key_mask(abs_pos >= start_b[:, None], 3)
+    if a1 - a0 < kv:
+        # the rank's kv heads: its query heads attend them whole
+        return _sdpa(qf[:, :, a0 * g:a1 * g], ck, cv, mask,
+                     cfg.attn_softcap), True
+    # split (or whole) head dim: every head's partial scores over the
+    # rank's columns, summed over the ranks
+    qg = qf[..., d0:d1].reshape(b, 1, kv, g, d1 - d0)
+    scores = torch.einsum("btkgd,bskd->bkgts", qg, ck).to(torch.float32)
+    if d1 - d0 < dh:
+        scores = reduce_from_region(scores, tp.group)
+    scores = scores / np.sqrt(dh)
+    if cfg.attn_softcap is not None:
+        cap_ = cfg.attn_softcap
+        scores = cap_ * torch.tanh(scores / cap_)
+    probs = torch.softmax(scores + mask, dim=-1).to(cv.dtype)
+    out = torch.einsum("bkgts,bskd->btkgd", probs, cv)
+    if d1 - d0 < dh:
+        out = gather_from_region(out, -1, tp.group)
+    return out.reshape(b, 1, h * dh), False
 
 
 def init_gqa_cache(cfg, batch: int, capacity: int, dtype, device,
@@ -305,6 +441,7 @@ def mla_attention(
     scaling: float = 2.0,
     force_blockwise: Optional[bool] = None,
     kv_chunk: int = KV_CHUNK,
+    tp=None,
 ) -> torch.Tensor:
     """MLA over one layer's params. Sequence mode decompresses the latent
     into 192-wide keys (``[k_nope, kr]``, ``kr`` shared by the heads) and
@@ -314,6 +451,12 @@ def mla_attention(
     compressed space: keys ``kpos <= cache_pos`` and ``kpos >=
     valid_start`` count, ``W_uk`` is absorbed into the query and ``W_uv``
     into the context."""
+    if tp is not None:
+        return _mla_attention_tp(
+            x, base, lora, cfg, tp, positions=positions, cache=cache,
+            cache_pos=cache_pos, valid_start=valid_start, pad_mask=pad_mask,
+            scaling=scaling, force_blockwise=force_blockwise,
+            kv_chunk=kv_chunk)
     m = cfg.mla
     h = cfg.n_heads
     b, t, _ = x.shape
@@ -386,6 +529,137 @@ def mla_attention(
 
     return linear(out.reshape(b, t, h * vd), base["wo"],
                   lora and lora.get("wo"), scaling)
+
+
+def _mla_attention_tp(x, base, lora, cfg, tp, *, positions, cache,
+                      cache_pos, valid_start, pad_mask, scaling,
+                      force_blockwise, kv_chunk):
+    """MLA over this rank's blocks: ``wq_up`` / ``wk_up`` / ``wv_up``
+    column-parallel over heads, the down-projections and the latent whole
+    on every rank, ``wo`` row-parallel (see the module notes)."""
+    m = cfg.mla
+    h = cfg.n_heads
+    b, t, _ = x.shape
+    nd, rd, vd = m.nope_head_dim, m.rope_head_dim, m.v_head_dim
+    qd = nd + rd
+    dev = x.device
+    la = lora or {}
+    cq = linear(x, base["wq_down"], la.get("wq_down"), scaling, tp=tp)
+    cq = rmsnorm(cq, base["q_norm"]["w"])
+    q, qs = tp.linear(cq, base["wq_up"], la.get("wq_up"), scaling)
+    c = linear(x, base["wkv_down"], la.get("wkv_down"), scaling, tp=tp)
+    c = rmsnorm(c, base["kv_norm"]["w"])                  # (B, T, kv_rank)
+    kr = linear(x, base["wk_rope"], None, tp=tp)          # (B, T, rd)
+    kr = apply_rope(kr[..., None, :], positions, cfg.rope_theta)[..., 0, :]
+
+    distinct, c0, c1, h0, h1 = tp.heads(base["wo"], h, vd)
+    nh = h1 - h0
+    ups = {}
+    for name, width in (("wk_up", nd), ("wv_up", vd)):
+        w, wd = tp.weight(base[name])
+        ups[name] = tp.frozen_cols(w, -1, wd == -1, h0 * width,
+                                   h1 * width).reshape(m.kv_lora_rank, nh,
+                                                       width)
+    wk_up, wv_up = ups["wk_up"], ups["wv_up"]
+    q = tp.cols(q, qs, h0 * qd, h1 * qd, distinct).reshape(b, t, nh, qd)
+    q_nope, q_rope = q[..., :nd], q[..., nd:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    if cache is None or t > 1:
+        cd = copy_to_region(c, tp.group) if distinct else c
+        krd = copy_to_region(kr, tp.group) if distinct else kr
+        k_nope = torch.einsum("btc,chd->bthd", cd, wk_up)
+        v = torch.einsum("btc,chd->bthd", cd, wv_up)
+        kfull = torch.cat([k_nope, krd[:, :, None, :].expand(b, t, nh, rd)],
+                          dim=-1)
+        qfull = torch.cat([q_nope, q_rope], dim=-1)
+        use_blockwise = (t > BLOCKWISE_THRESHOLD if force_blockwise is None
+                         else force_blockwise and t > 1)
+        if use_blockwise:
+            vp = torch.nn.functional.pad(v, (0, qd - vd))
+            out = _sdpa_blockwise(qfull, kfull, vp, 0, None, None,
+                                  chunk=kv_chunk, pad_mask=pad_mask)
+            out = out.reshape(b, t, nh, qd)[..., :vd]
+        else:
+            mask = _causal_window_mask(t, t, 0, None, dev)
+            if pad_mask is not None:
+                mask = mask + _pad_key_mask(pad_mask, 3)
+            out = _sdpa(qfull, kfull, v, mask)
+        if cache is not None:
+            (cb0, cb1), (rb0, rb1) = _mla_cache_split(tp, cache, m)
+            keep = min(t, cache["c"].shape[1])
+            cache["c"][:, :keep] = c[:, t - keep:, cb0:cb1].to(
+                cache["c"].dtype)
+            cache["kr"][:, :keep] = kr[:, t - keep:, rb0:rb1].to(
+                cache["kr"].dtype)
+    else:
+        out = _mla_decode_tp(tp, cfg, q_nope, q_rope, c, kr, wk_up, wv_up,
+                             cache, cache_pos, valid_start, nh, distinct)
+    out = out.reshape(b, t, nh * vd)[..., c0 - h0 * vd:c1 - h0 * vd]
+    y, ysh = tp.linear(out, base["wo"], la.get("wo"), scaling, distinct)
+    return tp.rep(y, ysh)
+
+
+def _mla_cache_split(tp, cache, m):
+    """The latent and rotary-key columns ``[lo, hi)`` a rank's cache
+    blocks hold."""
+    cl, rl = cache["c"].shape[-1], cache["kr"].shape[-1]
+    return ((tp.block(m.kv_lora_rank) if cl < m.kv_lora_rank
+             else (0, m.kv_lora_rank)),
+            tp.block(m.rope_head_dim) if rl < m.rope_head_dim
+            else (0, m.rope_head_dim))
+
+
+def _mla_decode_tp(tp, cfg, q_nope, q_rope, c, kr, wk_up, wv_up, cache,
+                   cache_pos, valid_start, nh, distinct):
+    """The absorbed decode against this rank's latent / rotary-key columns:
+    every head's partial scores over them, summed over the ranks; the
+    context's columns gathered back for the rank's heads."""
+    m = cfg.mla
+    h = cfg.n_heads
+    b = q_nope.shape[0]
+    dev = q_nope.device
+    cc, ckr = cache["c"], cache["kr"]
+    (cb0, cb1), (rb0, rb1) = _mla_cache_split(tp, cache, m)
+    c_sh, r_sh = cb1 - cb0 < m.kv_lora_rank, rb1 - rb0 < m.rope_head_dim
+    s = cc.shape[1]
+    pos_b, start_b = _row_positions(cache_pos, valid_start, b, dev)
+    rows = torch.arange(b, device=dev)
+    wpos = torch.clamp(pos_b, max=s - 1)
+    cc[rows, wpos] = c[:, 0, cb0:cb1].to(cc.dtype)
+    ckr[rows, wpos] = kr[:, 0, rb0:rb1].to(ckr.dtype)
+    q_abs = torch.einsum("bthd,chd->bthc", q_nope, wk_up)
+    if (c_sh or r_sh) and distinct:
+        if nh * tp.m != h:
+            raise NotImplementedError(
+                f"MLA decode with {h} heads over {tp.m} 'model' ranks and a "
+                f"split latent cache")
+        q_abs = gather_from_region(q_abs, 2, tp.group)
+        q_rope = gather_from_region(q_rope, 2, tp.group)
+    s_c = torch.einsum("bthc,bsc->bhts", q_abs[..., cb0:cb1], cc)
+    s_r = torch.einsum("bthd,bsd->bhts", q_rope[..., rb0:rb1], ckr)
+    if c_sh or r_sh:
+        part = ((s_c if c_sh else 0) + (s_r if r_sh else 0)).to(
+            torch.float32)
+        scores = reduce_from_region(part, tp.group)
+        if not c_sh:
+            scores = scores + s_c.to(torch.float32)
+        if not r_sh:
+            scores = scores + s_r.to(torch.float32)
+    else:
+        scores = (s_c + s_r).to(torch.float32)
+    scores = scores / np.sqrt(m.nope_head_dim + m.rope_head_dim)
+    kpos = torch.arange(s, device=dev)
+    ok = ((kpos[None, :] <= pos_b[:, None])
+          & (kpos[None, :] >= start_b[:, None]))
+    probs = torch.softmax(scores + _pad_key_mask(ok, 2), dim=-1).to(cc.dtype)
+    ctx = torch.einsum("bhts,bsc->bthc", probs, cc)
+    if c_sh:
+        ctx = gather_from_region(ctx, -1, tp.group)
+    if ctx.shape[2] != nh:
+        h0 = tp.j * nh
+        ctx = ctx[:, :, h0:h0 + nh]
+    return torch.einsum("bthc,chd->bthd", ctx, wv_up)
 
 
 def init_mla_cache(cfg, batch: int, capacity: int, dtype, device,

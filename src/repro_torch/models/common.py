@@ -147,8 +147,12 @@ def init_lora(gen: torch.Generator, d_in: int, d_out: int, rank: int,
 
 
 def linear(x: torch.Tensor, base: Params, lora=None,
-           scaling: float = 2.0) -> torch.Tensor:
-    """``x @ W (+ LoRA)``. ``lora`` is one of:
+           scaling: float = 2.0, tp=None) -> torch.Tensor:
+    """``x @ W (+ LoRA)``. Under tensor parallelism (``tp``, a
+    :class:`~repro_torch.parallel.tensor.TensorParallel`) the leaves are
+    this rank's blocks, the float LoRA runs column- or row-parallel as its
+    specs say (:meth:`~repro_torch.parallel.tensor.TensorParallel.linear`)
+    and the output is whole on every rank. ``lora`` is one of:
 
     * an fp ``{'a', 'b'}`` dict (rank-r bottleneck in the LoRA dtype);
     * a :class:`~repro_torch.core.QuantizedLoRA` — one adapter for the whole
@@ -163,6 +167,8 @@ def linear(x: torch.Tensor, base: Params, lora=None,
 
     The base product promotes as the reference's does (a bf16 ``x`` times
     the fp32 MoE router gives fp32); the update is cast to its dtype."""
+    if tp is not None:
+        return tp.rep(*tp.linear(x, base, lora, scaling))
     w = base["w"]
     if x.dtype == w.dtype:
         y = x @ w

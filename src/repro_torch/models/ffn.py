@@ -35,8 +35,16 @@ all tokens at the global capacity, as the reference's ``s_count = 1``
 does: the ranks all-gather rows and experts and keep their own rows. The
 load-balance loss is global: the sums of the router probabilities and of
 the routed counts are all-reduced over the data group. Collectives carry
-gradients (``repro_torch.parallel.collectives``). Tensor parallelism over
-a ``model`` axis is ROADMAP A9b.
+gradients (``repro_torch.parallel.collectives``).
+
+Under a ``model`` axis the expert width f is split over it in both layouts
+(``wg`` / ``wu`` column-parallel, ``wd`` row-parallel, the partial outputs
+all-reduced in the compute dtype where the reference ``psum``s them), and
+each leaf is the block of the rule table's spec. Where that table gives an
+EP expert LoRA ``b`` the whole f while ``w`` has its f-slice (ROADMAP C11:
+the reference's expert FFN cannot add the two), the port applies ``b``'s
+rows of the rank's slice, which computes what the mesh without a ``model``
+axis computes.
 """
 
 from __future__ import annotations
@@ -78,12 +86,33 @@ def init_dense_ffn(gen: torch.Generator, cfg, lora_rank: Optional[int],
 
 
 def dense_ffn(x, base, lora, *, activation: str = "silu",
-              scaling: float = 2.0):
+              scaling: float = 2.0, tp=None):
+    if tp is not None:
+        return _dense_ffn_tp(x, base, lora, activation, scaling, tp)
     g = linear(x, base["wg"], lora and lora.get("wg"), scaling)
     u = linear(x, base["wu"], lora and lora.get("wu"), scaling)
     # jax.nn.gelu defaults to the tanh approximation
     act = F.silu(g) if activation == "silu" else F.gelu(g, approximate="tanh")
     return linear(act * u, base["wd"], lora and lora.get("wd"), scaling)
+
+
+def _act(g, activation):
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.silu(g) if activation == "silu" else F.gelu(g, approximate="tanh")
+
+
+def _dense_ffn_tp(x, base, lora, activation, scaling, tp, x_sharded=False):
+    """The GLU over this rank's blocks: ``wg`` / ``wu`` column-parallel,
+    ``wd`` row-parallel where the rules split them (each linear as its
+    spec says otherwise). Returns the whole output."""
+    la = lora or {}
+    (g, gs), (u, us) = tp.linears(
+        x, [(base[n], la.get(n)) for n in ("wg", "wu")], scaling, x_sharded)
+    if gs != us:
+        g, u, gs = tp.shard(g, gs), tp.shard(u, us), True
+    y, ys = tp.linear(_act(g, activation) * u, base["wd"], la.get("wd"),
+                      scaling, gs)
+    return tp.rep(y, ys)
 
 
 # --------------------------------------------------------------------------
@@ -174,7 +203,12 @@ def _dispatch_indices(expert_ids: torch.Tensor, n_experts: int,
     n = expert_ids.shape[0]
     order = torch.argsort(expert_ids, stable=True)
     sorted_e = expert_ids[order]
-    counts = torch.bincount(expert_ids, minlength=n_experts)
+    # per-expert counts (a scatter-add, not bincount: its output size
+    # would depend on the data, which a shape-only run cannot know)
+    ids = expert_ids.to(torch.int64)
+    counts = torch.zeros((n_experts,), dtype=torch.int64,
+                         device=ids.device).scatter_add_(
+                             0, ids, torch.ones_like(ids))
     starts = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(n, device=expert_ids.device) - starts[sorted_e]
     keep = pos_in_e < capacity
@@ -197,46 +231,29 @@ def expert_layout(cfg, mesh):
     return "ep" if cfg.moe.n_experts % s == 0 else "fsdp"
 
 
-# the per-layer expert leaves' specs of each layout, as the reference's
-# shard_map in_specs have them with a ``model`` axis of 1: "F" is the FSDP
-# axes. The weight-FSDP layout keeps ``wd``'s scale d-sliced, so that the
-# gather the reference does on it (its ``ffn.py:419-426``) restores it.
-_EXPERT_SPECS = {
-    "ep": {"w": ("F", None, None), "scale": ("F", None, None),
-           "a": ("F", None, None), "b": ("F", None, None)},
-    "fsdp": {("wg", "w"): (None, "F", None), ("wu", "w"): (None, "F", None),
-             ("wd", "w"): (None, None, "F"),
-             ("wd", "scale"): (None, None, "F")},
-}
+def _map_leaves(fn, tree):
+    return {k: _map_leaves(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
 
 
-def expert_spec(layout, name: str, field: str, fsdp):
-    """The spec of one per-layer expert leaf ``(E, ·, ·)`` of linear
-    ``name`` (``wg`` / ``wu`` / ``wd``), field ``w`` / ``scale`` / ``a`` /
-    ``b``, with ``fsdp`` for the FSDP axes."""
-    table = _EXPERT_SPECS[layout]
-    spec = table.get(field) if layout == "ep" else table.get((name, field))
-    spec = spec or (None, None, None)
-    return tuple(fsdp if e == "F" else e for e in spec)
-
-
-def _gather_experts(tree, layout, group):
-    """The whole per-layer expert stacks from each rank's block (the
-    gathers are the inverse of :func:`expert_spec`'s placement)."""
-    out = {}
-    for name, leaf in tree.items():
-        out[name] = {}
-        for field, t in leaf.items():
-            spec = expert_spec(layout, name, field, "F")
-            out[name][field] = (all_gather(t, spec.index("F"), group)
-                                if "F" in spec else t)
+def _own_experts(t):
+    """An EP-held expert leaf ``(E/S, ·, ·)`` as the rank's experts: its
+    expert dim's data entry dropped from the spec (the all-to-all, not a
+    gather, brings the tokens to them)."""
+    out = t.view_as(t)
+    out.tp_spec = (None,) + tuple(t.tp_spec[1:])
     return out
 
 
 def moe_ffn(x: torch.Tensor, base, lora, cfg, *, scaling: float = 2.0,
-            mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+            mesh=None, tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token-choice top-k MoE with capacity drops. ``x: (B, T, d)`` (this
-    rank's rows under a ``mesh``); returns ``(y, aux_load_balance_loss)``."""
+    rank's rows under a ``mesh``, with ``tp`` its
+    :class:`~repro_torch.parallel.tensor.TensorParallel`); returns ``(y,
+    aux_load_balance_loss)``. Under a ``model`` axis each expert's width f
+    is split over it (f-TP: ``wg`` / ``wu`` column-, ``wd`` row-parallel,
+    the partial outputs summed in the compute dtype, as the reference's
+    ``psum`` over ``model``)."""
     mc = cfg.moe
     b, t, d = x.shape
     e, k = mc.n_experts, mc.top_k
@@ -245,7 +262,8 @@ def moe_ffn(x: torch.Tensor, base, lora, cfg, *, scaling: float = 2.0,
     group = mesh.fsdp_group() if s_count > 1 else None
     n_tok = b * t * s_count                             # the global tokens
 
-    logits = linear(xf, base["router"], lora and lora.get("router"), scaling)
+    logits = linear(xf, base["router"], lora and lora.get("router"), scaling,
+                    tp=tp)
     probs = torch.softmax(logits.to(torch.float32), dim=-1)
     gate, top_idx = _top_k(probs, k)                     # (n_tok, k)
     gate = gate / gate.sum(dim=-1, keepdim=True)         # renormalize top-k
@@ -263,19 +281,21 @@ def moe_ffn(x: torch.Tensor, base, lora, cfg, *, scaling: float = 2.0,
     lex = lora.get("experts") if (lora and mc.lora_on_experts) else None
     if group is None:
         y = _moe_dense_dispatch(xf, gate, top_idx, base["experts"], lex, e,
-                                k, moe_capacity(n_tok, mc), scaling)
+                                k, moe_capacity(n_tok, mc), scaling, tp)
     else:
         y = _moe_shard_map(xf, gate, top_idx, base, lex, cfg, mesh, group,
-                           scaling)
+                           scaling, tp)
     if mc.n_shared:
         y = y + dense_ffn(xf, base["shared"], lora and lora.get("shared"),
-                          scaling=scaling)
+                          scaling=scaling, tp=tp)
     return y.reshape(b, t, d), aux
 
 
-def _moe_shard_map(xf, gate, top_idx, base, lex, cfg, mesh, group, scaling):
+def _moe_shard_map(xf, gate, top_idx, base, lex, cfg, mesh, group, scaling,
+                   tp):
     """The expert path over S data ranks (the reference's ``_moe_shard_map``
-    and its ``s_count = 1`` fallback); each rank's ``xf`` is its own rows."""
+    and its ``s_count = 1`` fallback); each rank's ``xf`` is its own rows,
+    each expert leaf its block of the rule table's spec."""
     mc = cfg.moe
     e, k = mc.n_experts, mc.top_k
     s_count = data_ranks(mesh)
@@ -290,25 +310,27 @@ def _moe_shard_map(xf, gate, top_idx, base, lex, cfg, mesh, group, scaling):
         # the reference's fallback: one dispatch over all the tokens
         rank = dist.get_rank(group)
         n_tok = tok_loc * s_count
-        ex = _gather_experts(ex, layout, group)
-        lx = None if lex is None else _gather_experts(lex, layout, group)
+        ex = _map_leaves(lambda t: tp.data_gathered(t, grad=False), ex)
+        lx = (None if lex is None
+              else _map_leaves(lambda t: tp.data_gathered(t, grad=True), lex))
         y = _moe_dense_dispatch(
             all_gather(xf, 0, group), all_gather(gate, 0, group),
             all_gather(top_idx, 0, group), ex, lx, e, k,
-            moe_capacity(n_tok, mc), scaling)
+            moe_capacity(n_tok, mc), scaling, tp)
         return y.narrow(0, rank * tok_loc, tok_loc)
     cap_loc = moe_capacity(tok_loc, mc)
     if layout == "fsdp":
-        # ZeRO-3: gather the d-sliced expert weights for this layer
-        return _moe_dense_dispatch(xf, gate, top_idx,
-                                   _gather_experts(ex, layout, group), lex,
-                                   e, k, cap_loc, scaling)
+        # ZeRO-3: the d-sliced expert weights are gathered per layer
+        return _moe_dense_dispatch(xf, gate, top_idx, ex, lex, e, k,
+                                   cap_loc, scaling, tp)
+    ex = _map_leaves(_own_experts, ex)
+    lx = None if lex is None else _map_leaves(_own_experts, lex)
     buf, plan = _dispatch(xf, top_idx, e, k, cap_loc)
     d = xf.shape[1]
     # slots → expert owners (split E, concat capacity in rank order)
     buf = all_to_all(buf, group).reshape(s_count, e // s_count, cap_loc, d)
     buf = buf.transpose(0, 1).reshape(e // s_count, s_count * cap_loc, d)
-    out = _experts(ex, lex, buf, scaling)                # (E/S, S·cap, d)
+    out = _experts(ex, lx, buf, scaling, tp=tp)          # (E/S, S·cap, d)
     out = out.reshape(e // s_count, s_count, cap_loc, d).transpose(0, 1)
     out = all_to_all(out, group).reshape(e, cap_loc, d)
     return _combine(out, gate, plan)
@@ -387,8 +409,11 @@ def _dispatch(x_loc, idx_loc, e, k, cap):
     return buf[:-1].reshape(e, cap, d), plan
 
 
-def _experts(ex, lex, buf, scaling, buf_seg=None):
-    """The experts' GLU over their ``(E, C, d)`` buffer rows."""
+def _experts(ex, lex, buf, scaling, buf_seg=None, tp=None):
+    """The experts' GLU over their ``(E, C, d)`` buffer rows; under ``tp``
+    over this rank's blocks of the expert leaves, the output whole."""
+    if tp is not None:
+        return _dense_ffn_tp(buf, ex, lex, "silu", scaling, tp)
     g = _expert_ffw(ex, lex, "wg", buf, scaling, buf_seg)
     u = _expert_ffw(ex, lex, "wu", buf, scaling, buf_seg)
     h = F.silu(g) * u
@@ -423,9 +448,12 @@ def _combine(out, gate_loc, plan):
 
 
 def _moe_dense_dispatch(x_loc, gate_loc, idx_loc, ex, lex, e, k, cap,
-                        scaling):
+                        scaling, tp=None):
     """Sort-gather-scatter token-choice dispatch of one device's tokens."""
     buf, plan = _dispatch(x_loc, idx_loc, e, k, cap)
+    if tp is not None:
+        return _combine(_experts(ex, lex, buf, scaling, tp=tp), gate_loc,
+                        plan)
     buf_seg = None
     if lex is not None and any(isinstance(l, _PACKED) for l in lex.values()):
         # the per-token adapter ids ride the packed leaves (attached by the

@@ -49,12 +49,19 @@ each layer optionally recomputed on the backward pass when ``remat``) and
 the prefill / decode-with-cache modes the serving engine drives (no
 autograd).
 
-Under a mesh (``Model.mesh``: data parallelism over its ``data`` axis)
-each rank holds its rows of the batch and its block of the params
-(:meth:`Model.param_specs`), and each moe layer takes the expert path of
-``ffn.moe_ffn`` across the ranks. The reference's ``_constrain_act`` is not
-ported: it only hints XLA where to lay activations out
-(``with_sharding_constraint``); a rank here holds its rows by construction.
+Under a mesh (``Model.mesh``: data parallelism over its data axes, tensor
+parallelism over ``model``) each rank holds its rows of the batch and every
+leaf as ``local_block`` of the reference's rule table
+(:meth:`Model.param_specs`), and runs the explicit program
+(``parallel.tensor``): each linear column- or row-parallel as its spec
+says, the frozen base all-gathered over the data axes before use, attention
+and the recurrent mixers on their heads or channels, each moe layer on the
+expert path of ``ffn.moe_ffn``, the embedding a masked lookup in the
+rank's vocab rows plus an all-reduce, and the logits and the CE
+vocab-parallel. Decode caches are held as ``cache_specs`` places them. The
+reference's ``_constrain_act`` is not ported: it only hints XLA where to
+lay activations out (``with_sharding_constraint``); a rank here holds its
+rows by construction.
 
 A LoRA leaf may also be applied straight from packed codes: a
 layer-stacked :class:`~repro_torch.core.QuantizedLoRA` (one adapter for the
@@ -69,7 +76,6 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import re
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -81,9 +87,15 @@ from repro_torch.core.loraquant import QuantizedLoRA
 from repro_torch.kernels.quant_matmul import (PackedLoRABatch,
                                                PackedLoRABuckets)
 from repro_torch.kernels.quant_matmul.ops import qlora_layer
-from repro_torch.optim.adamw import tree_map, tree_map_with_path
-from repro_torch.parallel.sharding import (data_ranks, fsdp_axes,
-                                           local_block)
+from repro_torch.optim.adamw import (tree_map, tree_map_with_path,
+                                     tree_paths)
+from repro_torch.parallel.collectives import (all_reduce_max,
+                                              copy_to_region,
+                                              gather_from_region,
+                                              reduce_from_region)
+from repro_torch.parallel.sharding import (cache_specs, live, local_block,
+                                           spec_for)
+from repro_torch.parallel.tensor import TensorParallel, annotate
 
 from . import attention as attn_mod
 from . import ffn as ffn_mod
@@ -92,10 +104,6 @@ from .common import (apply_norm, embed, init_embedding, init_linear,
                      init_norm, softcap, unembed)
 
 Params = Dict[str, Any]
-
-# a moe layer's per-expert leaf: ``['experts'][linear][field]``
-_EXPERT_LEAF = re.compile(
-    r"\['experts'\]\['(wg|wu|wd)'\]\['(w|scale|a|b)'\]$")
 
 
 def _init_mixer(gen, cfg, kind: str, lora_rank, count: int):
@@ -128,6 +136,13 @@ def _write_state(dst, src):
             _write_state(dst[k], v)
         else:
             dst[k].copy_(v)
+
+
+def _spec_layer(specs):
+    """A stacked group's spec tree as one layer's leaves have it."""
+    if isinstance(specs, dict):
+        return {k: _spec_layer(v) for k, v in specs.items()}
+    return specs[1:]
 
 
 def _layer_slice(tree, i: int):
@@ -169,16 +184,24 @@ class Model:
     # RWKV's sequence-mode chunk (a prefill of T tokens needs T % min(
     # rwkv_chunk, T) == 0, as in the reference)
     rwkv_chunk: int = 64
-    # a mesh (``repro_torch.launch.mesh.HostMesh``) over ("data", "model"),
-    # or None: a single device. A ``model`` axis above 1 is ROADMAP A9b
+    # a mesh (``repro_torch.launch.mesh.HostMesh``) over ("data", "model")
+    # or ("pod", "data", "model"), or None: a single device
     mesh: Any = None
 
     def __post_init__(self):
-        if self.mesh is not None and self.mesh.shape.get("model", 1) > 1:
-            raise NotImplementedError(
-                f"a mesh whose 'model' axis has {self.mesh.shape['model']} "
-                f"ranks needs tensor parallelism over 'model', which the port "
-                f"does not have yet (ROADMAP A9b)")
+        self._tp = None
+        self._spec_table = None
+
+    @property
+    def tp(self):
+        """This rank's :class:`~repro_torch.parallel.tensor.TensorParallel`
+        under a mesh of more than one rank, else None."""
+        if self.mesh is None or int(np.prod(list(
+                self.mesh.shape.values()))) == 1:
+            return None
+        if self._tp is None:
+            self._tp = TensorParallel(self.mesh)
+        return self._tp
 
     @property
     def scaling(self) -> float:
@@ -238,30 +261,30 @@ class Model:
 
     def param_specs(self, tree):
         """The spec of every leaf of a params tree (or of its LoRA or
-        gradient subtree) as this rank holds it under :attr:`mesh`: a moe
-        layer's expert stacks, base and LoRA, in the layout of
-        :func:`~repro_torch.models.ffn.expert_layout` (the reference's
-        ``shard_map`` in_specs), every other leaf replicated. The
-        reference's rule table (``parallel.sharding``) also shards the
-        dense weights; the port runs dense layers on replicated weights
-        until ROADMAP A9b."""
-        layout = (ffn_mod.expert_layout(self.cfg, self.mesh)
-                  if self.cfg.moe else None)
-        fa = fsdp_axes(self.mesh) if self.mesh is not None else ()
-        fsdp = fa[0] if len(fa) == 1 else fa
+        gradient subtree, whose paths are looked up under ``['lora']``)
+        under :attr:`mesh`: the reference's rule table on the leaf's
+        global shape, without the axes of size 1. Every leaf is placed so,
+        the expert stacks as the reference's ``shard_map`` takes them."""
+        if self.mesh is None:
+            return tree_map(lambda t: (None,) * t.dim(), tree)
+        if self._spec_table is None:
+            self._spec_table = {
+                p: live(spec_for(p, tuple(t.shape), self.mesh), self.mesh)
+                for p, t in tree_paths(self.init(device="meta"))}
+        table = self._spec_table
 
         def one(path, leaf):
-            m = _EXPERT_LEAF.search(path)
-            if layout is None or m is None:
-                return (None,) * leaf.dim()
-            return ((None,) * (leaf.dim() - 3)
-                    + ffn_mod.expert_spec(layout, m[1], m[2], fsdp))
+            for p in (path, "['lora']" + path):
+                if p in table:
+                    return table[p]
+            return live(spec_for(path, tuple(leaf.shape), self.mesh),
+                        self.mesh)
 
         return tree_map_with_path(one, tree)
 
     def local_params(self, params):
         """This rank's blocks (copies) of a global params tree."""
-        if data_ranks(self.mesh) == 1:
+        if self.tp is None:
             return params
         return tree_map(
             lambda t, s: local_block(t, s, self.mesh, self.mesh.coords
@@ -278,8 +301,24 @@ class Model:
         for ``rwkv``; a sub-block whose feed-forward is ``rwkv_cm`` nests
         its mixer's cache under ``"tmix"`` beside the channel mix's
         ``{"x_prev"}`` under ``"cmix"``."""
+        caches = self._init_cache(batch, capacity, resolve_device(device))
+        tp = self.tp
+        if tp is None or tp.m == 1:
+            return caches
+        # this rank's block of each cache over 'model' (the batch rows are
+        # already this rank's)
+        meta = self._init_cache(batch, capacity, torch.device("meta"))
+        specs = cache_specs(meta, self.mesh)
+
+        def block(t, spec):
+            shape = [n // tp.m if e == "model" else n
+                     for n, e in zip(t.shape, spec)]
+            return torch.zeros(shape, dtype=t.dtype, device=t.device)
+
+        return tree_map(block, caches, specs)
+
+    def _init_cache(self, batch, capacity, dev):
         cfg = self.cfg
-        dev = resolve_device(device)
 
         def one(mk, count):
             if mk == "mla":
@@ -315,40 +354,45 @@ class Model:
         """The mixer's output; a recurrent mixer's new state is written
         into ``cache`` in place (attention writes its own)."""
         cfg = self.cfg
+        tp = self.tp
         if kind in ("rglru", "rwkv"):
             if kind == "rglru":
                 out, new = rec_mod.rglru_block(x, bparams, lparams, cfg,
                                                state=cache,
-                                               scaling=self.scaling)
+                                               scaling=self.scaling, tp=tp)
             else:
                 out, new = rec_mod.rwkv_tmix(x, bparams, lparams, cfg,
                                              state=cache,
                                              chunk=self.rwkv_chunk,
-                                             scaling=self.scaling)
+                                             scaling=self.scaling, tp=tp)
             if cache is not None:
                 _write_state(cache, new)
             return out
         if kind == "mla":
             return attn_mod.mla_attention(
                 x, bparams, lparams, cfg, scaling=self.scaling,
-                force_blockwise=self.force_blockwise, cache=cache, **kw)
+                force_blockwise=self.force_blockwise, cache=cache, tp=tp,
+                **kw)
         if kind not in ("attn", "local_attn"):
             raise ValueError(kind)
         return attn_mod.gqa_attention(
             x, bparams, lparams, cfg,
             window=cfg.window if kind == "local_attn" else None,
             scaling=self.scaling, force_blockwise=self.force_blockwise,
-            cache=cache, **kw)
+            cache=cache, tp=tp, **kw)
 
     def _run_ffn(self, kind, x, bparams, lparams, state=None):
         """``(output, aux)``: an MoE's load-balance loss, 0 otherwise. The
         RWKV channel mix's new ``state`` is written in place."""
+        tp = self.tp
         if kind == "moe":
             return ffn_mod.moe_ffn(x, bparams, lparams, self.cfg,
-                                   scaling=self.scaling, mesh=self.mesh)
+                                   scaling=self.scaling, mesh=self.mesh,
+                                   tp=tp)
         if kind == "rwkv_cm":
             out, new = rec_mod.rwkv_cmix(x, bparams, lparams, self.cfg,
-                                         state=state, scaling=self.scaling)
+                                         state=state, scaling=self.scaling,
+                                         tp=tp)
             if state is not None:
                 _write_state(state, new)
             return out, 0.0
@@ -356,7 +400,7 @@ class Model:
             raise ValueError(kind)
         act = "gelu" if self.cfg.norm == "rmsnorm_plus1" else "silu"
         return ffn_mod.dense_ffn(x, bparams, lparams, activation=act,
-                                 scaling=self.scaling), 0.0
+                                 scaling=self.scaling, tp=tp), 0.0
 
     # ----- backbone -----
 
@@ -416,12 +460,16 @@ class Model:
         remat = (self.remat and caches is None and torch.is_grad_enabled())
         kw = dict(positions=positions, cache_pos=cache_pos,
                   valid_start=valid_start, pad_mask=pad_mask)
+        specs = self._annotated(params)
         for gi, block in enumerate(cfg.blocks):
             gb, gl = base["groups"][gi], lora["groups"][gi]
             if seg is not None:
                 gl = self._attach_seg(gl, seg)
             for li in range(block.count):
                 lb, ll = _layer_slice(gb, li), _layer_slice(gl, li)
+                if specs is not None:
+                    annotate(lb, specs[0][gi])
+                    annotate(ll, specs[1][gi])
                 sc = (None if caches is None
                       else _layer_slice(caches[gi], li))
                 if remat:
@@ -432,6 +480,25 @@ class Model:
                     x, aux = self._layer(block, x, aux, lb, ll, sc, **kw)
         return apply_norm(x, base["final_norm"], cfg.norm), aux
 
+    def _annotated(self, params):
+        """Under a mesh: each group's per-layer spec trees ``(base,
+        lora)`` for :func:`annotate` (None without one)."""
+        if self.tp is None:
+            return None
+        lora = {k: v for k, v in params["lora"].items() if k != "seg"}
+        bspec = self.param_specs({"base": params["base"]})["base"]
+        lspec = self.param_specs({"lora": lora})["lora"]
+        return ([_spec_layer(g) for g in bspec["groups"]],
+                [_spec_layer(g) for g in lspec["groups"]])
+
+    def _annotate_top(self, base):
+        """Under a mesh: set the spec of every base leaf outside the layer
+        groups (the tables, the final norm, the MTP head)."""
+        if self.tp is None:
+            return
+        top = {k: v for k, v in base.items() if k != "groups"}
+        annotate(top, self.param_specs({"base": top})["base"])
+
     # ----- embedding / unembedding -----
 
     def _embed(self, base, batch):
@@ -439,6 +506,7 @@ class Model:
         ``(B, K, T)`` tokens), qwen2-vl's ``vision_embeds`` prepended, and
         gemma's ``sqrt(d_model)`` scale, in the reference's order."""
         cfg = self.cfg
+        self._annotate_top(base)
         table = base["embed_tied" if cfg.tie_embeddings else "embed"]
         tokens = batch["tokens"]
         if cfg.n_codebooks:
@@ -448,10 +516,10 @@ class Model:
                     f"tokens, got shape {tuple(tokens.shape)}: the serving "
                     f"engine hands the model (B, T) tokens, which the "
                     f"reference cannot embed either (ROADMAP C8)")
-            x = sum(embed(tokens[:, k], {"e": table["e"][k]})
+            x = sum(self._lookup(tokens[:, k], table["e"], k)
                     for k in range(cfg.n_codebooks))
         else:
-            x = embed(tokens, table)
+            x = self._lookup(tokens, table["e"])
         if cfg.vision_stub and "vision_embeds" in batch:
             x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
         if cfg.norm == "rmsnorm_plus1":
@@ -461,15 +529,48 @@ class Model:
                                                    dtype=torch.float32)
         return x.to(cfg.dtype)
 
-    def _logits(self, base, x):
+    def _vocab_block(self, e):
+        """``[lo, hi)`` of the vocab rows this rank holds of the table
+        ``e`` (``(V, d)`` or stacked ``(K, V, d)``), or None when whole."""
+        tp = self.tp
+        spec = getattr(e, "tp_spec", None)
+        if tp is None or tp.m == 1 or spec is None or spec[-2] != "model":
+            return None
+        return tp.block(e.shape[-2] * tp.m)
+
+    def _lookup(self, tokens, e, k=None):
+        """``e[tokens]`` (codebook ``k`` of a stacked table); a table split
+        over ``model`` by vocab rows is looked up where the rank holds the
+        token, zeros elsewhere, and the rows all-reduced."""
+        blk = self._vocab_block(e)
+        if k is not None:
+            e = e[k]
+        if blk is None:
+            return embed(tokens, {"e": e})
+        lo, hi = blk
+        local = tokens.to(torch.int64) - lo
+        ok = (local >= 0) & (local < hi - lo)
+        x = torch.where(ok[..., None], e[local.clamp(0, hi - lo - 1)],
+                        torch.zeros((), dtype=e.dtype, device=e.device))
+        return reduce_from_region(x, self.tp.group)
+
+    def _logits(self, base, x, gather: bool = True):
+        """The (soft-capped) logits; a head split over ``model`` gives the
+        rank's vocab columns, gathered unless ``gather`` is False."""
         cfg = self.cfg
         head = base["embed_tied"] if cfg.tie_embeddings else base["head"]
+        blk = self._vocab_block(head["e"])
+        if blk is not None:
+            x = copy_to_region(x, self.tp.group)
         if cfg.n_codebooks:                         # (B, K, T, V)
             logits = torch.stack([unembed(x, {"e": head["e"][k]})
                                   for k in range(cfg.n_codebooks)], dim=1)
         else:
             logits = unembed(x, head)
-        return softcap(logits, cfg.logit_softcap)
+        logits = softcap(logits, cfg.logit_softcap)
+        if blk is not None and gather:
+            logits = gather_from_region(logits, -1, self.tp.group)
+        return logits
 
     def _rope_streams(self, pos):
         """``(B, T)`` positions as the rotary embedding takes them: the
@@ -497,13 +598,29 @@ class Model:
                                 None, None)
         return self._logits(params["base"], h), aux
 
-    @staticmethod
-    def _ce(logits, targets) -> torch.Tensor:
-        """Mean fp32 cross-entropy over the targets ``>= 0``."""
+    def _ce(self, logits, targets, blk=None) -> torch.Tensor:
+        """Mean fp32 cross-entropy over the targets ``>= 0``. With ``blk``
+        the logits are the rank's vocab columns ``[lo, hi)``: the max and
+        the sum of exponentials are all-reduced over ``model`` and the
+        target's logit comes from the rank that holds it."""
         lf = logits.to(torch.float32)
-        lse = torch.logsumexp(lf, dim=-1)
-        gold = torch.gather(lf, -1, torch.clamp(targets, min=0).to(
-            torch.int64)[..., None])[..., 0]
+        tgt = torch.clamp(targets, min=0).to(torch.int64)
+        if blk is None:
+            lse = torch.logsumexp(lf, dim=-1)
+            gold = torch.gather(lf, -1, tgt[..., None])[..., 0]
+        else:
+            group = self.tp.group
+            lo, hi = blk
+            mx = all_reduce_max(lf.amax(dim=-1), group)
+            se = reduce_from_region(
+                torch.sum(torch.exp(lf - mx[..., None]), dim=-1), group)
+            lse = mx + torch.log(se)
+            local = tgt - lo
+            ok = (local >= 0) & (local < hi - lo)
+            gold = torch.gather(lf, -1, local.clamp(0, hi - lo - 1)[..., None]
+                                )[..., 0]
+            gold = reduce_from_region(
+                torch.where(ok, gold, torch.zeros_like(gold)), group)
         mask = (targets >= 0).to(torch.float32)
         return torch.sum((lse - gold) * mask) / torch.clamp(torch.sum(mask),
                                                             min=1.0)
@@ -523,20 +640,27 @@ class Model:
         b, t = x.shape[0], x.shape[1]
         h, aux = self._backbone(params, x, self._positions(batch, t, b),
                                 None, None)
-        logits = self._logits(base, h)
+        head = base["embed_tied"] if cfg.tie_embeddings else base["head"]
+        blk = self._vocab_block(head["e"])
+        logits = self._logits(base, h, gather=False)
         targets = batch["targets"]
         if cfg.vision_stub and "vision_embeds" in batch:
             tv = batch["vision_embeds"].shape[1]
             logits, h, x = logits[:, tv:], h[:, tv:], x[:, tv:]
-        ce = self._ce(logits, targets)
+        ce = self._ce(logits, targets, blk)
         loss = ce + aux
         if cfg.mtp:
             nxt = torch.cat([x[:, 1:], torch.zeros_like(x[:, :1])], dim=1)
-            h2 = torch.cat([h, nxt], dim=-1) @ base["mtp"]["proj"]["w"]
+            hn = torch.cat([h, nxt], dim=-1)
+            if self.tp is None:
+                h2 = hn @ base["mtp"]["proj"]["w"]
+            else:
+                h2, _ = self.tp.linear(hn, base["mtp"]["proj"], None, 1.0)
             h2 = apply_norm(h2, base["mtp"]["norm"], cfg.norm)
             t2 = torch.cat([targets[:, 1:],
                             -torch.ones_like(targets[:, :1])], dim=-1)
-            loss = loss + 0.3 * self._ce(self._logits(base, h2), t2)
+            loss = loss + 0.3 * self._ce(
+                self._logits(base, h2, gather=False), t2, blk)
         return loss, {"ce": ce, "aux": aux}
 
     @torch.no_grad()

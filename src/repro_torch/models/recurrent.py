@@ -25,6 +25,12 @@ GELU, ``softplus`` as ``logaddexp(x, 0)``, population variance in the
 group norm, and the causal conv's taps summed in order in fp32. Pad
 tokens of a left-padded row flow through the states, as in the
 reference (its pad masks cover attention only).
+
+Under tensor parallelism (``tp``) the per-head and per-channel leaves the
+rule table leaves whole (RWKV's decay, bonus, mus and group norm; RG-LRU's
+conv taps and decay) are cut to the rank's heads or channels on the rank;
+the chunked scan and the odd / even scan keep the reference's order, which
+is local per channel.
 """
 
 from __future__ import annotations
@@ -34,6 +40,9 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from repro_torch.parallel.collectives import (gather_from_region,
+                                              reduce_from_region)
 
 from .common import init_linear, init_lora, linear
 
@@ -196,11 +205,14 @@ def rwkv_tmix(
     state: Optional[Params] = None,   # {"x_prev": (B,1,d), "s": (B,H,dk,dv)}
     chunk: int = 64,
     scaling: float = 2.0,
+    tp=None,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """RWKV-6 time-mix of ``x: (B, T, d)``: one recurrence step at T = 1,
     else the chunked scan (T must be a multiple of ``min(chunk, T)``, as
     in the reference). Returns ``(out, new_state)``; the state is None in
     sequence mode without ``state``."""
+    if tp is not None:
+        return _rwkv_tmix_tp(x, base, lora, cfg, tp, state, chunk, scaling)
     d = cfg.d_model
     dh = cfg.rwkv_head_dim
     h = d // dh
@@ -283,9 +295,12 @@ def rwkv_cmix(
     *,
     state: Optional[Params] = None,   # {"x_prev": (B,1,d)}
     scaling: float = 2.0,
+    tp=None,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """RWKV-6 channel mix: ``sigmoid(r) · wv(relu(wk(x_k))²)`` over
     token-shifted inputs. Returns ``(out, new_state)``."""
+    if tp is not None:
+        return _rwkv_cmix_tp(x, base, lora, cfg, tp, state, scaling)
     xf = x.to(torch.float32)
     prev = state["x_prev"] if state is not None else None
     sx = _token_shift(xf, prev) - xf
@@ -427,12 +442,15 @@ def rglru_block(
     *,
     state: Optional[Params] = None,   # {"h": (B,width), "conv": (B,cw-1,width)}
     scaling: float = 2.0,
+    tp=None,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Griffin's recurrent block: a tanh-GELU gate branch times the RG-LRU
     over the causally convolved input branch, then ``w_out``. One step at
     T = 1 with a state, else the associative scan with ``h0`` folded into
     step 0. Returns ``(out, new_state)``; the new conv state is in ``x``'s
     dtype, as the reference rounds it."""
+    if tp is not None:
+        return _rglru_block_tp(x, base, lora, cfg, tp, state, scaling)
     gate = F.gelu(linear(x, base["w_gate"], _lora(lora, "w_gate"), scaling),
                   approximate="tanh")
     y = linear(x, base["w_in"], _lora(lora, "w_in"), scaling)
@@ -479,3 +497,218 @@ def init_rglru_state(cfg, batch: int, device=None, count: int = 1):
         "conv": torch.zeros(lead + (cfg.conv_width - 1, width),
                             dtype=cfg.dtype, device=device),
     }
+
+
+# ==========================================================================
+# tensor parallelism
+# ==========================================================================
+
+def _state_cols(tp, t, n: int, lo: int, hi: int):
+    """Columns ``[lo, hi)`` of a state whose last dim holds all ``n`` or
+    this rank's block of them (as ``cache_specs`` places it)."""
+    if t.shape[-1] != n:
+        t = gather_from_region(t, -1, tp.group)
+    return t[..., lo:hi]
+
+
+def _state_back(tp, t, n: int, lo: int, hi: int, held: int):
+    """A state computed on columns ``[lo, hi)`` in the layout its cache
+    holds: all ``n`` columns, or (``held < n``) this rank's block."""
+    if (lo, hi) != (0, n):
+        if (lo, hi) == tp.block(n) and held == hi - lo:
+            return t
+        t = gather_from_region(t, -1, tp.group)
+    if held == n:
+        return t
+    b0, b1 = tp.block(n)
+    return t[..., b0:b1]
+
+
+def _rwkv_tmix_tp(x, base, lora, cfg, tp, state, chunk, scaling):
+    """RWKV-6 time mix over this rank's heads: the token shift and decay
+    whole on every rank, ``wr`` / ``wk`` / ``wv`` / ``wg`` column- and
+    ``wo`` row-parallel, the scan on the heads of the rank's block of
+    ``wo``'s input. The decode step runs in the state's cache layout (key
+    dim split over ``model``): every head's partial output over the rank's
+    key rows, summed over the ranks."""
+    d = cfg.d_model
+    dh = cfg.rwkv_head_dim
+    h = d // dh
+    b, t, _ = x.shape
+    la = lora or {}
+    x_prev = None
+    if state is not None:
+        x_prev = _state_cols(tp, state["x_prev"], d, 0, d)
+    xf = x.to(torch.float32)
+    sx = _token_shift(xf, x_prev) - xf
+    xxx = xf + sx * base["mu_base"]
+    mix = torch.tanh(xxx @ base["ddlerp_w1"]["w"]).reshape(b, t, 5,
+                                                           RWKV_LORA_DIM)
+    adj = torch.einsum("btfk,fkd->btfd", mix, base["ddlerp_w2"])
+    mus = base["mu"][None, None] + adj
+    xr, xk, xv, xw, xg = [xf + sx * mus[:, :, i] for i in range(5)]
+    r, rs = tp.linear(xr.to(x.dtype), base["wr"], la.get("wr"), scaling)
+    k, ks = tp.linear(xk.to(x.dtype), base["wk"], la.get("wk"), scaling)
+    v, vs = tp.linear(xv.to(x.dtype), base["wv"], la.get("wv"), scaling)
+    g, gs = tp.linear(xg.to(x.dtype), base["wg"], la.get("wg"), scaling)
+    g = F.silu(g)
+    decay = (base["decay_base"]
+             + torch.tanh(xw @ base["decay_w1"]["w"]) @ base["decay_w2"]["w"])
+    w = torch.exp(-torch.exp(decay.to(torch.float32)))     # (B,T,d), whole
+
+    if t == 1 and state is not None:
+        rf, kf, vf = (tp.rep(z, zs).to(torch.float32).reshape(b, h, dh)
+                      for z, zs in ((r, rs), (k, ks), (v, vs)))
+        s0 = state["s"]                                    # (B,H,dkl,dv)
+        k0, k1 = tp.block(dh) if s0.shape[2] < dh else (0, dh)
+        kv = torch.einsum("bhk,bhv->bhkv", kf[..., k0:k1], vf)
+        u = base["bonus"][:, k0:k1]
+        out = torch.einsum("bhk,bhkv->bhv", rf[..., k0:k1],
+                           s0 + u[None, :, :, None] * kv)
+        if k1 - k0 < dh:
+            out = reduce_from_region(out, tp.group)
+        s1 = w.reshape(b, h, dh)[..., k0:k1][..., None] * s0 + kv
+        y = out[:, None]                                   # (B,1,H,dh)
+        c0, c1, h0, h1 = 0, d, 0, h
+        gg = tp.rep(g, gs)
+        distinct = False
+        new_state = {"s": s1}
+    else:
+        distinct, c0, c1, h0, h1 = tp.heads(base["wo"], h, dh)
+        nh = h1 - h0
+        rr, kk, vv = (tp.cols(z, zs, h0 * dh, h1 * dh, distinct).to(
+            torch.float32).reshape(b, t, nh, dh)
+            for z, zs in ((r, rs), (k, ks), (v, vs)))
+        ww = tp.cols(w, False, h0 * dh, h1 * dh, distinct).reshape(
+            b, t, nh, dh)
+        gg = tp.cols(g, gs, h0 * dh, h1 * dh, distinct)
+        u = base["bonus"][h0:h1]
+        if state is not None:
+            s_all = state["s"]
+            if s_all.shape[2] < dh:
+                s_all = gather_from_region(s_all, 2, tp.group)
+            s0 = s_all[:, h0:h1]
+        else:
+            s0 = torch.zeros((b, nh, dh, dh), dtype=torch.float32,
+                             device=x.device)
+        cc = min(chunk, t)
+        if t % cc:
+            raise ValueError(f"seq len {t} must be divisible by chunk {cc}")
+        nc = t // cc
+
+        def resh(z):                                       # (nc,B,H,c,dh)
+            return z.reshape(b, nc, cc, nh, dh).permute(1, 0, 3, 2, 4)
+
+        rs_, ks_, vs_, ws_ = map(resh, (rr, kk, vv, ww))
+        logw = torch.log(torch.clamp(ws_, 1e-12, 1.0))
+        sub = 16 if cc % 16 == 0 else cc
+        s, ys = s0, []
+        for i in range(nc):
+            s, yc = _chunk_step(s, rs_[i], ks_[i], vs_[i], logw[i], u, sub)
+            ys.append(yc)
+        y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(b, t, nh, dh)
+        new_state = None
+        if state is not None:
+            if nh != h:
+                if nh * tp.m != h or (h0, h1) != (tp.j * nh, tp.j * nh + nh):
+                    raise NotImplementedError(
+                        f"an RWKV state over {h} heads split unevenly over "
+                        f"{tp.m} 'model' ranks")
+                s = gather_from_region(s, 1, tp.group)
+            if state["s"].shape[2] < dh:
+                kb0, kb1 = tp.block(dh)
+                s = s[:, :, kb0:kb1]
+            new_state = {"s": s}
+
+    nh = h1 - h0
+    yf = y.reshape(b, -1, nh, dh)
+    mu = torch.mean(yf, dim=-1, keepdim=True)
+    var = torch.var(yf, dim=-1, keepdim=True, correction=0)
+    yf = (yf - mu) * torch.rsqrt(var + 64e-5)
+    yf = (yf.reshape(b, -1, nh * dh) * base["gn_w"][h0 * dh:h1 * dh]
+          + base["gn_b"][h0 * dh:h1 * dh])
+    out = (yf * gg.to(torch.float32)).to(x.dtype)
+    out = out[..., c0 - h0 * dh:c1 - h0 * dh]
+    if new_state is not None:
+        held = state["x_prev"].shape[-1]
+        new_state["x_prev"] = _state_back(tp, x[:, -1:], d, 0, d, held)
+    y, ysh = tp.linear(out, base["wo"], la.get("wo"), scaling, distinct)
+    return tp.rep(y, ysh), new_state
+
+
+def _rwkv_cmix_tp(x, base, lora, cfg, tp, state, scaling):
+    """RWKV-6 channel mix over this rank's blocks, each linear as its
+    spec says."""
+    d = cfg.d_model
+    la = lora or {}
+    xf = x.to(torch.float32)
+    prev = (None if state is None
+            else _state_cols(tp, state["x_prev"], d, 0, d))
+    sx = _token_shift(xf, prev) - xf
+    xk = (xf + sx * base["mu_k"]).to(x.dtype)
+    xr = (xf + sx * base["mu_r"]).to(x.dtype)
+    k, ks = tp.linear(xk, base["wk"], la.get("wk"), scaling)
+    k = torch.square(torch.relu(k))
+    kv, kvs = tp.linear(k, base["wv"], la.get("wv"), scaling, ks)
+    r, rs = tp.linear(xr, base["wr"], la.get("wr"), scaling)
+    r = torch.sigmoid(r)
+    if kvs != rs:
+        r, kv, rs = tp.shard(r, rs), tp.shard(kv, kvs), True
+    out = tp.rep(r * kv, rs)
+    new_state = None
+    if state is not None:
+        new_state = {"x_prev": _state_back(tp, x[:, -1:], d, 0, d,
+                                           state["x_prev"].shape[-1])}
+    return out, new_state
+
+
+def _rglru_block_tp(x, base, lora, cfg, tp, state, scaling):
+    """Griffin's recurrent block over this rank's channels (the block of
+    ``w_out``'s input): ``w_in`` / ``w_gate`` column-parallel, the conv,
+    gates and scan per channel, ``w_out`` row-parallel; ``w_ix`` / ``w_ax``
+    (column-parallel) take the whole width."""
+    width = cfg.rglru_width or cfg.d_model
+    la = lora or {}
+    (gate, gs), (y, ys) = tp.linears(
+        x, [(base[n], la.get(n)) for n in ("w_gate", "w_in")], scaling)
+    gate = F.gelu(gate, approximate="tanh")
+    distinct = tp.splits_in(base["w_out"])
+    c0, c1 = tp.block(width) if distinct else (0, width)
+    gate = tp.cols(gate, gs, c0, c1, distinct)
+    y = tp.cols(y, ys, c0, c1, distinct)
+    prev = (None if state is None
+            else _state_cols(tp, state["conv"], width, c0, c1))
+    y, conv_state = _causal_conv(y, base["conv_w"][:, c0:c1],
+                                 base["conv_b"][c0:c1], prev)
+    yf = y.to(torch.float32)
+    gates = []
+    for name in ("w_ix", "w_ax"):
+        z, zs = tp.linear(yf, base[name], None, 1.0, distinct)
+        gates.append(torch.sigmoid(tp.cols(z, zs, c0, c1, distinct)))
+    i_gate, a_gate = gates
+    lam = base["lambda_p"][c0:c1]
+    softplus = torch.logaddexp(lam, torch.zeros_like(lam))
+    a = torch.exp(-RGLRU_C * softplus * a_gate)
+    gated_in = torch.sqrt(torch.clamp(1.0 - a * a, 1e-12, 1.0)) * (
+        i_gate * yf)
+    h0 = (None if state is None
+          else _state_cols(tp, state["h"], width, c0, c1))
+    if y.shape[1] == 1 and h0 is not None:
+        new_h = a[:, 0] * h0 + gated_in[:, 0]
+        hs = new_h[:, None]
+    else:
+        if h0 is not None:
+            gated_in = torch.cat([gated_in[:, :1] + (a[:, 0] * h0)[:, None],
+                                  gated_in[:, 1:]], dim=1)
+        _, hs = associative_scan(_lru_combine, [a, gated_in], dim=1)
+        new_h = hs[:, -1]
+    out, osh = tp.linear((hs * gate.to(torch.float32)).to(x.dtype),
+                         base["w_out"], la.get("w_out"), scaling, distinct)
+    new_state = None
+    if state is not None:
+        new_state = {
+            "h": _state_back(tp, new_h, width, c0, c1,
+                             state["h"].shape[-1]),
+            "conv": _state_back(tp, conv_state.to(x.dtype), width, c0, c1,
+                                state["conv"].shape[-1])}
+    return tp.rep(out, osh), new_state

@@ -48,7 +48,7 @@ import torch
 from repro_torch.optim.adamw import tree_map, tree_map_with_path
 
 __all__ = ["AbstractMesh", "FSDP", "batch_specs", "cache_specs",
-           "data_ranks", "fsdp_axes", "local_block", "placements",
+           "data_ranks", "fsdp_axes", "live", "local_block", "placements",
            "shard_tree", "spec_for"]
 
 Spec = Tuple[Any, ...]
@@ -256,6 +256,16 @@ def cache_specs(cache_tree, mesh):
 # --------------------------------------------------------------------------
 # placing tensors
 # --------------------------------------------------------------------------
+
+def live(spec: Spec, mesh) -> Spec:
+    """``spec`` without the axes of size 1, which cut nothing: the same
+    blocks, and an entry is not None only where the dim is split."""
+    def one(e):
+        ax = tuple(a for a in _axes_of(e) if mesh.shape[a] > 1)
+        return _entry(ax) if ax else None
+
+    return tuple(one(e) for e in spec)
+
 
 def _axes_of(entry) -> Tuple[str, ...]:
     if entry is None:

@@ -265,16 +265,33 @@ if world == 4:
     np.savez(os.path.join(out_dir, f"compress.rank{rank}.npz"),
              **{"red" + k: v.numpy() for k, v in red.items()},
              **{"err" + k: v.numpy() for k, v in err.items()})
-    # C11's mesh: a 'model' axis of 2 is refused (ROADMAP A9b)
+    # C11's mesh (2, 2), on the parameters and batch of mixtral_ep_s2
+    arch, s, b, t, moe = T.CASES["mixtral_ep_s2"]
+    cfg = T.cfg_of(arch, moe)
     mesh22 = HostMesh(init_device_mesh("cpu", (2, 2),
                                        mesh_dim_names=("data", "model")))
-    try:
-        build_model(T.cfg_of("mixtral-8x22b", {}), mesh=mesh22)
-        msg = "no error"
-    except NotImplementedError as ex:
-        msg = str(ex)
-    with open(os.path.join(out_dir, f"c11.rank{rank}.txt"), "w") as f:
-        f.write(msg)
+    model = build_model(cfg, mesh=mesh22)
+    path = os.path.join(out_dir, "mixtral_ep_s2.params.npz")
+    while not os.path.exists(path):
+        if time.time() > deadline:
+            raise TimeoutError(f"the reference wrote no {path}")
+        time.sleep(0.1)
+    with np.load(path) as z:
+        params = _unflatten(build_model(cfg).init(0, device="cpu"), dict(z))
+    params = model.local_params(params)
+    batch = local_batch({k: torch.from_numpy(v) for k, v in T.make_batch(
+        T.DataConfig(seq_len=t, global_batch=b, vocab=cfg.vocab, seed=0),
+        0).items()}, mesh22)
+    loss, m, grads = _lora_grads(model, params, batch)
+    loss, m, grads, _ = _mesh_mean(model, loss, m, grads)
+    new, _, sm = make_train_step(model, OptimizerConfig(
+        lr=T.LR, total_steps=T.STEPS))(
+        params, init_opt_state(params["lora"]), batch)
+    np.savez(os.path.join(out_dir, f"c11.rank{rank}.npz"),
+             loss=loss.numpy(), ce=m["ce"].numpy(), aux=m["aux"].numpy(),
+             step_loss=sm["loss"].numpy(), grad_norm=sm["grad_norm"].numpy(),
+             **{"grad" + k: v for k, v in flat(grads).items()},
+             **{"new" + k: v for k, v in flat(new["lora"]).items()})
 dist.destroy_process_group()
 """
 
@@ -350,12 +367,12 @@ def gathered(out, name, world, specs):
     return got
 
 
-def lora_specs(arch, world, moe):
+def lora_specs(arch, world, moe, model=1):
     """Path (within the LoRA tree) → spec of every LoRA leaf, as the port
-    places them on a ``(world, 1)`` mesh."""
+    places them on a ``(world, model)`` mesh."""
     cfg = cfg_of(arch, moe)
     model = build_model(cfg, mesh=AbstractMesh(("data", "model"),
-                                               (world, 1)))
+                                               (world, model)))
     lora = build_model(cfg).init(0, device="meta")["lora"]
     by_leaf = {}
     tree_map(lambda leaf, spec: by_leaf.setdefault(id(leaf), spec), lora,
@@ -427,9 +444,43 @@ def test_compressed_psum_mean_bit_exact_at_four_ranks(runs):
 def test_model_axis_refused_where_the_reference_fails(runs):
     """C11: at mesh (2, 2) the reference's EP in_specs give the expert
     LoRA's b no 'model' split while w has one, and its expert FFN cannot
-    add the two; the port refuses any 'model' axis above 1 (A9b)."""
+    add the two. The port applies b's rows of each rank's f-slice: its
+    (2, 2) step equals the reference's (2, 1) one (capacity is per data
+    shard, so the 'model' axis changes nothing)."""
     ref = json.loads((runs / "reference.json").read_text())["c11"]
     assert ref.startswith("TypeError") and "incompatible shapes" in ref, ref
-    for r in range(4):
-        msg = (runs / f"c11.rank{r}.txt").read_text()
-        assert "A9b" in msg and "'model'" in msg, msg
+    arch, _, _, _, moe = CASES["mixtral_ep_s2"]
+    specs = lora_specs(arch, 2, moe, model=2)
+    ranks = [load(runs, f"c11.rank{r}.npz") for r in range(4)]
+    want = load(runs, "mixtral_ep_s2.ref.npz")
+    assert sorted(ranks[0]) == sorted(want)
+    for key, w in want.items():
+        field = next((f for f in ("grad", "new") if key.startswith(f + "[")),
+                     None)
+        spec = specs[key[len(field):]] if field else ()
+        split = {a: dim for dim, e in enumerate(spec)
+                 for a in ((e,) if isinstance(e, str) else e or ())}
+        rows = []
+        for i in range(2):                   # data rows, model columns
+            parts = [ranks[2 * i + j][key] for j in range(2)]
+            if "model" in split:
+                rows.append(np.concatenate(parts, axis=split["model"]))
+            else:
+                np.testing.assert_array_equal(parts[1], parts[0], key)
+                rows.append(parts[0])
+        if "data" in split:
+            got = np.concatenate(rows, axis=split["data"])
+        else:
+            np.testing.assert_array_equal(rows[1], rows[0], key)
+            got = rows[0]
+        assert got.shape == w.shape, key
+        if field == "new":
+            np.testing.assert_allclose(got, w, rtol=0, atol=0.05 * LR,
+                                       err_msg=key)
+        elif field == "grad":
+            np.testing.assert_allclose(
+                got, w, rtol=0, atol=RTOL * max(np.abs(w).max(), 1e-30),
+                err_msg=key)
+        else:
+            np.testing.assert_allclose(got, w, rtol=RTOL, atol=0,
+                                       err_msg=key)

@@ -7,8 +7,10 @@ the reference's own driver fails before its first step (ROADMAP C1), so
 the loop stands in for it. The parameters are the reference's, bridged in
 by a test-only patch of ``Model.init``. A run stopped by SIGTERM after 4
 steps and resumed equals an uninterrupted run bit for bit, in process and
-as a subprocess; the straggler watchdog is the reference's; world size
-above 1 and a missing GPU are refused.
+as a subprocess; the straggler watchdog is the reference's; two gloo ranks
+(mesh (1, 2)) match the reference's loop under a (1, 2) mesh and write a
+checkpoint that one rank and the reference restore; a missing GPU is
+refused.
 """
 
 import dataclasses
@@ -196,36 +198,154 @@ def test_straggler_watchdog_flags_outliers():
 
 
 _RANK = r"""
-import sys
+import json, sys
+import numpy as np
+import torch
 import torch.distributed as dist
-from repro_torch.launch.train import main
-rank, store = int(sys.argv[1]), sys.argv[2]
+from repro_torch.checkpoint.manager import _unflatten
+from repro_torch.launch import train
+from repro_torch.models.model import Model
+
+torch.set_num_threads(1)
+rank, store, params, out, ckpt = (int(sys.argv[1]), sys.argv[2],
+                                  sys.argv[3], sys.argv[4], sys.argv[5])
+init = Model.init
+with np.load(params) as z:
+    flat = dict(z)
+Model.init = lambda self, seed=0, device="cuda": _unflatten(
+    init(self, seed, "cpu"), flat)
+losses = []
+make = train.make_train_step
+
+def wrapped(*a, **kw):
+    fn = make(*a, **kw)
+    def step(*sa):
+        res = fn(*sa)
+        losses.append({k: float(v) for k, v in res[2].items()})
+        return res
+    return step
+
+train.make_train_step = wrapped
 dist.init_process_group("gloo", init_method="file://" + store, rank=rank,
                         world_size=2)
 try:
-    main(["--arch", "olmo-1b", "--steps", "2", "--batch", "2", "--seq",
-          "8", "--device", "cpu"])
-    print("RAN")
-except NotImplementedError as e:
-    print("REFUSED", e)
+    train.main(["--arch", "olmo-1b", "--steps", "6", "--batch", "2",
+                "--seq", "32", "--ckpt-every", "3", "--log-every", "1",
+                "--device", "cpu", "--ckpt-dir", ckpt])
 finally:
     if dist.is_initialized():
         dist.destroy_process_group()
+with open(out, "w") as f:
+    json.dump(losses, f)
+"""
+
+# the reference's train-step loop on an Auto-axes (1, 2) mesh of 2 host
+# devices (its driver fails before its first step: ROADMAP C1)
+_REFERENCE = r"""
+import json, sys
+import numpy as np
+import jax, jax.numpy as jnp
+from jax.sharding import Mesh
+from conftest import smoke_cfg
+from repro.data import pipeline as jdata
+from repro.launch import step as jstep
+from repro.models import build_model
+from repro.optim import OptimizerConfig, init_opt_state
+from repro.parallel.sharding import named_shardings
+
+params_path, out = sys.argv[1], sys.argv[2]
+cfg = smoke_cfg("olmo-1b")
+model = build_model(cfg, mesh=Mesh(np.array(jax.devices()[:2]).reshape(
+    1, 2), ("data", "model")))
+tmpl = build_model(cfg).init(jax.random.PRNGKey(0))
+with np.load(params_path) as z:
+    flat = dict(z)
+leaves, tdef = jax.tree_util.tree_flatten_with_path(tmpl)
+params = jax.tree_util.tree_unflatten(tdef, [
+    jnp.asarray(flat[jax.tree_util.keystr(p)]) for p, _ in leaves])
+params = jax.device_put(params, named_shardings(params, model.mesh))
+fn = jax.jit(jstep.make_train_step(model, OptimizerConfig(lr=2e-4,
+                                                          total_steps=6)))
+st = init_opt_state(params["lora"])
+dc = jdata.DataConfig(seq_len=32, global_batch=2, vocab=cfg.vocab, seed=0)
+rec = []
+for step in range(6):
+    b = {k: jnp.asarray(v) for k, v in jdata.make_batch(dc, step).items()}
+    params, st, m = fn(params, st, b)
+    rec.append({k: float(v) for k, v in m.items()})
+with open(out, "w") as f:
+    json.dump(rec, f)
 """
 
 
-def test_world_size_above_one_names_a9b(tmp_path):
-    """Two gloo ranks: the host mesh is (1, 2), a 'model' axis of 2, which
-    the driver refuses, naming ROADMAP A9b."""
-    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+def test_world_size_above_one_names_a9b(tmp_path, monkeypatch, recorded):
+    """Two gloo ranks: the host mesh is (1, 2), pure tensor parallelism
+    over a 'model' axis of 2 (ROADMAP A9b). The driver's per-step metrics
+    match the reference's train-step loop under an Auto-axes (1, 2) mesh
+    within 1e-5; its checkpoints hold the global arrays, which a 1-rank
+    run restores (and saves again bit for bit) and the reference's
+    CheckpointManager restores."""
+    from repro.checkpoint.manager import CheckpointManager as JManager
+
+    cfg = smoke_cfg("olmo-1b")
+    jparams = j_build_model(cfg).init(jax.random.PRNGKey(0))
+    ppath = tmp_path / "params.npz"
+    np.savez(ppath, **{jax.tree_util.keystr(p): np.asarray(l) for p, l in
+                       jax.tree_util.tree_flatten_with_path(jparams)[0]})
+    ckpt = tmp_path / "ckpt"
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1",
+               JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=2")
     procs = [subprocess.Popen(
-        [sys.executable, "-c", _RANK, str(r), str(tmp_path / "store")],
+        [sys.executable, "-c", _RANK, str(r), str(tmp_path / "store"),
+         str(ppath), str(tmp_path / f"rank{r}.json"), str(ckpt)],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(2)]
-    outs = [p.communicate(timeout=120)[0] for p in procs]
+    procs.append(subprocess.Popen(
+        [sys.executable, "-c", _REFERENCE, str(ppath),
+         str(tmp_path / "ref.json")],
+        env=dict(env, PYTHONPATH=f"{SRC}{os.pathsep}{Path(__file__).parent}"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    try:
+        outs = [p.communicate(timeout=240)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
     for p, out in zip(procs, outs):
         assert p.returncode == 0, out[-3000:]
-        assert "REFUSED" in out and "A9b" in out, out[-3000:]
+    want = json.loads((tmp_path / "ref.json").read_text())
+    ranks = [json.loads((tmp_path / f"rank{r}.json").read_text())
+             for r in range(2)]
+    assert ranks[0] == ranks[1] and len(ranks[0]) == 6
+    for i, (g, w) in enumerate(zip(ranks[0], want)):
+        for k in ("loss", "ce", "lr", "grad_norm"):
+            np.testing.assert_allclose(g[k], w[k], rtol=1e-5,
+                                       err_msg=f"step {i} {k}")
+    assert CheckpointManager(str(ckpt)).list_steps() == [2, 5]
+
+    # a 1-rank run restores the 2-rank checkpoint (global arrays) and,
+    # with no step left, saves it again as step 6
+    monkeypatch.setattr(Model, "init", lambda self, seed=0, device="cuda":
+                        to_torch(jparams, device))
+    train.main(["--arch", "olmo-1b", "--steps", "6", "--batch", "2",
+                "--seq", "32", "--device", "cpu", "--ckpt-dir", str(ckpt)])
+    assert_same_ckpt(ckpt_bytes(ckpt, 6), ckpt_bytes(ckpt, 5))
+
+    # the reference's manager restores it into its own trees
+    lora = jparams["lora"]
+    jp, jo, meta = JManager(str(ckpt)).restore(5, lora,
+                                               j_init_opt_state(lora))
+    assert meta["step"] == 5
+    saved = ckpt_bytes(ckpt, 5)
+    for p, leaf in jax.tree_util.tree_flatten_with_path(jp)[0]:
+        np.testing.assert_array_equal(
+            np.asarray(leaf), saved["params.npz:" + jax.tree_util.keystr(p)])
+    for p, leaf in jax.tree_util.tree_flatten_with_path(jo)[0]:
+        np.testing.assert_array_equal(
+            np.asarray(leaf),
+            saved["opt_state.npz:" + jax.tree_util.keystr(p)])
 
 
 def test_missing_gpu_refused(monkeypatch):
