@@ -13,8 +13,9 @@ Phases (a failure raises and the script exits non-zero):
    the four (K, M) shapes of llama3.2-3b's LoRA linears, Rp = 16, group 128,
    8 adapters with mixed split h (one with h == r), bits_hi 2/3/4, decode
    (tile_t = 1, 16 rows) and prefill (tile_t = 8, 512 rows), plus a small
-   shape whose M is not a multiple of the group. Each case prints the
-   kernel's time, the plain version's time and the bound.
+   shape whose M is not a multiple of the group. Each bits-2 case at the
+   four shapes (the mix's) prints the kernel's time, the plain version's
+   time and the bound; the others their error.
 3. Serve: ``repro_torch.launch.serve.main`` for llama3.2-3b at full width
    in bf16, 8 adapters ``2@0.9``, 16 requests, prompt 32, 8 new tokens,
    ``--mode packed``; the kernel must have launched 28 layers x 7 LoRA
@@ -33,7 +34,7 @@ Phases (a failure raises and the script exits non-zero):
    (512 rows) with x bf16, plus (K, M) = (256, 200) in fp32 (3-bit padding,
    and an M that is not a multiple of B's group). ``fused_lora``,
    ``matmul_rhs`` and ``matmul_out`` must give the same bits on two
-   launches.
+   launches. The mix's cases (bits 2, rho 0.9, the four shapes) are timed.
 6. The two-pass route: ``lora_apply_quantized(fused=False)`` and
    ``vmem_budget=1`` at every full-width shape (2 ``matmul_rhs`` + 2
    ``matmul_out`` each), and the reference's large-M guard shape (M 32768,
@@ -44,9 +45,10 @@ Phases (a failure raises and the script exits non-zero):
    split h for all 28 layers), 16 requests, prompt 32, 8 new greedy tokens
    through ``Model.prefill`` / ``Model.decode_step``; ``fused_lora`` must
    have launched exactly 1568 times and no other kernel.
-8. Three-way parity in fp32: the same codes served as ``QuantizedLoRA``
-   leaves (``fused_lora``), as a one-adapter ``PackedLoRABatch``
-   (``sgmv_fused``) and as materialized fp factors: identical greedy tokens
+8. Three-way parity in fp32 at 8 layers: the codes served as
+   ``QuantizedLoRA`` leaves (``fused_lora``), as a one-adapter
+   ``PackedLoRABatch`` (``sgmv_fused``) and as materialized fp factors:
+   identical greedy tokens
    and every step's logits within ``LOGIT_RTOL``; an adapter from another
    seed must move every request's logits by ``CONTROL_MARGIN`` tolerances.
 9. Multi-adapter kernels vs plain (TF32 off): ``sgmv_rhs``, ``sgmv_out``
@@ -56,7 +58,8 @@ Phases (a failure raises and the script exits non-zero):
    rows) and prefill (tile_t 8, 512 rows) with x bf16, plus (256, 200) in
    fp32, and one two-sided ``sgmv_fused`` whose low side has another rank
    (8) than the high side (16). ``sgmv_rhs`` and ``sgmv_out`` must give the
-   same bits on two launches.
+   same bits on two launches. The mixes' cases at the four shapes are
+   timed: ``sgmv_fused`` in every format, the two-pass pair in RTN-2.
 10. ``sgmv_apply`` at every full-width shape, decode and prefill:
     ``fused=True`` launches exactly one ``sgmv_fused``, ``fused=False``
     exactly one ``sgmv_rhs`` and one ``sgmv_out``; both held against the
@@ -65,8 +68,9 @@ Phases (a failure raises and the script exits non-zero):
     ``4@0.95``, two ``3@0.9`` and four ``2@0.9`` (3 layout buckets), 16
     requests, prompt 32, 8 new tokens, ``--mode packed``: exactly 3 x 1568
     = 4704 ``sgmv_fused`` launches and no other kernel.
-12. fp32 parity of the same mixed-recipe fleet: packed vs materialize,
-    identical greedy tokens and every step's logits within ``LOGIT_RTOL``;
+12. fp32 parity of the same mixed-recipe fleet at 8 of its 28 layers:
+    packed vs materialize, identical greedy tokens and every step's logits
+    within ``LOGIT_RTOL``;
     a control in which every request meets another adapter must move every
     request's logits by ``CONTROL_MARGIN`` tolerances.
 13. Continuous serve (the serve driver's default mode): the uniform
@@ -78,10 +82,11 @@ Phases (a failure raises and the script exits non-zero):
     pages, and exactly 196 ``sgmv_fused`` per forward (prefill groups plus
     decode steps) and no other kernel. A third, profiled run times one
     engine step under ``torch.profiler``.
-14. fp32 parity of the bounded continuous serve against materialize:
-    identical tokens, every step's logits within ``LOGIT_RTOL``, and a
-    control in which every request meets another adapter moving them by
-    ``CONTROL_MARGIN`` tolerances.
+14. fp32 parity of the bounded continuous serve against materialize at 8
+    layers (the fleet drawn again over their template): identical tokens,
+    every step's logits within ``LOGIT_RTOL``, and a control in which
+    every request meets another adapter moving them by ``CONTROL_MARGIN``
+    tolerances.
 15. Phase 11's three-recipe fleet served continuously under a device
     budget of half the fleet's summed page bytes: at least 2 live pools,
     evictions, and exactly 196 ``sgmv_fused`` per live pool per forward.
@@ -275,12 +280,30 @@ Phases (a failure raises and the script exits non-zero):
 
 43. The dry run (``repro_torch.launch.dryrun``) at (16, 16) on the card,
     rank 0's local program under a fake process group of 256 ranks, for
-    llama3.2-3b x train_4k (16 microbatches, remat), llama3.2-3b x
+    llama3.2-3b x train_4k (cut to 2 microbatches, remat), llama3.2-3b x
     decode_32k and deepseek-v3-671b x decode_32k, each cell a subprocess
     beside its ``--device meta`` count: parameter bytes and counted FLOPs
     equal the meta count exactly, the peak memory is below the card's;
     per cell the collective bytes by kind, the three roofline terms of the
     H100 hardware model and the local step's wall time.
+
+44. Adapters of any rank: (a) the six kernels at
+    llama3.2-3b's four (K, M) at LoRA ranks 16, 64, 128 and 256 -- the
+    fused kernels' ``2·rp`` = 32 to 512 rank rows (RTN 2/3/4/8 high
+    side, binary low side), the one-sided kernels' ``rp`` and ``2·rp`` rows
+    (RTN 2/3/4/8 and binary) -- decode and prefill, each within ``RTOL``
+    of its plain version and bitwise equal on a second launch, with each
+    kernel's main-path mix per launch (bits 2) at every rank beside rank
+    16's; (b) llama3.2-3b at full width and depth in bf16 with the
+    ``2@0.9`` fleet at LoRA rank 64, phase 13's Zipf stream all-resident
+    and bounded to 4 slots: paging == ``ZIPF_BOUNDED``, 196 ``sgmv_fused``
+    per live pool per forward and no other kernel, a second bounded run
+    repeating tokens and paging, tokens/s, peak memory and the idle share;
+    (c) rank 64 in fp32 at 4 layers: bounded continuous == materialize with
+    the shifted-adapter control, and one rank-64 adapter as layer-stacked
+    ``QuantizedLoRA`` leaves (``fused_lora``, or the two-pass pair where
+    the reference's guard says so) == its materialized factors, with a
+    control.
 
 The phases' total time is logged last. The last three lines are the card (nvidia-smi), a ``{"kernels": [...]}``
 summary and ``{"ok": true, "device": {...}}``.
@@ -317,8 +340,6 @@ RTOL = 1e-4
 LOGIT_RTOL = 1e-4
 # the control's logits must move by at least this many tolerances
 CONTROL_MARGIN = 10
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM published peak
-FP32_FLOPS_PER_S = 67e12       # H100 SXM fp32 outside the tensor cores
 
 
 def log(msg: str):
@@ -343,31 +364,16 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def bound(pb, x, seg_tiles, m):
-    """``(t_bytes, t_ops)`` in ms for one call: the bytes it must move (x,
-    the packed codes/scales/zeros of the adapters the tiles use — the binary
-    sides' zeros are never read —, the seg map, the fp32 output) over the HBM
-    peak, and its fp32 operations over the fp32 peak. The bound is the
-    larger."""
-    used = sorted(set(seg_tiles.tolist()))
-    per_adapter = 0
-    for f in ("ah_codes", "ah_scale", "ah_zero", "bh_codes", "bh_scale",
-              "bh_zero", "al_codes", "al_scale", "bl_codes", "bl_scale"):
-        per_adapter += getattr(pb, f)[0].nbytes
-    nbytes = (x.nbytes + seg_tiles.nbytes + x.shape[0] * m * 4
-              + len(used) * per_adapter)
-    rp = pb.ah_codes.shape[1]
-    flops = 2 * x.shape[0] * 2 * rp * (x.shape[1] + m)
-    return nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS_PER_S * 1e3
-
-
-def timed(name, tag, fn, args, kwargs, plain, t_bytes, t_ops, err):
+def timed(name, tag, fn, args, kwargs, plain, err):
     """Time one kernel case and log it: device time (CUDA-graph replay) with
     the inputs in L2 and rotating over 28 layer copies (cold L2), the
     wrapper's host time per call, the plain version's time (CUDA events
-    around eager calls) and the bound. Returns the numbers as a dict."""
-    from repro_torch.launch.bench_kernels import kernel_times
+    around eager calls) and the bound (``bench_kernels.call_bound``: bytes
+    over the HBM peak or fp32 operations over the fp32 peak, the larger).
+    Returns the numbers as a dict."""
+    from repro_torch.launch.bench_kernels import call_bound, kernel_times
 
+    t_bytes, t_ops = call_bound(name, args, kwargs)
     t = kernel_times(fn, args, kwargs)
     t.update(plain_ms=time_ms(lambda: plain(*args, **kwargs), iters=3),
              bytes=t_bytes, ops=t_ops)
@@ -421,10 +427,13 @@ def phase_kernel():
             raise AssertionError(f"sgmv_fused K={k} M={m} bits={bits} "
                                  f"{phase}: two launches differ")
         max_err = max(max_err, err)
+        tag = (f"K={k:5d} M={m:5d} bits={bits} {phase:7s} T={rows:3d} "
+               f"x={str(xdtype)[6:]:8s}")
+        if bits != 2 or (k, m) not in SHAPES:     # the mix's cases are timed
+            log(f"sgmv_fused {tag} max|err|={err:.2e} (checked, not timed)")
+            continue
         timings[(k, m), bits, phase] = timed(
-            "sgmv_fused", f"K={k:5d} M={m:5d} bits={bits} {phase:7s} "
-            f"T={rows:3d} x={str(xdtype)[6:]:8s}", sgmv_fused, args, kw,
-            sgmv_fused_ref, *bound(pb, x, seg_tiles, m), err)
+            "sgmv_fused", tag, sgmv_fused, args, kw, sgmv_fused_ref, err)
     return timings, max_err
 
 
@@ -608,41 +617,6 @@ SINGLE_PHASES = {phase: rows for phase, (_, rows) in PHASES.items()}
 GUARD = (32768, 256, 8, 128)          # M, K, rank, rows: the large-M guard
 
 
-def side_bytes(side, binary):
-    codes, scale, zero = side
-    return codes.nbytes + scale.nbytes + (0 if binary else zero.nbytes)
-
-
-def single_bounds(q, x, m):
-    """``{kernel: (t_bytes, t_ops)}`` in ms for one call of each kernel on
-    this adapter and x: the bytes it must move (x or h, the packed sides it
-    reads — a binary side's zeros are never read —, its fp32 output) over
-    the HBM peak, and its fp32 operations over the fp32 peak. ``matmul_*``
-    count the high side, as they are timed."""
-    from repro_torch.launch.bench_kernels import side_layout
-
-    t, k = x.shape
-    sides = [(q.a_high, q.b_high)] + ([(q.a_low, q.b_low)]
-                                      if q.a_low is not None else [])
-    rows = [side_layout(a)[0].shape[0] for a, _ in sides]
-    fused_bytes = (x.nbytes + t * m * 4 + sum(
-        side_bytes(side_layout(a), a.mode == "binary")
-        + side_bytes(side_layout(b), b.mode == "binary") for a, b in sides))
-    rh = rows[0]
-    mp = side_layout(q.b_high)[1].shape[1] * q.b_high.group_size
-    rhs_bytes = x.nbytes + side_bytes(side_layout(q.a_high), False) + t * rh * 4
-    out_bytes = t * rh * 4 + side_bytes(side_layout(q.b_high), False) + t * mp * 4
-    ms = 1e3
-    return {
-        "fused_lora": (fused_bytes / HBM_BYTES_PER_S * ms,
-                       2 * t * sum(rows) * (k + m) / FP32_FLOPS_PER_S * ms),
-        "matmul_rhs": (rhs_bytes / HBM_BYTES_PER_S * ms,
-                       2 * t * rh * k / FP32_FLOPS_PER_S * ms),
-        "matmul_out": (out_bytes / HBM_BYTES_PER_S * ms,
-                       2 * t * rh * mp / FP32_FLOPS_PER_S * ms),
-    }
-
-
 def check_close(name, got, want):
     """Kernel output against its plain version within RTOL · max |y|;
     returns the max abs error."""
@@ -725,6 +699,11 @@ def phase_single_kernels():
                                  check_close(f"{name} {tag}", g, w))
         for name, e in errs.items():
             max_err[name] = max(max_err[name], e)
+        if (bits, rho) != (2, 0.9) or (k, m) not in SHAPES:
+            log(f"single-adapter {tag} max|err| " + ", ".join(
+                f"{n} {e:.2e}" for n, e in errs.items())
+                + " (checked, not timed)")
+            continue                            # the mix's cases are timed
         a, b = side_layout(q.a_high), side_layout(q.b_high)
         kw = dict(bits=bits, binary=False)
         h = matmul_rhs(x, *a, group=q.a_high.group_size, **kw)
@@ -735,11 +714,10 @@ def phase_single_kernels():
             "matmul_out": (matmul_out, matmul_out_ref, (h, *b),
                            dict(kw, group=q.b_high.group_size)),
         }
-        bounds = single_bounds(q, x, m)
         for name, (kern, plain, args, kwargs) in runs.items():
             timings[name, (k, m), bits, rho, phase] = timed(
                 name, f"{tag} x={str(xdtype)[6:]:8s}", kern, args, kwargs,
-                plain, *bounds[name], errs[name])
+                plain, errs[name])
     return timings, max_err
 
 
@@ -840,7 +818,8 @@ def single_adapter(template, seed):
     entries = {}
     for i, (path, leaf) in enumerate(iter_lora_linears(template)):
         n, r, k = leaf["a"].shape
-        b, a = decayed_pairs(n, leaf["b"].shape[1], k, r, seed=seed * 100 + i)
+        b, a = decayed_pairs(n, leaf["b"].shape[1], k, r, seed=seed * 100 + i,
+                             device=leaf["a"].device)
         entries[path] = quantize_lora_stack(
             b, a, LoRAQuantConfig(rho=0.9, bits_high=2))
     return entries
@@ -877,10 +856,10 @@ def lora_tree(template, entries, form):
     return rebuild(template, "")
 
 
-def greedy(model, base, lora_pre, lora_dec, prompts):
+def greedy(model, base, lora_pre, lora_dec, prompts, device="cuda"):
     """Prefill the prompts, then decode greedily to MAX_NEW tokens through
     the model's public API. Returns tokens ``(B, MAX_NEW)`` and every
-    step's last-position logits ``(B, MAX_NEW, V)`` fp32, on the card."""
+    step's last-position logits ``(B, MAX_NEW, V)`` fp32, on ``device``."""
     import torch
 
     b = prompts.shape[0]
@@ -890,7 +869,7 @@ def greedy(model, base, lora_pre, lora_dec, prompts):
     outs, kept = [last], [logits[:, -1].float()]
     del logits
     for k in range(MAX_NEW - 1):
-        pos = torch.full((b,), PROMPT + k, dtype=torch.int64, device="cuda")
+        pos = torch.full((b,), PROMPT + k, dtype=torch.int64, device=device)
         logits, caches = model.decode_step(
             {"base": base, "lora": lora_dec}, last[:, None], caches, pos)
         last = logits[:, -1].argmax(-1)
@@ -916,7 +895,10 @@ def phase_single_serve():
         0, cfg.vocab, size=(N_REQ, PROMPT)), device="cuda")
     res = {}
     for dtype in (torch.bfloat16, torch.float32):
-        model = build_model(dataclasses.replace(cfg, dtype=dtype))
+        # bf16 at full depth (phase 7), fp32 at PARITY_LAYERS (phase 8)
+        model = build_model(dataclasses.replace(cfg, dtype=dtype) if
+                            dtype == torch.bfloat16 else dense_config(
+                                "llama3.2-3b", dtype, PARITY_LAYERS))
         params = model.init(seed=0, device="cuda")
         base, template = params["base"], params["lora"]
         t0 = time.perf_counter()
@@ -968,8 +950,8 @@ def phase_single_serve():
                 reset_launch_counts()
                 runs[name] = greedy(model, base, lp, ld, prompts)
                 torch.cuda.synchronize()
-                want = ({kern: LAYERS * len(LINEARS) * MAX_NEW} if kern
-                        else {})
+                want = ({kern: PARITY_LAYERS * len(LINEARS) * MAX_NEW}
+                        if kern else {})
                 if dict(LAUNCH_COUNTS) != want:
                     raise AssertionError(f"fp32 {name} run launched "
                                          f"{dict(LAUNCH_COUNTS)}, want {want}")
@@ -1003,7 +985,8 @@ def phase_single_serve():
             res.update(parity_gaps=gaps, parity_tol=tol, logit_scale=scale,
                        control_min=moved.min().item(),
                        control_max=moved.max().item())
-            log(f"three-way fp32 parity: identical greedy tokens for all "
+            log(f"three-way fp32 parity ({PARITY_LAYERS} layers): identical "
+                f"greedy tokens for all "
                 f"{N_REQ} requests ({N_REQ * MAX_NEW} tokens) across "
                 f"fused_lora, sgmv_fused and materialize; logits max |diff| "
                 f"vs fused_lora: sgmv_fused {gaps['sgmv_fused']:.3e}, "
@@ -1025,12 +1008,6 @@ SIDE_FORMATS = ("rtn2", "rtn3", "rtn4", "binary")
 # two of each premium recipe, the rest at the default 2@0.9: 3 layout buckets
 MIXED_RECIPES = ("user_0=4@0.95", "user_1=4@0.95", "user_2=3@0.9",
                  "user_3=3@0.9")
-
-
-def used_bytes(side, seg, binary):
-    """Packed bytes of the adapters the tiles use (a binary side's
-    zero-points are never read)."""
-    return len(set(seg.tolist())) * side_bytes([t[0] for t in side], binary)
 
 
 def phase_sgmv_kernels():
@@ -1084,18 +1061,6 @@ def phase_sgmv_kernels():
             "sgmv_fused": check_close(f"sgmv_fused 1-side {tag}", f,
                                       sgmv_fused_ref(x, *a, *b, seg, **fkw)),
         }
-        rp = a[0].shape[1]
-        a_bytes, b_bytes = used_bytes(a, seg, binary), used_bytes(b, seg,
-                                                                 binary)
-        h_bytes, y_bytes = rows * rp * 4, rows * m * 4
-        bounds = {
-            "sgmv_rhs": (x.nbytes + seg.nbytes + a_bytes + h_bytes,
-                         2 * rows * rp * k),
-            "sgmv_out": (h_bytes + seg.nbytes + b_bytes + y_bytes,
-                         2 * rows * rp * m),
-            "sgmv_fused": (x.nbytes + seg.nbytes + a_bytes + b_bytes
-                           + y_bytes, 2 * rows * rp * (k + m)),
-        }
         runs = {
             "sgmv_rhs": (sgmv_rhs, sgmv_rhs_ref, (x, *a, seg), kw),
             "sgmv_out": (sgmv_out, sgmv_out_ref, (h, *b, seg), okw),
@@ -1103,11 +1068,16 @@ def phase_sgmv_kernels():
         }
         for name, (kern, plain, args, kwargs) in runs.items():
             max_err[name] = max(max_err[name], errs[name])
-            nbytes, ops = bounds[name]
+            # the mixes' cases are timed: every format of sgmv_fused, RTN-2
+            # of the two-pass pair, at llama's shapes
+            if (k, m) not in SHAPES or (fmt != "rtn2"
+                                        and name != "sgmv_fused"):
+                log(f"{name} {tag} max|err|={errs[name]:.2e} (checked, "
+                    f"not timed)")
+                continue
             timings[name, (k, m), fmt, phase] = timed(
                 name, f"{tag} x={str(xdtype)[6:]:8s}", kern, args, kwargs,
-                plain, nbytes / HBM_BYTES_PER_S * 1e3,
-                ops / FP32_FLOPS_PER_S * 1e3, errs[name])
+                plain, errs[name])
 
     # two-sided: an RTN-3 high side of rank 16 and a binary low side of
     # rank 8, at the widest-K shape
@@ -1185,34 +1155,40 @@ def phase_sgmv_apply():
     return total
 
 
-def phase_mixed_parity(vocab):
-    """Phase 12: the mixed-recipe fleet of phase 11 in fp32, served packed
-    and materialized by the engine, and a control in which request r meets
-    adapter r + 1 instead of r (mod 8)."""
-    import dataclasses
+# llama's depth in the fp32 parity phases 8, 12 and 14 (of its 28 layers;
+# the bf16 serves and phase 4 run all 28), for the script's time
+PARITY_LAYERS = 8
 
+
+def packed_parity(vocab, recipes=(), device="cuda", preset="full"):
+    """Phase 12: the fleet of phase 11 (``recipes``: three layouts; empty:
+    phase 3's one) in fp32 at ``PARITY_LAYERS`` layers, served
+    static packed and materialized by the engine, and a control in which
+    request r meets adapter r + 1 instead of r (mod 8): identical tokens,
+    logits within ``LOGIT_RTOL``, the control ``CONTROL_MARGIN`` times
+    that, and one ``sgmv_fused`` per LoRA linear per layout per forward."""
     import numpy as np
     import torch
-    from repro_torch.configs import get_config
     from repro_torch.core import LoRAQuantConfig
-    from repro_torch.kernels.quant_matmul import (LAUNCH_COUNTS,
-                                                   reset_launch_counts)
+    from repro_torch.kernels.quant_matmul import reset_launch_counts
     from repro_torch.launch.serve import (parse_recipe_override,
                                           random_trained_lora)
     from repro_torch.models import build_model
     from repro_torch.serving import AdapterStore, MultiLoRAEngine, Request
 
-    cfg = dataclasses.replace(get_config("llama3.2-3b", "full"),
-                              dtype=torch.float32)
+    cfg = dense_config("llama3.2-3b", torch.float32, PARITY_LAYERS, preset)
+    layers = cfg.total_layers()
     model = build_model(cfg)
-    params = model.init(seed=0, device="cuda")
+    params = model.init(seed=0, device=device)
     store = AdapterStore(LoRAQuantConfig(rho=0.9, bits_high=2))
-    gen = torch.Generator(device="cuda")
+    gen = torch.Generator(device=device)
     gen.manual_seed(1)
     store.register_many(
         {f"user_{i}": random_trained_lora(params["lora"], gen)
          for i in range(N_ADAPTERS)},
-        recipes=dict(parse_recipe_override(r) for r in MIXED_RECIPES))
+        recipes=dict(parse_recipe_override(r) for r in recipes))
+    layouts = len({qa.signature for qa in store.quantized.values()})
+    label = f"{layouts}-layout"
     engine = MultiLoRAEngine(model, params, store, cache_capacity=128)
     prompts = np.random.default_rng(0).integers(
         0, vocab, size=(N_REQ, PROMPT)).astype(np.int32)
@@ -1226,14 +1202,14 @@ def phase_mixed_parity(vocab):
                 keep_logits=True))
         reset_launch_counts()
         done = engine.run(mode)
-        torch.cuda.synchronize()
+        sync(device)
         check_outputs(done, vocab)
-        return done, dict(LAUNCH_COUNTS)
+        return done, launch_counts(device)
 
     packed, counts = run("packed")
-    want = {"sgmv_fused": 3 * LAYERS * len(LINEARS) * MAX_NEW}
+    want = {"sgmv_fused": layouts * layers * len(LINEARS) * MAX_NEW}
     if counts != want:
-        raise AssertionError(f"fp32 mixed packed run launched {counts}, "
+        raise AssertionError(f"fp32 {label} packed run launched {counts}, "
                              f"want {want}")
     mat, counts = run("materialize")
     if counts:
@@ -1242,13 +1218,13 @@ def phase_mixed_parity(vocab):
     diff = [r.request_id for r, q in zip(packed, mat)
             if r.output.tolist() != q.output.tolist()]
     if diff:
-        raise AssertionError(f"fp32 mixed-recipe packed vs materialize "
+        raise AssertionError(f"fp32 {label} packed vs materialize "
                              f"tokens differ for requests {diff}")
     scale = max(float(abs(r.logits).max()) for r in packed)
     tol = LOGIT_RTOL * scale
     gap = logit_gap(packed, mat)
     if max(gap.values()) > tol:
-        raise AssertionError(f"fp32 mixed-recipe logits differ by {gap} > "
+        raise AssertionError(f"fp32 {label} logits differ by {gap} > "
                              f"{LOGIT_RTOL:g} x {scale:.3e}")
     moved = logit_gap(packed, control)
     if min(moved.values()) < CONTROL_MARGIN * tol:
@@ -1257,15 +1233,17 @@ def phase_mixed_parity(vocab):
                              f"the parity check is blind")
     avg = {aid: round(st["avg_bits"], 4)
            for aid, st in sorted(store.adapter_stats().items())}
-    log(f"mixed-recipe fp32 parity: packed == materialize for all {N_REQ} "
-        f"requests ({N_REQ * MAX_NEW} tokens, {want['sgmv_fused']} "
-        f"sgmv_fused launches in 3 buckets); logits max |diff| "
+    log(f"{label} fp32 parity ({layers} layers): packed == "
+        f"materialize for all {N_REQ} requests ({N_REQ * MAX_NEW} tokens, "
+        f"{want['sgmv_fused']} sgmv_fused launches in {layouts} buckets); "
+        f"logits max |diff| "
         f"{max(gap.values()):.3e} <= {tol:.3e} ({LOGIT_RTOL:g} x max|logit| "
         f"{scale:.3e}); every request meeting another adapter moves by "
         f"{min(moved.values()):.3e} to {max(moved.values()):.3e}; avg_bits "
         f"{avg}")
     del engine, store, model, params
-    torch.cuda.empty_cache()
+    if device == "cuda":
+        torch.cuda.empty_cache()
     return {"gap": max(gap.values()), "tol": tol,
             "control_min": min(moved.values())}
 
@@ -1515,20 +1493,14 @@ def phase_continuous(vocab, device="cuda", preset="full"):
     if device == "cuda":
         torch.cuda.empty_cache()
 
-    # ---- 14. fp32: bounded continuous == materialize ---------------------
-    # the same quantized store: the adapters come from their own generator
-    # over the fp32 LoRA template, whatever the base dtype
-    import dataclasses
-
-    from repro_torch.configs import get_config
-    from repro_torch.models import build_model
-
+    # ---- 14. fp32: bounded continuous == materialize, PARITY_LAYERS ------
+    del store
     t0 = time.perf_counter()
-    model = build_model(dataclasses.replace(
-        get_config("llama3.2-3b", preset), dtype=torch.float32))
-    params = model.init(seed=0, device=device)
-    res.update(fp32_parity("continuous", model, params, store, ids, prompts,
-                           vocab, device, t0))
+    cfg = dense_config("llama3.2-3b", torch.float32, PARITY_LAYERS, preset)
+    model, params, store = fleet_of(cfg, device)
+    res.update(fp32_parity(f"continuous ({cfg.total_layers()} layers)",
+                           model, params, store, ids, prompts, vocab, device,
+                           t0, per_forward=cfg.total_layers() * len(LINEARS)))
     del model, params, store
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -2195,7 +2167,7 @@ def kernel_case(label, pb, x, seg_tiles, tile_t, timing=True):
         log(f"sgmv_fused {label} max|err|={err:.2e} (checked, not timed)")
         return None, err
     return timed("sgmv_fused", label, sgmv_fused, args, kw, sgmv_fused_ref,
-                 *bound(pb, x, seg_tiles, m), err), err
+                 err), err
 
 
 def phase_moe_kernel():
@@ -4736,8 +4708,11 @@ def driver_phases(device="cuda", preset="full") -> dict:
     return {"mesh": mesh, "driver": phase_driver(device, preset)}
 
 
-DRYRUN_CELLS = (("llama3.2-3b", "train_4k"), ("llama3.2-3b", "decode_32k"),
-                ("deepseek-v3-671b", "decode_32k"))
+# (arch, shape, microbatches): train_4k's step is cut from the dry run's
+# 16 microbatches (4 at rank 0's 4 rows) to 2, for the script's time
+DRYRUN_CELLS = (("llama3.2-3b", "train_4k", 2),
+                ("llama3.2-3b", "decode_32k", 16),
+                ("deepseek-v3-671b", "decode_32k", 16))
 DRYRUN_TIMEOUT = 600          # seconds per dry-run subprocess
 
 
@@ -4758,11 +4733,12 @@ def phase_dryrun(device="cuda", cells=DRYRUN_CELLS) -> dict:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     tmp = Path(tempfile.mkdtemp(prefix="dryrun"))
 
-    def start(arch, shape, dev):
+    def start(arch, shape, micro, dev):
         report = tmp / f"{arch}.{shape}.{dev}.json"
         return report, subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--device",
-             dev, "--arch", arch, "--shape", shape, "--report", str(report)],
+             dev, "--arch", arch, "--shape", shape, "--microbatches",
+             str(micro), "--report", str(report)],
             cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
 
@@ -4776,11 +4752,11 @@ def phase_dryrun(device="cuda", cells=DRYRUN_CELLS) -> dict:
             raise AssertionError(f"dry run {what}: {r}")
         return r
 
-    metas = [start(a, s, "meta") for a, s in cells]
+    metas = [start(*cell, "meta") for cell in cells]
     out = {}
     try:
-        for (arch, shape), meta in zip(cells, metas):
-            r = finish(*start(arch, shape, device), f"{arch} {shape}")
+        for (arch, shape, micro), meta in zip(cells, metas):
+            r = finish(*start(arch, shape, micro, device), f"{arch} {shape}")
             m = finish(*meta, f"{arch} {shape} meta")
             for key in ("params_bytes_per_chip", "counted_flops_per_chip"):
                 if r[key] != m[key]:
@@ -4817,6 +4793,272 @@ def phase_dryrun(device="cuda", cells=DRYRUN_CELLS) -> dict:
                 proc.wait()
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"dry-run phase {time.perf_counter() - t0:.1f}s")
+    return out
+
+
+# --------------------------------------------------------------------------
+# 44. adapters of any rank: the six kernels at rank rows 128-512, a rank-64
+# fleet served at full width and depth, fp32 parity at rank 64
+# --------------------------------------------------------------------------
+
+RANKS = (16, 64, 128, 256)    # LoRA ranks; 16 is the configs' default
+RANK_BITS = (2, 3, 4, 8)      # RTN widths of the high side (the low binary)
+ONE_SIDED = ("rtn2", "rtn3", "rtn4", "rtn8", "binary")
+SERVE_RANK = 64
+RANK_PARITY_LAYERS = 4
+
+
+def rank_kernel_cases(rank, k, m, gen):
+    """The calls of the six kernels at LoRA rank ``rank`` and (K, M), decode
+    and prefill: ``[(name, fmt, rows, phase, kernel, plain, args, kw)]``.
+    ``sgmv_fused`` takes 8 packed adapters (mixed split h, a binary low
+    side), ``fused_lora`` one rho-0.9 adapter: ``2·rp`` rank rows, bits
+    ``RANK_BITS`` on the high side. The one-sided kernels take 8 adapters'
+    sides quantized per format at ``rp`` rows and, past rank 16, at ``2·rp``
+    too (up to 512 rows); ``matmul_*`` adapter 0 of those stacks."""
+    import torch
+    from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.launch.bench_kernels import (fused_args, packed_args,
+                                                  packed_layer, seg_for,
+                                                  sgmv_sides, single_qlora)
+
+    rp = -(-rank // 8) * 8
+    xs = {phase: torch.randn(rows, k, generator=gen, device="cuda",
+                             dtype=torch.bfloat16)
+          for phase, (_, rows) in PHASES.items()}
+    out = []
+    for bits in RANK_BITS:
+        pb = packed_layer(k, m, bits, 128, N_ADAPTERS, seed=k + m + bits,
+                          r=rank)
+        q = single_qlora(k, m, bits, 0.9, seed=k + m + bits, r=rank)
+        sides, fkw = fused_args(q)
+        for phase, (tile_t, _) in PHASES.items():
+            x = xs[phase]
+            out.append(("sgmv_fused", f"rtn{bits}", 2 * rp, phase,
+                        qm.sgmv_fused, qm.sgmv_fused_ref,
+                        *packed_args(pb, x, seg_for(phase), tile_t)))
+            out.append(("fused_lora", f"rtn{bits}", 2 * rp, phase,
+                        qm.fused_lora, qm.fused_lora_ref, (x, *sides), fkw))
+    for fmt in ONE_SIDED:
+        binary = fmt == "binary"
+        for rows in (rp,) + ((2 * rp,) if rank > 16 else ()):
+            qas, _, sa, sb = sgmv_sides(k, m, fmt, seed=k + 7 * m + rows,
+                                        r=rows)
+            a, b = (tuple(t[0] for t in s) for s in (sa, sb))
+            kw = dict(bits=qas[0].bits, binary=binary, group=128)
+            for phase, (tile_t, _) in PHASES.items():
+                x, seg = xs[phase], seg_for(phase)
+                skw = dict(kw, tile_t=tile_t)
+                h = torch.randn(x.shape[0], rows, generator=gen,
+                                device="cuda")
+                out += [
+                    ("sgmv_rhs", fmt, rows, phase, qm.sgmv_rhs,
+                     qm.sgmv_rhs_ref, (x, *sa, seg), skw),
+                    ("sgmv_out", fmt, rows, phase, qm.sgmv_out,
+                     qm.sgmv_out_ref, (h, *sb, seg), dict(skw, m=m)),
+                    ("matmul_rhs", fmt, rows, phase, qm.matmul_rhs,
+                     qm.matmul_rhs_ref, (x, *a), kw),
+                    ("matmul_out", fmt, rows, phase, qm.matmul_out,
+                     qm.matmul_out_ref, (h, *b), kw)]
+    return out
+
+
+def phase_rank_kernels():
+    """Phase 44a: the six kernels at llama3.2-3b's four (K, M) at LoRA ranks
+    16, 64, 128 and 256 (the fused kernels' ``2·rp`` = 32-512 rank rows, the
+    one-sided kernels' ``rp`` and ``2·rp``), every width, decode and
+    prefill: each call within ``RTOL`` of its plain version (TF32 off) and
+    bitwise equal on a second launch. Then per kernel and rank the
+    main-path mix per launch (device time, CUDA-graph replay) and its
+    bound, from ``bench_kernels.bench``: the cases and timing of
+    ``bench_kernels.py --rank``. Returns the mixes and the max error per
+    kernel."""
+    import torch
+    from repro_torch.launch.bench_kernels import bench, device_times
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4444)
+    max_err, rows_seen = {n: 0.0 for n in KERNELS}, {}
+    checked = 0
+    for rank in RANKS:
+        for k, m in SHAPES:
+            for (name, fmt, rows, phase, fn, plain, args,
+                 kw) in rank_kernel_cases(rank, k, m, gen):
+                tag = (f"{name} rank {rank} ({rows} rank rows) K={k} M={m} "
+                       f"{fmt} {phase}")
+                got = fn(*args, **kw)
+                torch.cuda.synchronize()
+                err = check_close(tag, got, plain(*args, **kw))
+                if not torch.equal(got, fn(*args, **kw)):
+                    raise AssertionError(f"{tag}: two launches differ")
+                max_err[name] = max(max_err[name], err)
+                rows_seen.setdefault(name, set()).add(rows)
+                checked += 1
+            torch.cuda.empty_cache()
+    want = {32, 128, 256, 512}
+    for name in ("sgmv_fused", "fused_lora"):
+        if rows_seen[name] != want:
+            raise AssertionError(f"{name} ran {rows_seen[name]} rank rows")
+    log(f"rank kernel phase: {checked} calls of the six kernels within "
+        f"{RTOL:g} x max|y| of their plain versions, each repeated bit for "
+        f"bit")
+    mixes = {name: {} for name in KERNELS}
+    for rank in RANKS:
+        for name, r in bench(rank, f"rank {rank}", device_times,
+                             moe=False).items():
+            mixes[name][rank] = {"ms": r["mix_ms"],
+                                 "bound_ms": r["mix_bound_ms"],
+                                 "bound_by": r["bound_by"]}
+        torch.cuda.empty_cache()
+    for name in KERNELS:
+        log(f"rank {name}: rank rows {sorted(rows_seen[name])}, max |err| "
+            f"{max_err[name]:.2e}; main-path mix per launch (bits 2, "
+            f"device time) "
+            + ", ".join(f"rank {r} {x['ms']:.4f} ms (bound "
+                        f"{x['bound_ms']:.5f} ms, {x['bound_by']}; "
+                        f"{x['ms'] / mixes[name][16]['ms']:.2f}x rank 16)"
+                        for r, x in mixes[name].items()))
+    return {"mix": mixes, "max_err": max_err, "checked": checked}
+
+
+def rank_config(dtype, layers=None, preset="full"):
+    """llama3.2-3b at full width (or the smoke preset) in ``dtype`` with
+    adapters of rank ``SERVE_RANK``, cut to ``layers``."""
+    import dataclasses
+
+    return dataclasses.replace(dense_config("llama3.2-3b", dtype, layers,
+                                            preset), lora_rank=SERVE_RANK)
+
+
+def store_ranks(store) -> set:
+    return {q.rank for qa in store.quantized.values()
+            for qs in qa.entries.values() for q in qs}
+
+
+def phase_rank_serve(device="cuda", preset="full"):
+    """Phase 44b, the slice's main path: llama3.2-3b at full width and depth
+    in bf16, the ``2@0.9`` fleet at LoRA rank 64 (``2·rp`` = 128 rank rows
+    per ``sgmv_fused`` call), phase 13's Zipf stream through
+    :func:`bounded_serve`: paging == ``ZIPF_BOUNDED``, 28 x 7 = 196
+    ``sgmv_fused`` per live pool per forward and no other kernel, a second
+    bounded run repeating tokens and paging; tokens/s, peak memory and
+    the idle share reported."""
+    import torch
+
+    cfg = rank_config(torch.bfloat16, preset=preset)
+    layers = cfg.total_layers()
+    t0 = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    model, params, store = fleet_of(cfg, device)
+    if store_ranks(store) != {SERVE_RANK}:
+        raise AssertionError(f"adapters of rank {store_ranks(store)}")
+    sync(device)
+    peak = ""
+    if device == "cuda":
+        peak = (f", peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        torch.cuda.reset_peak_memory_stats()
+    log(f"rank-{SERVE_RANK} serve: bf16 model ({layers} layers) and 8 "
+        f"adapters of rank {SERVE_RANK} (fp32 factors drawn and quantized) "
+        f"in {time.perf_counter() - t0:.1f}s{peak}")
+    res = bounded_serve(f"llama3.2-3b rank {SERVE_RANK} bf16", model, params,
+                        store, cfg.vocab, device, layers * len(LINEARS))
+    res.pop("resident"), res.pop("bounded")
+    if device == "cuda":
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"rank-{SERVE_RANK} serve: bounded {res['tok_s']:.1f} tokens/s "
+            f"(all-resident {res['tok_s_resident']:.1f}), page "
+            f"{res['page']} bytes, peak device memory of the three serves "
+            f"{res['peak_gib']:.2f} GiB, requests whose tokens part from "
+            f"the all-resident serve's: {res['parted']}")
+    del model, params, store
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_rank_parity(device="cuda", preset="full"):
+    """Phase 44c: rank 64 in fp32 at ``RANK_PARITY_LAYERS`` layers. The
+    fleet's bounded continuous serve == materialize (:func:`fp32_parity`,
+    with its shifted-adapter control); then one rank-64 adapter as
+    layer-stacked ``QuantizedLoRA`` leaves through ``fused_lora`` (or the
+    two-pass pair where the reference's guard says so,
+    :func:`expected_launches`) against its materialized factors: identical greedy tokens, logits within
+    ``LOGIT_RTOL``, an adapter from another seed moving every request by
+    ``CONTROL_MARGIN`` tolerances."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.quant_matmul import reset_launch_counts
+
+    t0 = time.perf_counter()
+    cfg = rank_config(torch.float32, RANK_PARITY_LAYERS, preset)
+    layers = cfg.total_layers()
+    model, params, store = fleet_of(cfg, device)
+    ids, prompts = zipf_stream(cfg.vocab)
+    res = fp32_parity(f"rank-{SERVE_RANK} ({layers} layers)", model, params,
+                      store, ids, prompts, cfg.vocab, device, t0,
+                      per_forward=layers * len(LINEARS))
+    del store
+    t0 = time.perf_counter()
+    base, template = params["base"], params["lora"]
+    entries = single_adapter(template, seed=1)
+    qtree = lora_tree(template, entries, "qlora")
+    fp = lora_tree(template, entries, "fp")
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(N_REQ, PROMPT)), device=device)
+    want = {}
+    for rows, n in ((N_REQ * PROMPT, 1), (N_REQ, MAX_NEW - 1)):
+        for kern, c in expected_launches(qtree, rows).items():
+            want[kern] = want.get(kern, 0) + c * n * layers
+    reset_launch_counts()
+    got_t, got_l = greedy(model, base, qtree, qtree, toks, device)
+    sync(device)
+    counts = launch_counts(device)
+    if counts != want:
+        raise AssertionError(f"rank-{SERVE_RANK} QuantizedLoRA serve "
+                             f"launched {counts}, the reference's rule "
+                             f"{want}")
+    ref_t, ref_l = greedy(model, base, fp, fp, toks, device)
+    other = lora_tree(template, single_adapter(template, seed=2), "qlora")
+    _, ctl_l = greedy(model, base, other, other, toks, device)
+    if not torch.equal(got_t, ref_t):
+        bad = (got_t != ref_t).any(1).nonzero().flatten().tolist()
+        raise AssertionError(f"rank-{SERVE_RANK} fused_lora vs materialize "
+                             f"tokens differ for requests {bad}")
+    scale = ref_l.abs().max().item()
+    tol = LOGIT_RTOL * scale
+    gap = (got_l - ref_l).abs().max().item()
+    moved = (ctl_l - got_l).abs().amax(dim=(1, 2))
+    if gap > tol:
+        raise AssertionError(f"rank-{SERVE_RANK} fused_lora vs materialize "
+                             f"logits differ by {gap:.3e} > {tol:.3e}")
+    if moved.min().item() < CONTROL_MARGIN * tol:
+        raise AssertionError(f"another adapter moves the logits by only "
+                             f"{moved.tolist()}: the parity check is blind")
+    log(f"rank-{SERVE_RANK} QuantizedLoRA fp32 ({layers} layers) "
+        f"{time.perf_counter() - t0:.1f}s: launches {counts} (the "
+        f"reference's guard rule), tokens == materialize for all {N_REQ} "
+        f"requests, logits max |diff| {gap:.3e} <= {tol:.3e}; an adapter "
+        f"from another seed moves every request by {moved.min().item():.3e}"
+        f" to {moved.max().item():.3e}")
+    res.update(fused=counts, fused_gap=gap, fused_tol=tol)
+    del model, params, base, template, entries, qtree, fp, other
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return res
+
+
+def rank_phases() -> dict:
+    """Phase 44 on the card: 44a, 44b, 44c."""
+    out = {}
+    for key, fn in (("kernels", phase_rank_kernels),
+                    ("serve", phase_rank_serve),
+                    ("parity", phase_rank_parity)):
+        t0 = time.perf_counter()
+        out[key] = fn()
+        log(f"rank {key} phase {time.perf_counter() - t0:.1f}s")
     return out
 
 
@@ -4985,7 +5227,7 @@ def main() -> int:
 
     # ---- 12. mixed-recipe parity in fp32 ------------------------------------
     t0 = time.perf_counter()
-    phase_mixed_parity(vocab)
+    packed_parity(vocab, MIXED_RECIPES)
     log(f"mixed-recipe parity phase {time.perf_counter() - t0:.1f}s")
 
     # ---- 13-14. continuous serve over paged memory; fp32 parity ------------
@@ -5028,6 +5270,9 @@ def main() -> int:
 
     # ---- 43. the dry run at (16, 16) under a fake process group ------------
     phase_dryrun()
+
+    # ---- 44. adapters of any rank: kernels, rank-64 serve, fp32 parity -----
+    rank_phases()
     log(f"total {time.perf_counter() - t_start:.1f}s")
 
     # ---- summary -------------------------------------------------------------

@@ -166,5 +166,9 @@ def load_library() -> ctypes.CDLL:
         fn.restype = i32
     lib.quant_matmul_error_string.argtypes = [i32]
     lib.quant_matmul_error_string.restype = ctypes.c_char_p
+    lib.quant_matmul_layout_bytes.argtypes = (
+        [i32] * 5                        # x_bytes K M r_hi r_lo
+        + [i32p, i32p])                  # bits/binary/group/wpg x 4, plan
+    lib.quant_matmul_layout_bytes.restype = ctypes.c_longlong
     _LIB = lib
     return lib

@@ -32,6 +32,11 @@
 //   is 16-byte aligned, 4-byte copies otherwise, plain loads where neither
 //   is): the x rows, the A and B code words, scales and zeros. Slices wider
 //   than the plan's chunk are staged chunk by chunk.
+// * Any rank: nothing here holds a fixed number of rank rows. Shared
+//   memory grows with them (h, and every staged side: make_layout), so
+//   the launch plan shrinks its K and M chunks until one block's layout
+//   fits the card's opt-in shared memory (_cluster_plan in kernel.py),
+//   and plan_ok refuses a plan whose layout does not fit.
 // * Phase 1, the one path of the four kernels that read x (`lora_tile`):
 //   the block reduces its K slice into a partial h (slots × TR fp32, slots
 //   = R_hi + R_lo) in shared memory; a warp owns a slot and its lanes walk
@@ -54,10 +59,11 @@
 // * An out call (matmul_out, sgmv_out: a B-only call, K = 0, no A sides)
 //   has no phase 1 and nothing to reduce, so it launches plain blocks (a
 //   cluster of 1), the plan's C blocks of a tile splitting M as above. A
-//   block lays out only side 1 (out_layout), loads the tile's rows of h
-//   from device memory into registers, issues the cp.async copies of its
+//   block lays out only side 1 (out_layout), loads its first element of
+//   the tile's h rows into a register, issues the cp.async copies of its
 //   first B chunk, stores h slot-major for phase 2 (rows past `live` read
-//   0) and runs phase 2 as the fused kernels do.
+//   0; any further elements in a strided loop) and runs phase 2 as the
+//   fused kernels do.
 //
 // Dequant is word-wise: a thread loads one storage word and its group's
 // scale and zero once and expands every code of it in registers with the
@@ -109,9 +115,6 @@ __device__ __forceinline__ QSide adapter_side(QSide s, int rows, int a) {
   if (s.zero != nullptr) s.zero += groups;
   return s;
 }
-
-// The rank rows (high + low) every kernel of this directory holds at most.
-constexpr int kMaxSlots = 64;
 
 namespace cluster {
 
@@ -535,28 +538,23 @@ __device__ void lora_tile(const Params& p, const QSide (&sd)[4], int row0,
   };
 
   if constexpr (MODE == Mode::kOut) {
-    // every load up front: the tile's h rows (read row-major into registers
-    // first, so their latency overlaps the staging), then B's first chunk
-    // (cp.async); h is stored slot-major (hf[r·TR + t]), rows past `live` 0
-    constexpr int kH = (kMaxSlots * TR + kThreads - 1) / kThreads;
-    const int R = p.r_hi;
+    // every load up front: the thread's first element of the tile's h rows
+    // (read row-major into a register first, so its latency overlaps the
+    // staging), then B's first chunk (cp.async); h is stored slot-major
+    // (hf[r·TR + t]), rows past `live` 0. The R·TR elements beyond the
+    // first kThreads (R·TR > 256: 32 rank rows at 8 token rows) follow in
+    // a strided loop.
+    const int R = p.r_hi, n = R * TR, n_live = live * R;
     const float* h =
         static_cast<const float*>(p.x) + static_cast<size_t>(row0) * R;
-    float hv[kH];
-#pragma unroll
-    for (int k = 0; k < kH; ++k) {
-      const int i = threadIdx.x + k * kThreads;
-      hv[k] = i < live * R ? h[i] : 0.f;
-    }
+    const int i0 = threadIdx.x;
+    const float h0 = i0 < n_live ? h[i0] : 0.f;
     if (mu0 < mu1) stage_m(mu0);
     cp_async_commit();
-#pragma unroll
-    for (int k = 0; k < kH; ++k) {
-      const int i = threadIdx.x + k * kThreads;
-      if (i < R * TR) {
-        const int t = i / R;
-        hf[(i - t * R) * TR + t] = hv[k];
-      }
+    for (int i = i0; i < n; i += kThreads) {
+      const float v = i == i0 ? h0 : (i < n_live ? h[i] : 0.f);
+      const int t = i / R;
+      hf[(i - t * R) * TR + t] = v;
     }
   } else {
     // every load of the first chunks up front: A and x (group 0), B (group 1)
@@ -669,9 +667,28 @@ __device__ void lora_tile(const Params& p, const QSide (&sd)[4], int row0,
 
 // ---- host side -----------------------------------------------------------------
 
+// The dynamic shared memory a block may opt in to on the current device
+// (232448 bytes on an H100), read once per device; 0 if it cannot be read.
+inline size_t smem_optin() {
+  constexpr int kMaxDevices = 64;
+  static int limit[kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
+    return 0;
+  if (limit[dev] == 0 &&
+      cudaDeviceGetAttribute(&limit[dev],
+                             cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             dev) != cudaSuccess)
+    limit[dev] = 0;
+  return static_cast<size_t>(limit[dev]);
+}
+
 // Checks of the plan and shapes that the kernel relies on; true if they
-// hold.
-inline bool plan_ok(const Params& p, int tr) {
+// hold. `x_bytes` is the size of one element of x (4 for an out call's
+// fp32 h): the layout make_layout gives the plan, which must fit the
+// device's opt-in shared memory, the limit `launch` raises the kernel's
+// attribute to.
+inline bool plan_ok(const Params& p, int tr, int x_bytes) {
   const Plan& pl = p.plan;
   if (pl.cluster < 1 || pl.cluster > kMaxCluster || pl.k_unit < 1 ||
       pl.m_unit < 1 || tr < 1 || tr > 8 || (p.K == 0 && p.M == 0))
@@ -694,14 +711,17 @@ inline bool plan_ok(const Params& p, int tr) {
         (p.side[s].wpg * word_bytes(p.side[s])) % v != 0)
       return false;
   }
+  if (make_layout(p, tr, x_bytes).total > smem_optin()) return false;
   return pl.vec_x == 16 || pl.vec_x == 4 || pl.vec_x == 1;
 }
 
 // Launch `Kernel` over `tiles` clusters of plan.cluster blocks (or, for a
 // kernel that reads no neighbour's shared memory, `cluster` false, as many
 // plain blocks); returns the launch's CUDA error (0 on success). The
-// function attributes are set once per kernel and only raised, so a launch
-// captured into a CUDA graph after a first launch makes no attribute call.
+// function attributes are set once per kernel and only raised, up to the
+// opt-in limit that plan_ok holds the layout to, so a launch captured into
+// a CUDA graph after a first launch of the same or a larger layout makes
+// no attribute call.
 template <auto Kernel>
 inline int launch(const Params& p, int tr, int x_bytes, int tiles,
                   cudaStream_t stream, bool cluster = true) {

@@ -85,8 +85,7 @@ int fused_lora_launch(const void* x, int x_is_bf16,
                       int group_bl, int ng_bl, int wpg_bl,
                       const int* plan, void* stream) {
   const int tile_rows = plan[1];
-  if (r_hi < 1 || r_lo < 0 || r_hi + r_lo > loraquant::kMaxSlots || T < 0 ||
-      K < 1 || M < 1)
+  if (r_hi < 1 || r_lo < 0 || T < 0 || K < 1 || M < 1)
     return cudaErrorInvalidValue;
   if (T == 0) return cudaSuccess;
   cl::Params p;
@@ -104,7 +103,8 @@ int fused_lora_launch(const void* x, int x_is_bf16,
   p.T = T; p.K = K; p.M = M; p.NA = 1;
   p.r_hi = r_hi; p.r_lo = r_lo; p.kt = tile_rows;
   p.plan = cl::make_plan(plan);
-  if (!cl::plan_ok(p, tile_rows)) return cudaErrorInvalidValue;
+  if (!cl::plan_ok(p, tile_rows, x_is_bf16 ? 2 : 4))
+    return cudaErrorInvalidValue;
   const int tiles = (T + tile_rows - 1) / tile_rows;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return x_is_bf16 ? launch_rows<__nv_bfloat16>(p, tile_rows, tiles, s)

@@ -5,12 +5,12 @@
 // (src/repro/kernels/quant_matmul/kernel.py:204, pallas_call at :222).
 //
 // What it computes: h (T, R) fp32, any T; Bᵀ (R, NG·Wg) packed as in
-// cluster_lora.cuh (RTN of 2/3/4/8 bits or binary 1-bit), R ≤ 64 → y (T, Mp)
+// cluster_lora.cuh (RTN of 2/3/4/8 bits or binary 1-bit), any R → y (T, Mp)
 // fp32 over the group-padded width Mp = NG·group, as the TPU kernel does
 // (the caller slices [:, :m]).
 //
 // What bounds it on an H100: latency. The byte bound is the T×Mp fp32
-// output (R ≤ 64 flops per element written), but a decode call (T = 16,
+// output (2·R flops per element written), but a decode call (T = 16,
 // Mp ≤ 8192) writes at most 0.5 MB, ~0.2 µs at 3.35 TB/s; what a design must
 // shorten is each block's chain of dependent steps from its first
 // instruction to its last store.
@@ -69,14 +69,13 @@ int matmul_out_launch(const float* h, const void* codes, const float* scale,
                       int bits, int binary, int group, int ng, int wpg,
                       const int* plan, void* stream) {
   const int tile_rows = plan[1];
-  if (R < 1 || R > loraquant::kMaxSlots || T < 0 || Mp < 1 ||
-      Mp != ng * group)
+  if (R < 1 || T < 0 || Mp < 1 || Mp != ng * group)
     return cudaErrorInvalidValue;
   if (T == 0) return cudaSuccess;
   const cl::Params p = cl::out_params(
       h, QSide{codes, scale, zero, bits, binary, group, ng, wpg}, nullptr,
       out, T, Mp, 1, R, tile_rows, plan);
-  if (!cl::plan_ok(p, tile_rows)) return cudaErrorInvalidValue;
+  if (!cl::plan_ok(p, tile_rows, 4)) return cudaErrorInvalidValue;
   const int tiles = (T + tile_rows - 1) / tile_rows;
   return launch_rows(p, tile_rows, tiles, static_cast<cudaStream_t>(stream));
 }

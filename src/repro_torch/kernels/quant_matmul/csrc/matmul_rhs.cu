@@ -5,7 +5,7 @@
 // (src/repro/kernels/quant_matmul/kernel.py:157, pallas_call at :176).
 //
 // What it computes: x (T, K) bf16 or fp32, any T; A (R, NG·Wg) packed as in
-// cluster_lora.cuh (RTN of 2/3/4/8 bits or binary 1-bit), R ≤ 64 → h (T, R)
+// cluster_lora.cuh (RTN of 2/3/4/8 bits or binary 1-bit), any R → h (T, R)
 // fp32.
 // Columns of A past K (the last group's padding) never count.
 //
@@ -67,13 +67,14 @@ int matmul_rhs_launch(const void* x, int x_is_bf16, const void* codes,
                       int T, int K, int R, int bits, int binary, int group,
                       int ng, int wpg, const int* plan, void* stream) {
   const int tile_rows = plan[1];
-  if (R < 1 || R > loraquant::kMaxSlots || T < 0 || K < 1)
+  if (R < 1 || T < 0 || K < 1)
     return cudaErrorInvalidValue;
   if (T == 0) return cudaSuccess;
   const cl::Params p = cl::rhs_params(
       x, QSide{codes, scale, zero, bits, binary, group, ng, wpg}, nullptr,
       out, T, K, 1, R, tile_rows, plan);
-  if (!cl::plan_ok(p, tile_rows)) return cudaErrorInvalidValue;
+  if (!cl::plan_ok(p, tile_rows, x_is_bf16 ? 2 : 4))
+    return cudaErrorInvalidValue;
   const int tiles = (T + tile_rows - 1) / tile_rows;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return x_is_bf16 ? launch_rows<__nv_bfloat16>(p, tile_rows, tiles, s)

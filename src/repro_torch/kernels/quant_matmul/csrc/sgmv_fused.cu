@@ -101,7 +101,7 @@ int sgmv_fused_launch(const void* x, int x_is_bf16,
                       const int* plan, void* stream) {
   const int tile_rows = plan[1];
   if (kt < 1 || kt > tile_rows || T < 0 || T % kt != 0 || K < 1 || M < 1 ||
-      NA < 1 || r_hi < 1 || r_lo < 0 || r_hi + r_lo > loraquant::kMaxSlots)
+      NA < 1 || r_hi < 1 || r_lo < 0)
     return cudaErrorInvalidValue;
   if (T == 0) return cudaSuccess;
   cl::Params p;
@@ -119,7 +119,8 @@ int sgmv_fused_launch(const void* x, int x_is_bf16,
   p.T = T; p.K = K; p.M = M; p.NA = NA;
   p.r_hi = r_hi; p.r_lo = r_lo; p.kt = kt;
   p.plan = cl::make_plan(plan);
-  if (!cl::plan_ok(p, tile_rows)) return cudaErrorInvalidValue;
+  if (!cl::plan_ok(p, tile_rows, x_is_bf16 ? 2 : 4))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return x_is_bf16 ? launch_rows<__nv_bfloat16>(p, tile_rows, T / kt, s)
                    : launch_rows<float>(p, tile_rows, T / kt, s);
@@ -128,6 +129,24 @@ int sgmv_fused_launch(const void* x, int x_is_bf16,
 // The message of a CUDA error code returned by any launch of this library.
 const char* quant_matmul_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// The dynamic shared memory a block of this library's kernels takes for one
+// call, make_layout(...).total: `sides` holds bits, binary, group and words
+// per group of A_hi, B_hi, A_lo, B_lo (group 1 for a side the call lacks),
+// `plan` the launch plan as the launchers take it. kernel.py's
+// `_smem_bytes` mirrors this sum; the CUDA tests hold the two equal.
+long long quant_matmul_layout_bytes(int x_bytes, int K, int M, int r_hi,
+                                    int r_lo, const int* sides,
+                                    const int* plan) {
+  cl::Params p = {};
+  for (int s = 0; s < 4; ++s)
+    p.side[s] = QSide{nullptr, nullptr, nullptr, sides[4 * s],
+                      sides[4 * s + 1], sides[4 * s + 2], 0,
+                      sides[4 * s + 3]};
+  p.K = K; p.M = M; p.r_hi = r_hi; p.r_lo = r_lo;
+  p.plan = cl::make_plan(plan);
+  return static_cast<long long>(cl::make_layout(p, plan[1], x_bytes).total);
 }
 
 }  // extern "C"

@@ -7,13 +7,13 @@
 //
 // What it computes: h (T, R) fp32, a stack Bᵀ (NA, R, NG·Wg) packed as in
 // cluster_lora.cuh (RTN of 2/3/4/8 bits or binary 1-bit, whose zero-points
-// may be absent), R ≤ 64, and seg_map (T / kt,) int32 → y (T, m) fp32,
+// may be absent), any R, and seg_map (T / kt,) int32 → y (T, m) fp32,
 // where token tile i uses adapter seg_map[i] (clamped to [0, NA)) and
 // m ≤ NG·group. Exactly m columns are computed and written: unlike
 // matmul_out, the caller slices nothing. Zero-scale pad rows add exactly 0.
 //
 // What bounds it on an H100: latency. The byte bound is the T×m fp32
-// output (R ≤ 64 flops per element written), but a decode call (16 one-row
+// output (2·R flops per element written), but a decode call (16 one-row
 // tiles, m ≤ 8192) writes at most 0.5 MB, ~0.2 µs at 3.35 TB/s; what a
 // design must shorten is each block's chain of dependent steps from its
 // first instruction to its last store.
@@ -77,14 +77,14 @@ int sgmv_out_launch(const float* h, const void* codes, const float* scale,
                     int group, int ng, int wpg, const int* plan,
                     void* stream) {
   const int tile_rows = plan[1];
-  if (R < 1 || R > loraquant::kMaxSlots || kt < 1 || kt > tile_rows ||
+  if (R < 1 || kt < 1 || kt > tile_rows ||
       T < 0 || T % kt != 0 || M < 1 || M > ng * group || NA < 1)
     return cudaErrorInvalidValue;
   if (T == 0) return cudaSuccess;
   const cl::Params p = cl::out_params(
       h, QSide{codes, scale, zero, bits, binary, group, ng, wpg}, seg_map,
       out, T, M, NA, R, kt, plan);
-  if (!cl::plan_ok(p, tile_rows)) return cudaErrorInvalidValue;
+  if (!cl::plan_ok(p, tile_rows, 4)) return cudaErrorInvalidValue;
   return launch_rows(p, tile_rows, T / kt, static_cast<cudaStream_t>(stream));
 }
 

@@ -7,7 +7,7 @@
 //
 // What it computes: x (T, K) bf16 or fp32, a stack A (NA, R, NG·Wg) packed
 // as in cluster_lora.cuh (RTN of 2/3/4/8 bits or binary 1-bit, whose
-// zero-points may be absent), R ≤ 64, and seg_map (T / kt,) int32 → h
+// zero-points may be absent), any R, and seg_map (T / kt,) int32 → h
 // (T, R) fp32, where token tile i (rows [i·kt, (i+1)·kt)) uses adapter
 // seg_map[i] (clamped to [0, NA)). Columns of A past K (the last group's
 // padding) never count.
@@ -72,14 +72,15 @@ int sgmv_rhs_launch(const void* x, int x_is_bf16, const void* codes,
                     int NA, int kt, int bits, int binary, int group, int ng,
                     int wpg, const int* plan, void* stream) {
   const int tile_rows = plan[1];
-  if (R < 1 || R > loraquant::kMaxSlots || kt < 1 || kt > tile_rows ||
+  if (R < 1 || kt < 1 || kt > tile_rows ||
       T < 0 || T % kt != 0 || K < 1 || NA < 1)
     return cudaErrorInvalidValue;
   if (T == 0) return cudaSuccess;
   const cl::Params p = cl::rhs_params(
       x, QSide{codes, scale, zero, bits, binary, group, ng, wpg}, seg_map,
       out, T, K, NA, R, kt, plan);
-  if (!cl::plan_ok(p, tile_rows)) return cudaErrorInvalidValue;
+  if (!cl::plan_ok(p, tile_rows, x_is_bf16 ? 2 : 4))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return x_is_bf16 ? launch_rows<__nv_bfloat16>(p, tile_rows, T / kt, s)
                    : launch_rows<float>(p, tile_rows, T / kt, s);

@@ -55,8 +55,6 @@ LAUNCH_COUNTS: "collections.Counter[str]" = collections.Counter()
 PLAIN_CALLS: "collections.Counter[str]" = collections.Counter()
 
 MAX_TILE_ROWS = 8          # token rows of a tile (the largest compiled TR)
-MAX_SLOTS = 64             # rank rows one block holds, hi + lo
-                           # (loraquant::kMaxSlots)
 BITS = (1, 2, 3, 4, 8)
 
 # The launch plan of every kernel (csrc/cluster_lora.cuh)
@@ -223,6 +221,35 @@ class ClusterPlan:
         return (ctypes.c_int * len(args))(*args)
 
 
+def _align16(v: int) -> int:
+    return (v + 15) & ~15
+
+
+def _smem_bytes(tile_rows: int, x_bytes: int, k_cols: int, m_cols: int,
+                sides: tuple) -> int:
+    """Dynamic shared memory of one block: ``make_layout(...).total`` of
+    ``csrc/cluster_lora.cuh``, term for term, for chunks of ``k_cols`` /
+    ``m_cols`` columns. ``sides`` as :func:`_cluster_plan` takes them; the
+    launcher refuses a plan whose layout exceeds the card's opt-in limit,
+    so this mirror and the device layout cannot drift apart unnoticed."""
+    ah, bh, al, bl = sides
+    slots = next(s[4] for s in (ah, bh) if s is not None) + (
+        next((s[4] for s in (al, bl) if s is not None), 0))
+    off = _align16(4 * slots * tile_rows)                         # hp
+    off = _align16(off + 4 * slots * tile_rows)                   # hf
+    off = _align16(off + _align16(k_cols * x_bytes) * tile_rows)  # xs
+    off = _align16(off + 4 * ((m_cols + 3) & ~3) * tile_rows)     # ys
+    for i, side in enumerate(sides):
+        if side is None:
+            continue
+        group, wpg, word_bytes, _, rows, binary = side
+        gpc = (m_cols if i & 1 else k_cols) // group
+        off = _align16(off + _align16(gpc * wpg * word_bytes) * rows)
+        off = _align16(off + 4 * gpc * rows)                      # scale
+        off = _align16(off + (0 if binary else 4 * gpc * rows))   # zero
+    return off
+
+
 def _copy_bytes(ptr: int, steps: Sequence[int]) -> int:
     """Widest asynchronous copy (16 or 4 bytes, else 1) whose every piece
     starts aligned: ``ptr`` (an address, or the address mod 16) and every
@@ -235,15 +262,18 @@ def _copy_bytes(ptr: int, steps: Sequence[int]) -> int:
 
 @functools.lru_cache(maxsize=1024)
 def _cluster_plan(t: int, k: int, m: int, kt: Optional[int], x_ptr: int,
-                  x_bytes: int, out_ptr: int, sides: tuple) -> ClusterPlan:
+                  x_bytes: int, out_ptr: int, sides: tuple,
+                  smem_budget: int) -> ClusterPlan:
     """The launch plan of one ``fused_lora`` / ``matmul_*`` (``kt=None``:
     the plan picks the tile rows) or ``sgmv_*`` call (tiles of ``kt``
-    rows). ``sides`` are ``(group, words_per_group, word_bytes, codes_ptr)``
-    of A_hi, B_hi, A_lo, B_lo, or None for an absent side: the low side,
-    both B sides of an A-only call (the rhs kernels, ``m = 0``) or both A
-    sides of a B-only call (the out kernels, ``k = 0``, which stage no x).
-    Pointers matter only mod 16, which is what the wrappers pass, so a
-    serve loop's calls hit the cache.
+    rows). ``sides`` are ``(group, words_per_group, word_bytes, codes_ptr,
+    rank_rows, binary)`` of A_hi, B_hi, A_lo, B_lo (:func:`_side_geom`),
+    or None for an absent side: the low side, both B sides of an A-only
+    call (the rhs kernels, ``m = 0``) or both A sides of a B-only call (the
+    out kernels, ``k = 0``, which stage no x). Pointers matter only mod 16,
+    which is what the wrappers pass, so a serve loop's calls hit the cache.
+    ``smem_budget`` is the dynamic shared memory a block may use (the
+    card's opt-in limit, :func:`_smem_budget`).
 
     K is cut in units of the A sides' common group multiple, M in units of
     the B sides', so that no quant group spans two blocks; the cluster is
@@ -253,7 +283,13 @@ def _cluster_plan(t: int, k: int, m: int, kt: Optional[int], x_ptr: int,
     are copied 16 bytes at a time only where every group start is 16-byte
     aligned (a group's bytes and the base pointer divide by 16: so never for
     3-bit groups of 13 words), else 4 bytes at a time where that holds,
-    else byte by byte."""
+    else byte by byte.
+
+    A block stages up to ``CHUNK_COLS`` columns of K and of M at a time;
+    where that chunk's layout (:func:`_smem_bytes`, which grows with the
+    sides' rank rows) exceeds ``smem_budget``, the K chunk and then the M
+    chunk are halved, down to one unit each. A call whose single units do
+    not fit raises ``ValueError``."""
     ah, bh, al, bl = sides
     if (bh is None) != (m == 0) or (bh is None and bl is not None):
         raise ValueError("an A-only plan has m = 0 and no B sides")
@@ -279,14 +315,31 @@ def _cluster_plan(t: int, k: int, m: int, kt: Optional[int], x_ptr: int,
         while cluster > 1 and tiles * cluster > OUT_BLOCKS:
             cluster //= 2
         m_units = -(-nu_m // cluster)
+    k_chunk = min(k_units, max(1, CHUNK_COLS // k_unit))
+    m_chunk = min(m_units, max(1, CHUNK_COLS // m_unit))
+
+    def smem():
+        return _smem_bytes(tile_rows, x_bytes, k_chunk * k_unit,
+                           m_chunk * m_unit, sides)
+
+    while smem() > smem_budget and max(k_chunk, m_chunk) > 1:
+        if k_chunk > 1:
+            k_chunk = -(-k_chunk // 2)
+        else:
+            m_chunk = -(-m_chunk // 2)
+    if smem() > smem_budget:
+        rows = [s[4] for s in sides if s is not None]
+        raise ValueError(
+            f"a block of this call needs {smem()} bytes of shared memory "
+            f"for one K unit of {k_unit} and one M unit of {m_unit} columns "
+            f"at rank rows {rows} and {tile_rows} token rows; the card "
+            f"offers {smem_budget}")
     vec_codes = tuple(0 if s is None else _copy_bytes(s[3], [s[1] * s[2]])
                       for s in sides)
     return ClusterPlan(
         cluster=cluster, tile_rows=tile_rows, tiles=tiles,
-        k_unit=k_unit, k_units=k_units,
-        k_chunk=min(k_units, max(1, CHUNK_COLS // k_unit)),
-        m_unit=m_unit, m_units=m_units,
-        m_chunk=min(m_units, max(1, CHUNK_COLS // m_unit)),
+        k_unit=k_unit, k_units=k_units, k_chunk=k_chunk,
+        m_unit=m_unit, m_units=m_units, m_chunk=m_chunk,
         vec_x=_copy_bytes(x_ptr, [k * x_bytes, k_unit * x_bytes]) if k
         else 1,
         vec_y=4 if out_ptr % 16 == 0 and m % 4 == 0 and m_unit % 4 == 0
@@ -294,10 +347,19 @@ def _cluster_plan(t: int, k: int, m: int, kt: Optional[int], x_ptr: int,
         vec_codes=vec_codes)
 
 
-def _side_geom(group: int, wpg: int, bits: int, codes_ptr: int):
-    """``(group, words_per_group, word_bytes, codes address mod 16)`` of one
-    side for :func:`_cluster_plan`."""
-    return (group, wpg, 4 if bits == 3 else 1, codes_ptr % 16)
+def _side_geom(group: int, wpg: int, bits: int, codes_ptr: int, rows: int,
+               binary: bool):
+    """``(group, words_per_group, word_bytes, codes address mod 16, rank
+    rows, binary)`` of one side for :func:`_cluster_plan`."""
+    return (group, wpg, 4 if bits == 3 else 1, codes_ptr % 16, rows,
+            bool(binary))
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_budget(index: int) -> int:
+    """The dynamic shared memory a block may opt in to on CUDA device
+    ``index`` (232448 bytes on an H100), read once per device."""
+    return torch.cuda.get_device_properties(index).shared_memory_per_block_optin
 
 
 def _launch(name: str, dev: torch.device, fn, *args) -> None:
@@ -329,14 +391,11 @@ def matmul_rhs(x, codes, scale, zero, *, bits: int, binary: bool,
         _plain_call("matmul_rhs")
         return matmul_rhs_ref(x, codes, scale, zero, bits=bits,
                               binary=binary, group=group)
-    if r > MAX_SLOTS:
-        raise NotImplementedError(f"matmul_rhs holds at most {MAX_SLOTS} "
-                                  f"rank rows, got {r}")
-    out = torch.empty((t, r), dtype=torch.float32, device=dev)
     x_ptr, codes_ptr = x.data_ptr(), codes.data_ptr()
     plan = _cluster_plan(t, k, 0, None, x_ptr % 16, x.element_size(), 0,
-                         (_side_geom(group, wpg, bits, codes_ptr), None,
-                          None, None))
+                         (_side_geom(group, wpg, bits, codes_ptr, r, binary),
+                          None, None, None), _smem_budget(dev.index))
+    out = torch.empty((t, r), dtype=torch.float32, device=dev)
     _launch("matmul_rhs", dev, load_library().matmul_rhs_launch,
             x_ptr, int(x.dtype == torch.bfloat16), codes_ptr,
             scale.data_ptr(), zero.data_ptr(), out.data_ptr(),
@@ -361,14 +420,12 @@ def matmul_out(h, codes, scale, zero, *, bits: int, binary: bool,
         _plain_call("matmul_out")
         return matmul_out_ref(h, codes, scale, zero, bits=bits,
                               binary=binary, group=group)
-    if r > MAX_SLOTS:
-        raise NotImplementedError(f"matmul_out holds at most {MAX_SLOTS} "
-                                  f"rank rows, got {r}")
     out = torch.empty((t, mp), dtype=torch.float32, device=dev)
     codes_ptr, out_ptr = codes.data_ptr(), out.data_ptr()
     plan = _cluster_plan(t, 0, mp, None, 0, 4, out_ptr % 16,
-                         (None, _side_geom(group, wpg, bits, codes_ptr),
-                          None, None))
+                         (None, _side_geom(group, wpg, bits, codes_ptr, r,
+                                           binary), None, None),
+                         _smem_budget(dev.index))
     _launch("matmul_out", dev, load_library().matmul_out_launch,
             h.data_ptr(), codes_ptr, scale.data_ptr(), zero.data_ptr(),
             out_ptr, t, r, mp, bits, int(binary), group, ng, wpg,
@@ -416,19 +473,18 @@ def fused_lora(x, a_hi, b_hi, a_lo=None, b_lo=None, *, m: int,
     r_hi, ng_ah, wpg_ah, ng_bh, wpg_bh = dims[0]
     r_lo, ng_al, wpg_al, ng_bl, wpg_bl = dims[1] if a_lo is not None else (
         0, 0, 0, 0, 0)
-    if r_hi + r_lo > MAX_SLOTS:
-        raise NotImplementedError(f"fused_lora holds at most {MAX_SLOTS} "
-                                  f"rank rows, got {r_hi} + {r_lo}")
     out = torch.empty((t, m), dtype=torch.float32, device=dev)
     ptrs = [p.data_ptr() for p in (*a_hi, *b_hi)] + (
         [p.data_ptr() for p in (*a_lo, *b_lo)] if r_lo else [None] * 6)
     x_ptr, out_ptr = x.data_ptr(), out.data_ptr()
     plan = _cluster_plan(
         t, k, m, None, x_ptr % 16, x.element_size(), out_ptr % 16,
-        (_side_geom(group_ah, wpg_ah, bits_hi, ptrs[0]),
-         _side_geom(group_bh, wpg_bh, bits_hi, ptrs[3]),
-         _side_geom(group_al, wpg_al, bits_lo, ptrs[6]) if r_lo else None,
-         _side_geom(group_bl, wpg_bl, bits_lo, ptrs[9]) if r_lo else None))
+        (_side_geom(group_ah, wpg_ah, bits_hi, ptrs[0], r_hi, binary_hi),
+         _side_geom(group_bh, wpg_bh, bits_hi, ptrs[3], r_hi, binary_hi),
+         _side_geom(group_al, wpg_al, bits_lo, ptrs[6], r_lo, binary_lo)
+         if r_lo else None,
+         _side_geom(group_bl, wpg_bl, bits_lo, ptrs[9], r_lo, binary_lo)
+         if r_lo else None), _smem_budget(dev.index))
     _launch("fused_lora", dev, load_library().fused_lora_launch,
             x_ptr, int(x.dtype == torch.bfloat16), *ptrs, out_ptr,
             t, k, m, r_hi, r_lo, bits_hi, int(binary_hi), bits_lo,
@@ -475,14 +531,11 @@ def sgmv_rhs(x, codes, scale, zero, seg_map, *, bits: int, binary: bool,
         _plain_call("sgmv_rhs")
         return sgmv_rhs_ref(x, codes, scale, zero, seg_map, bits=bits,
                             binary=binary, group=group, tile_t=tile_t)
-    if r > MAX_SLOTS:
-        raise NotImplementedError(f"sgmv_rhs holds at most {MAX_SLOTS} rank "
-                                  f"rows per token tile, got {r}")
-    out = torch.empty((t, r), dtype=torch.float32, device=dev)
     x_ptr, codes_ptr = x.data_ptr(), codes.data_ptr()
     plan = _cluster_plan(t, k, 0, tile_t, x_ptr % 16, x.element_size(), 0,
-                         (_side_geom(group, wpg, bits, codes_ptr), None,
-                          None, None))
+                         (_side_geom(group, wpg, bits, codes_ptr, r, binary),
+                          None, None, None), _smem_budget(dev.index))
+    out = torch.empty((t, r), dtype=torch.float32, device=dev)
     _launch("sgmv_rhs", dev, load_library().sgmv_rhs_launch,
             x_ptr, int(x.dtype == torch.bfloat16), codes_ptr,
             scale.data_ptr(), _ptr(zero), seg_map.data_ptr(), out.data_ptr(),
@@ -514,14 +567,12 @@ def sgmv_out(h, codes, scale, zero, seg_map, *, bits: int, binary: bool,
         _plain_call("sgmv_out")
         return sgmv_out_ref(h, codes, scale, zero, seg_map, bits=bits,
                             binary=binary, group=group, m=m, tile_t=tile_t)
-    if r > MAX_SLOTS:
-        raise NotImplementedError(f"sgmv_out holds at most {MAX_SLOTS} rank "
-                                  f"rows per block, got {r}")
     out = torch.empty((t, m), dtype=torch.float32, device=dev)
     codes_ptr, out_ptr = codes.data_ptr(), out.data_ptr()
     plan = _cluster_plan(t, 0, m, tile_t, 0, 4, out_ptr % 16,
-                         (None, _side_geom(group, wpg, bits, codes_ptr),
-                          None, None))
+                         (None, _side_geom(group, wpg, bits, codes_ptr, r,
+                                           binary), None, None),
+                         _smem_budget(dev.index))
     _launch("sgmv_out", dev, load_library().sgmv_out_launch,
             h.data_ptr(), codes_ptr, scale.data_ptr(), _ptr(zero),
             seg_map.data_ptr(), out_ptr, t, r, m, na, tile_t, bits,
@@ -582,20 +633,17 @@ def sgmv_fused(x, a_codes, a_scale, a_zero, b_codes, b_scale, b_zero,
             bits_b=bits_b, binary_b=binary_b, group_b=group_b,
             a_lo=a_lo, b_lo=b_lo, bits_lo=bits_lo, binary_lo=binary_lo,
             group_al=group_al, group_bl=group_bl, m=m, tile_t=tile_t)
-    if r_hi + r_lo > MAX_SLOTS:
-        raise NotImplementedError(
-            f"sgmv_fused holds at most {MAX_SLOTS} rank rows (high + low) "
-            f"per token tile; got {r_hi} + {r_lo}")
     dims += [0] * (12 - len(dims))        # no low side: groups never read
     ptrs = [_ptr(v) for _, side, *_ in sides for v in side]
     ptrs += [None] * (12 - len(ptrs))
     out = torch.empty((t, m), dtype=torch.float32, device=dev)
     x_ptr, out_ptr = x.data_ptr(), out.data_ptr()
     geoms = tuple(_side_geom(dims[3 * i], dims[3 * i + 2], side[2],
-                             ptrs[3 * i])
+                             ptrs[3 * i], side[6], side[3])
                   for i, side in enumerate(sides))
     plan = _cluster_plan(t, k, m, tile_t, x_ptr % 16, x.element_size(),
-                         out_ptr % 16, geoms + (None,) * (4 - len(geoms)))
+                         out_ptr % 16, geoms + (None,) * (4 - len(geoms)),
+                         _smem_budget(dev.index))
     _launch("sgmv_fused", dev, load_library().sgmv_fused_launch,
             x_ptr, int(x.dtype == torch.bfloat16), *ptrs,
             seg_map.data_ptr(), out_ptr, t, k, m, na, r_hi, r_lo,

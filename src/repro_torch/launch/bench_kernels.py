@@ -2,9 +2,13 @@
 (and ``sgmv_fused`` at mixtral-8x22b's).
 
     python3 src/repro_torch/launch/bench_kernels.py [--src DIR] [--label NAME]
+                                                    [--rank R]
 
 Each kernel is timed three ways, at every (K, M) of the model's LoRA
-linears, at decode (16 rows) and prefill (512 rows), bits 2:
+linears, at decode (16 rows) and prefill (512 rows), bits 2, adapters of
+LoRA rank ``--rank`` (16, the configs' default; the fused kernels meet
+``2·rp`` rank rows, ``rp = ceil(R / 8)·8``, the rhs / out kernels ``rp``;
+mixtral's shapes only at rank 16):
 
 * device time: ``CALLS`` wrapper calls captured in one CUDA graph, the graph
   replayed and timed with CUDA events (the inputs stay in L2);
@@ -18,7 +22,9 @@ linears, at decode (16 rows) and prefill (512 rows), bits 2:
 
 It prints one line per case and a last JSON line with each kernel's
 main-path mix (every linear once at prefill and ``MAX_NEW - 1`` times at
-decode). ``sgmv_fused_moe`` is ``sgmv_fused`` at mixtral-8x22b's five
+decode) and the mix's bound (:func:`call_bound`: the bytes a call must
+move over the HBM peak or its fp32 operations over the fp32 peak, the
+larger). ``sgmv_fused_moe`` is ``sgmv_fused`` at mixtral-8x22b's five
 (K, M) with the MoE path's folded seg ids: 8 adapters x 8 experts stacked
 as 64 entries, tile_t 1, over the dispatch buffer's rows (8 experts x
 capacity: 64 rows at decode, 1280 at prefill of 16 x 32 tokens). ``--src`` imports ``repro_torch`` from another checkout's ``src``
@@ -59,16 +65,20 @@ MOE_PHASES = {"decode": (1, MOE_EXPERTS * 8),
 CALLS = 20                  # wrapper calls per captured graph
 L2_BYTES = 50 << 20         # H100 L2
 MAX_COPIES = 512
+RANK = 16                   # the configs' lora_rank
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peaks
+FP32_FLOPS_PER_S = 67e12
 
 
 # --------------------------------------------------------------------------
 # inputs
 # --------------------------------------------------------------------------
 
-def packed_layer(k, m, bits, group, na, seed):
-    """``na`` random adapters quantized by the port (refine off), packed as
-    one layer ``(NA, Rp, ·)``; rho cycles so split h differs per adapter and
-    one adapter keeps every pair high (h == r)."""
+def packed_layer(k, m, bits, group, na, seed, r=RANK):
+    """``na`` random adapters of rank ``r`` quantized by the port (refine
+    off), packed as one layer ``(NA, Rp, ·)``; rho cycles so split h differs
+    per adapter and one adapter keeps every pair high (h == r). The
+    spectrum decays over the rank as rank 16's ``exp(-0.3 i)`` does."""
     import torch
     from repro_torch.core import LoRAQuantConfig, quantize_lora
     from repro_torch.kernels.quant_matmul import (pack_adapter_layers,
@@ -76,8 +86,7 @@ def packed_layer(k, m, bits, group, na, seed):
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
-    r = 16
-    decay = torch.exp(-0.3 * torch.arange(r, device="cuda"))
+    decay = torch.exp(-0.3 * RANK / r * torch.arange(r, device="cuda"))
     qls = []
     for i in range(na):
         b = torch.randn(m, r, generator=gen, device="cuda") * decay
@@ -129,23 +138,23 @@ def seg_for(phase):
             % N_ADAPTERS).to(torch.int32)
 
 
-def decayed_pairs(n, m, k, r, seed, scale=1.0):
+def decayed_pairs(n, m, k, r, seed, scale=1.0, device="cuda"):
     """``n`` adapters ``b (n, m, r)``, ``a (n, r, k)`` with orthonormal
     factors and one fixed singular spectrum ``scale·exp(-0.4 i)``, so
     ``select_h`` gives every one the same split h."""
     import torch
 
-    gen = torch.Generator(device="cuda")
+    gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     u = torch.linalg.qr(torch.randn(n, m, r, generator=gen,
-                                    device="cuda"))[0]
+                                    device=device))[0]
     v = torch.linalg.qr(torch.randn(n, k, r, generator=gen,
-                                    device="cuda"))[0]
-    s = scale * torch.exp(-0.4 * torch.arange(r, device="cuda"))
+                                    device=device))[0]
+    s = scale * torch.exp(-0.4 * torch.arange(r, device=device))
     return u * s.sqrt(), s.sqrt()[:, None] * v.mT
 
 
-def single_qlora(k, m, bits, rho, seed, r=16):
+def single_qlora(k, m, bits, rho, seed, r=RANK):
     from repro_torch.core import LoRAQuantConfig, quantize_lora
 
     b, a = decayed_pairs(1, m, k, r, seed)
@@ -173,7 +182,7 @@ def fused_args(q):
     return (side_layout(q.a_high), side_layout(q.b_high), *lo), kw
 
 
-def sgmv_sides(k, m, fmt, seed, na=N_ADAPTERS, r=16):
+def sgmv_sides(k, m, fmt, seed, na=N_ADAPTERS, r=RANK):
     """``na`` adapters' A ``(r, K)`` and Bᵀ-view ``(M, r)`` factors quantized
     per side in one format (group 128): the per-adapter QuantizedTensors
     and their ``(NA, Rp, ·)`` stacks."""
@@ -183,7 +192,7 @@ def sgmv_sides(k, m, fmt, seed, na=N_ADAPTERS, r=16):
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
-    decay = torch.exp(-0.3 * torch.arange(r, device="cuda"))
+    decay = torch.exp(-0.3 * RANK / r * torch.arange(r, device="cuda"))
 
     def q(w, axis):
         if fmt == "binary":
@@ -255,6 +264,12 @@ def _graph_ms(calls, reps: int = 5) -> float:
     return ms
 
 
+def device_times(fn, args, kwargs) -> dict:
+    """``{"ms"}``: the device time per call of ``fn(*args, **kwargs)`` with
+    its inputs in L2 alone (the first of :func:`kernel_times`)."""
+    return {"ms": _graph_ms([lambda: fn(*args, **kwargs)] * CALLS)}
+
+
 def host_ms(fn, iters: int = CALLS) -> float:
     """Host wall time per call of ``fn`` (no wait for the card)."""
     import torch
@@ -288,6 +303,67 @@ def kernel_times(fn, args, kwargs) -> dict:
 
 
 # --------------------------------------------------------------------------
+# the bound
+# --------------------------------------------------------------------------
+
+def _side_bytes(side, binary, used=None) -> int:
+    """Packed bytes of one side ``(codes, scale, zero)`` (a binary side's
+    zero-points are never read); of ``used`` adapters of a stack."""
+    codes, scale, zero = side
+    arrays = [codes, scale] + ([] if binary or zero is None else [zero])
+    if used is None:
+        return sum(t.nbytes for t in arrays)
+    return used * sum(t[0].nbytes for t in arrays)
+
+
+def call_bound(name, args, kw) -> tuple:
+    """``(t_bytes, t_ops)`` in ms of one call of kernel ``name``: the bytes
+    it must move (x or h, the packed sides of the adapters its tiles use,
+    the seg map, its fp32 output) over the HBM peak, and its fp32
+    operations (a multiply and an add per rank row per input and output
+    column per row) over the fp32 peak. The bound is the larger."""
+    x = args[0]
+    t = x.shape[0]
+    if name in ("sgmv_fused", "sgmv_fused_moe"):
+        seg, m = args[7], kw["m"]
+        used = len(set(seg.tolist()))
+        sides = [(args[1:4], kw["binary_a"]), (args[4:7], kw["binary_b"])]
+        if kw.get("a_lo") is not None:
+            lo_binary = kw.get("binary_lo", True)
+            sides += [(kw["a_lo"], lo_binary), (kw["b_lo"], lo_binary)]
+        rows = sum(side[0].shape[1] for side, _ in sides[::2])
+        nbytes = (x.nbytes + seg.nbytes + t * m * 4
+                  + sum(_side_bytes(s, b, used) for s, b in sides))
+        ops = 2 * t * rows * (x.shape[1] + m)
+    elif name == "fused_lora":
+        m = kw["m"]
+        sides = [(args[1], kw["binary_hi"]), (args[2], kw["binary_hi"])]
+        if len(args) > 3 and args[3] is not None:
+            sides += [(args[3], kw.get("binary_lo", True)),
+                      (args[4], kw.get("binary_lo", True))]
+        rows = sum(side[0].shape[0] for side, _ in sides[::2])
+        nbytes = (x.nbytes + t * m * 4
+                  + sum(_side_bytes(s, b) for s, b in sides))
+        ops = 2 * t * rows * (x.shape[1] + m)
+    else:
+        side = args[1:4]
+        stacked = name.startswith("sgmv")
+        seg = args[4] if stacked else None
+        used = len(set(seg.tolist())) if stacked else None
+        rows = side[0].shape[-2]
+        if name.endswith("rhs"):
+            cols, out_cols = x.shape[1], rows
+        else:
+            cols = out_cols = (kw["m"] if stacked else
+                               side[1].shape[-1] * kw["group"])
+        nbytes = (x.nbytes + t * out_cols * 4
+                  + _side_bytes(side, kw["binary"], used)
+                  + (seg.nbytes if stacked else 0))
+        ops = 2 * t * rows * cols
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOPS_PER_S * 1e3
+
+
+# --------------------------------------------------------------------------
 # the benchmark
 # --------------------------------------------------------------------------
 
@@ -303,22 +379,26 @@ def mix(per_case: dict, key: str, linears=None) -> float:
     return tot / n
 
 
-def cases():
-    """``{kernel: {((k, m), phase): (fn, args, kwargs)}}`` at bits 2: the
-    two-sided ``sgmv_fused`` on 8 packed adapters; ``fused_lora`` on one
-    rho-0.9 adapter and ``matmul_rhs`` / ``matmul_out`` on its high side;
-    ``sgmv_rhs`` / ``sgmv_out`` on RTN-2 sides of 8 adapters."""
+def cases(rank=RANK, moe=None):
+    """``{kernel: {((k, m), phase): (fn, args, kwargs)}}`` at bits 2 and
+    LoRA rank ``rank``: the two-sided ``sgmv_fused`` on 8 packed adapters;
+    ``fused_lora`` on one rho-0.9 adapter; ``sgmv_rhs`` / ``sgmv_out`` on
+    RTN-2 sides of 8 adapters at ``rp`` rank rows and ``matmul_rhs`` /
+    ``matmul_out`` on adapter 0 of them; ``sgmv_fused_moe`` too where
+    ``moe`` (by default at the configs' rank 16)."""
     import torch
     from repro_torch.kernels import quant_matmul as qm
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(7)
+    if moe is None:
+        moe = rank == RANK
     out = {n: {} for n in ("sgmv_fused", "fused_lora", "matmul_rhs",
-                           "matmul_out", "sgmv_rhs", "sgmv_out",
-                           "sgmv_fused_moe")}
-    for k, m in MOE_SHAPES:
+                           "matmul_out", "sgmv_rhs", "sgmv_out")
+           + (("sgmv_fused_moe",) if moe else ())}
+    for k, m in MOE_SHAPES if moe else ():
         pb = packed_layer(k, m, 2, 128, N_ADAPTERS * MOE_EXPERTS,
-                          seed=k + m + 2)
+                          seed=k + m + 2, r=rank)
         for phase, (tile_t, rows) in MOE_PHASES.items():
             x = torch.randn(rows, k, generator=gen, device="cuda",
                             dtype=torch.bfloat16)
@@ -326,12 +406,13 @@ def cases():
                 qm.sgmv_fused, *packed_args(pb, x, moe_seg_for(phase),
                                             tile_t))
     for k, m in SHAPES:
-        pb = packed_layer(k, m, 2, 128, N_ADAPTERS, seed=k + m + 2)
-        q = single_qlora(k, m, 2, 0.9, seed=k + m + 2)
+        pb = packed_layer(k, m, 2, 128, N_ADAPTERS, seed=k + m + 2, r=rank)
+        q = single_qlora(k, m, 2, 0.9, seed=k + m + 2, r=rank)
         sides, fkw = fused_args(q)
-        a, b = side_layout(q.a_high), side_layout(q.b_high)
-        kw = dict(bits=2, binary=False)
-        _, _, sa, sb = sgmv_sides(k, m, "rtn2", seed=k + 7 * m)
+        kw = dict(bits=2, binary=False, group=128)
+        _, _, sa, sb = sgmv_sides(k, m, "rtn2", seed=k + 7 * m,
+                                  r=-(-rank // 8) * 8)
+        a, b = (tuple(t[0] for t in s) for s in (sa, sb))
         for phase, (tile_t, rows) in PHASES.items():
             x = torch.randn(rows, k, generator=gen, device="cuda",
                             dtype=torch.bfloat16)
@@ -340,17 +421,57 @@ def cases():
             out["sgmv_fused"][key] = (qm.sgmv_fused,
                                       *packed_args(pb, x, seg, tile_t))
             out["fused_lora"][key] = (qm.fused_lora, (x, *sides), fkw)
-            h = qm.matmul_rhs(x, *a, group=q.a_high.group_size, **kw)
-            out["matmul_rhs"][key] = (qm.matmul_rhs, (x, *a),
-                                      dict(kw, group=q.a_high.group_size))
-            out["matmul_out"][key] = (qm.matmul_out, (h, *b),
-                                      dict(kw, group=q.b_high.group_size))
-            skw = dict(kw, group=128, tile_t=tile_t)
+            h = qm.matmul_rhs(x, *a, **kw)
+            out["matmul_rhs"][key] = (qm.matmul_rhs, (x, *a), kw)
+            out["matmul_out"][key] = (qm.matmul_out, (h, *b), kw)
+            skw = dict(kw, tile_t=tile_t)
             hs = qm.sgmv_rhs(x, *sa, seg, **skw)
             out["sgmv_rhs"][key] = (qm.sgmv_rhs, (x, *sa, seg), skw)
             out["sgmv_out"][key] = (qm.sgmv_out, (hs, *sb, seg),
                                     dict(skw, m=m))
     return out
+
+
+# the times a timer gives, as the lines print them
+TIME_KEYS = (("ms", "device", "ms"), ("cold_ms", "cold-L2", "ms"),
+             ("host_ms", "host", "ms/call"))
+
+
+def _times(t: dict, sep: str, prefix: str = "") -> str:
+    return sep.join(f"{label} {t[prefix + key]:.4f} {unit}"
+                    for key, label, unit in TIME_KEYS if prefix + key in t)
+
+
+def bench(rank=RANK, label="this tree", timer=kernel_times,
+          moe=None) -> dict:
+    """Times every case of :func:`cases` at LoRA rank ``rank`` with
+    ``timer`` (:func:`kernel_times`, or :func:`device_times` for the device
+    time alone) and bounds it (:func:`call_bound`); prints a line per case
+    and per kernel's main-path mix. Returns ``{kernel: {"mix_<key>"}`` for
+    each time the timer gives, ``"mix_bound_ms"``, ``"bound_by"`` and the
+    ``"cases"``}."""
+    kernels = {}
+    for name, per in cases(rank, moe).items():
+        times = {}
+        for key, (fn, a, kw) in per.items():
+            t = times[key] = timer(fn, a, kw)
+            t["bytes"], t["ops"] = call_bound(name, a, kw)
+            print(f"[bench] {label} {name:10s} K={key[0][0]:5d} "
+                  f"M={key[0][1]:5d} {key[1]:7s} {_times(t, '  ')}  bound "
+                  f"{max(t['bytes'], t['ops']):.5f} ms", flush=True)
+        lin = MOE_LINEARS if name == "sgmv_fused_moe" else LINEARS
+        t_bytes, t_ops = mix(times, "bytes", lin), mix(times, "ops", lin)
+        timed = next(iter(times.values()))
+        r = kernels[name] = {
+            **{f"mix_{key}": mix(times, key, lin) for key, _, _ in TIME_KEYS
+               if key in timed},
+            "mix_bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "cases": {f"{k[0][0]}x{k[0][1]} {k[1]}": v
+                      for k, v in times.items()}}
+        print(f"[bench] {label} {name} mix: {_times(r, ', ', 'mix_')}, bound "
+              f"{r['mix_bound_ms']:.5f} ms ({r['bound_by']})", flush=True)
+    return kernels
 
 
 def card() -> str:
@@ -366,6 +487,9 @@ def main(argv=None) -> int:
                     help="import repro_torch from this src directory "
                          "(default: this checkout's)")
     ap.add_argument("--label", default="this tree")
+    ap.add_argument("--rank", type=int, default=RANK,
+                    help="LoRA rank of the adapters (default %(default)s; "
+                         "mixtral's shapes are timed at the default only)")
     args = ap.parse_args(argv)
     sys.path.insert(0, args.src)
     import torch
@@ -377,28 +501,10 @@ def main(argv=None) -> int:
     import repro_torch
 
     print(f"[bench] {args.label}: repro_torch from "
-          f"{repro_torch.__file__}; card {card()}", flush=True)
-    result = {"label": args.label, "card": card(), "kernels": {}}
-    for name, per in cases().items():
-        times = {}
-        for key, (fn, a, kw) in per.items():
-            times[key] = kernel_times(fn, a, kw)
-            t = times[key]
-            print(f"[bench] {args.label} {name:10s} K={key[0][0]:5d} "
-                  f"M={key[0][1]:5d} {key[1]:7s} device {t['ms']:.4f} ms  "
-                  f"cold-L2 {t['cold_ms']:.4f} ms  host {t['host_ms']:.4f} "
-                  f"ms/call", flush=True)
-        lin = MOE_LINEARS if name == "sgmv_fused_moe" else LINEARS
-        result["kernels"][name] = {
-            "mix_ms": mix(times, "ms", lin),
-            "mix_cold_ms": mix(times, "cold_ms", lin),
-            "mix_host_ms": mix(times, "host_ms", lin),
-            "cases": {f"{k[0][0]}x{k[0][1]} {k[1]}": v
-                      for k, v in times.items()}}
-        r = result["kernels"][name]
-        print(f"[bench] {args.label} {name} mix: device {r['mix_ms']:.4f} ms,"
-              f" cold-L2 {r['mix_cold_ms']:.4f} ms, host "
-              f"{r['mix_host_ms']:.4f} ms/call", flush=True)
+          f"{repro_torch.__file__}; card {card()}; rank {args.rank}",
+          flush=True)
+    result = {"label": args.label, "card": card(), "rank": args.rank,
+              "kernels": bench(args.rank, args.label)}
     print(json.dumps(result))
     return 0
 

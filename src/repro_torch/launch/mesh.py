@@ -111,13 +111,14 @@ def make_host_mesh(device="cuda") -> HostMesh:
     return mesh
 
 
-def mesh_over(shape, names=("data", "model"), device="cpu") -> HostMesh:
+def mesh_over(shape, names=("data", "model"), device="cuda") -> HostMesh:
     """A :class:`HostMesh` of ``shape`` over the process group that is up
     (its world size must be the product of ``shape``); ranks are laid out
-    row-major, as ``Mesh(devices.reshape(shape))`` lays devices out."""
+    row-major, as ``Mesh(devices.reshape(shape))`` lays devices out. The
+    card unless ``device="cpu"`` (or ``"meta"``)."""
     from torch.distributed.device_mesh import init_device_mesh
 
-    dev = torch.device(device)
+    dev = resolve_device(device)
     dm = init_device_mesh("cpu" if dev.type == "meta" else dev.type,
                           tuple(shape), mesh_dim_names=tuple(names))
     return HostMesh(dm)

@@ -338,17 +338,35 @@ def test_sgmv_fused_two_sided_forms_cuda_vs_plain(cuda, tile_t, case, k=640,
     _close(got, sgmv_fused_ref(x, *ah, *bh, seg, a_lo=al, b_lo=bl, **kw))
 
 
+# the shared memory one block may opt in to on an H100 (227 KB)
+SMEM_LIMIT = "needs [0-9]+ bytes of shared memory.*offers [0-9]+"
+
+
 def test_sgmv_kernels_cuda_limits(cuda):
-    """More than 64 rank rows (high + low) is the kernels' own limit."""
-    qas, qbs = _sides(256, 256, "rtn2", 72, 2, cuda, seed=1)
+    """Rank rows are bounded by shared memory alone: a stack whose one K or
+    M unit does not fit a block's opt-in shared memory raises ValueError
+    naming the bytes needed and offered, before any launch; 72 rank rows
+    (past the old cap of 64) launch."""
+    qas, qbs = _sides(256, 256, "rtn2", 8192, 1, cuda, seed=1)
     a, b = stack_adapter_side(qas), stack_adapter_side(qbs)
     seg = torch.zeros(2, dtype=torch.int32, device=cuda)
     x = torch.randn(2, 256, device=cuda)
-    with pytest.raises(NotImplementedError, match="64 rank rows"):
+    h = torch.randn(2, 8192, device=cuda)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match=SMEM_LIMIT):
         sgmv_rhs(x, *a, seg, bits=2, binary=False, tile_t=1)
-    with pytest.raises(NotImplementedError, match="64 rank rows"):
+    with pytest.raises(ValueError, match=SMEM_LIMIT):
+        sgmv_out(h, *b, seg, bits=2, binary=False, tile_t=1)
+    with pytest.raises(ValueError, match=SMEM_LIMIT):
         sgmv_fused(x, *a, *b, seg, bits_a=2, binary_a=False, group_a=128,
                    bits_b=2, binary_b=False, group_b=128, tile_t=1)
+    assert not LAUNCH_COUNTS
+    qas, qbs = _sides(256, 256, "rtn2", 72, 2, cuda, seed=1)
+    a, b = stack_adapter_side(qas), stack_adapter_side(qbs)
+    kw = dict(bits_a=2, binary_a=False, group_a=128, bits_b=2,
+              binary_b=False, group_b=128, tile_t=1)
+    _close(sgmv_fused(x, *a, *b, seg, **kw),
+           sgmv_fused_ref(x, *a, *b, seg, **kw))
 
 
 @pytest.mark.parametrize("fused", [True, False])
@@ -400,7 +418,7 @@ def test_sgmv_apply_buckets_cuda(cuda):
 # the cluster kernels (sgmv_fused, fused_lora) at the edges of their launch
 # plan: K and M off the slice grid, K under one cluster's slices, widths
 # 1/2/3/4/8 on every side, small groups (4-byte and byte copies), clamped
-# adapter ids, staged chunks, the rank-row limit, bitwise determinism
+# adapter ids, staged chunks, the shared-memory limit, bitwise determinism
 # --------------------------------------------------------------------------
 
 def _fmt_side(gen, rows, cols, bits, binary, group, axis, device):
@@ -534,15 +552,32 @@ def test_fused_lora_cluster_edges_cuda_vs_plain(cuda, t, case):
 
 
 def test_fused_lora_cuda_limits(cuda):
-    """More than 64 rank rows (high + low) is the kernel's own limit."""
+    """48 + 48 rank rows (past the old cap of 64) launch; sides whose one
+    K and M unit does not fit a block's opt-in shared memory raise
+    ValueError naming the bytes needed and offered (matmul_rhs and
+    matmul_out too), before any launch."""
     gen = torch.Generator(device=cuda).manual_seed(2)
     a = _kernel_layout(_fmt_side(gen, 48, 256, 2, False, 128, 1, cuda))[:3]
     b = _kernel_layout(_fmt_side(gen, 256, 48, 2, False, 128, 0, cuda))[:3]
     x = torch.randn(4, 256, device=cuda)
     kw = dict(m=256, bits_hi=2, binary_hi=False, group_ah=128, group_bh=128,
               bits_lo=2, binary_lo=False, group_al=128, group_bl=128)
-    with pytest.raises(NotImplementedError, match="64 rank rows"):
-        fused_lora(x, a, b, a, b, **kw)
+    _close(fused_lora(x, a, b, a, b, **kw),
+           fused_lora_ref(x, a, b, a, b, **kw))
+    a = _kernel_layout(_fmt_side(gen, 8192, 256, 2, False, 128, 1, cuda))[:3]
+    b = _kernel_layout(_fmt_side(gen, 256, 8192, 2, False, 128, 0,
+                                 cuda))[:3]
+    skw = dict(bits=2, binary=False, group=128)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match=SMEM_LIMIT):
+        fused_lora(x, a, b, **{k: v for k, v in kw.items()
+                               if not k.endswith("lo")
+                               and k not in ("group_al", "group_bl")})
+    with pytest.raises(ValueError, match=SMEM_LIMIT):
+        matmul_rhs(x, *a, **skw)
+    with pytest.raises(ValueError, match=SMEM_LIMIT):
+        matmul_out(torch.randn(4, 8192, device=cuda), *b, **skw)
+    assert not LAUNCH_COUNTS
 
 
 # --------------------------------------------------------------------------
@@ -804,3 +839,139 @@ def test_out_kernels_cuda_graph_replay(cuda, name):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(captured, call())
+
+
+# --------------------------------------------------------------------------
+# any rank: all six kernels at 72 (past the old cap of 64), 128, 256 and
+# 512 rank rows (a fused call's high + low sides, a one-sided call's one
+# side), every width, decode and prefill tiles, against the plain version,
+# two launches and a CUDA-graph replay bit for bit
+# --------------------------------------------------------------------------
+
+RANK_ROWS = (72, 128, 256, 512)
+SIX = ("sgmv_fused", "fused_lora", "sgmv_rhs", "sgmv_out", "matmul_rhs",
+       "matmul_out")
+
+
+def _split(rows):
+    """High and low rank rows of a fused call of ``rows`` rows: each a
+    multiple of 8, the high side the larger."""
+    hi = -(-rows // 16) * 8
+    return hi, rows - hi
+
+
+def _rank_case(name, rows, bits, tile_t, device, seed, k=640, m=1152,
+               na=4, n_tiles=6):
+    """``(kernel, plain, args, kwargs)`` of one call of ``name`` at ``rows``
+    rank rows: RTN ``bits`` (binary for 1) on the high side, a binary low
+    side on the fused kernels, group 128, bf16 x."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    binary = bits == 1
+    t = n_tiles * tile_t
+    x = torch.randn(t, k, generator=gen, device=device, dtype=torch.bfloat16)
+    seg = torch.randint(0, na, (n_tiles,), generator=gen, device=device,
+                        dtype=torch.int32)
+    if name in ("sgmv_fused", "fused_lora"):
+        hi, lo = _split(rows)
+        a = _fmt_stack(gen, na, hi, k, bits, binary, 128, 1, device)
+        b = _fmt_stack(gen, na, m, hi, bits, binary, 128, 0, device)
+        al = _fmt_stack(gen, na, lo, k, 1, True, 128, 1, device)
+        bl = _fmt_stack(gen, na, m, lo, 1, True, 128, 0, device)
+        if name == "sgmv_fused":
+            return (sgmv_fused, sgmv_fused_ref, (x, *a, *b, seg), dict(
+                bits_a=bits, binary_a=binary, group_a=128, bits_b=bits,
+                binary_b=binary, group_b=128, a_lo=al, b_lo=bl, bits_lo=1,
+                binary_lo=True, group_al=128, group_bl=128, m=m,
+                tile_t=tile_t))
+        first = [tuple(v[0] for v in side) for side in (a, b, al, bl)]
+        return (fused_lora, fused_lora_ref, (x, *first), dict(
+            m=m, bits_hi=bits, binary_hi=binary, bits_lo=1, binary_lo=True,
+            group_ah=128, group_bh=128, group_al=128, group_bl=128))
+    kw = dict(bits=bits, binary=binary, group=128)
+    if name.endswith("rhs"):
+        a = _a_stack(gen, na, (k, bits, binary, 128, rows), device)
+        if name == "matmul_rhs":
+            return matmul_rhs, matmul_rhs_ref, (x, *(v[0] for v in a)), kw
+        return sgmv_rhs, sgmv_rhs_ref, (x, *a, seg), dict(kw, tile_t=tile_t)
+    b = _b_stack(gen, na, (m, bits, binary, 128, rows), device)
+    h = torch.randn(t, rows, generator=gen, device=device)
+    if name == "matmul_out":
+        return matmul_out, matmul_out_ref, (h, *(v[0] for v in b)), kw
+    return (sgmv_out, sgmv_out_ref, (h, *b, seg),
+            dict(kw, m=m, tile_t=tile_t))
+
+
+@pytest.mark.parametrize("rows", RANK_ROWS)
+@pytest.mark.parametrize("name", SIX)
+def test_kernels_any_rank_cuda_vs_plain(cuda, name, rows):
+    """Every width on the high side (RTN 2/3/4/8, binary), decode (1-row)
+    and prefill (8-row) tiles: one launch each, within RTOL of the plain
+    version, and a second launch gives the same bits."""
+    for bits in (1, 2, 3, 4, 8):
+        for tile_t in (1, 8):
+            fn, plain, args, kw = _rank_case(name, rows, bits, tile_t, cuda,
+                                             seed=rows + 10 * bits + tile_t)
+            reset_launch_counts()
+            got = fn(*args, **kw)
+            torch.cuda.synchronize()
+            assert dict(LAUNCH_COUNTS) == {name: 1}, (bits, tile_t)
+            _close(got, plain(*args, **kw))
+            assert torch.equal(got, fn(*args, **kw)), (bits, tile_t)
+
+
+@pytest.mark.parametrize("rows", RANK_ROWS)
+@pytest.mark.parametrize("name", SIX)
+def test_kernels_any_rank_cuda_graph_replay(cuda, name, rows):
+    """At every rank-row count each kernel's launch is captured in a CUDA
+    graph after one eager launch: a replay gives the eager bits, and
+    follows an in-place change of its input."""
+    fn, _, args, kw = _rank_case(name, rows, 2, 8, cuda, seed=rows)
+    eager = fn(*args, **kw)                # first launch: attributes
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = fn(*args, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    args[0].copy_(torch.randn_like(args[0]))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, fn(*args, **kw))
+
+
+def test_smem_mirror_equals_the_device_layout_cuda(cuda):
+    """``kernel.py``'s ``_smem_bytes``, by which the plan sizes its chunks,
+    equals the library's ``make_layout(...).total`` (the bytes a launch
+    asks for) for every plan of the plan tests' grid: every shape, rank
+    rows 2-512, every width."""
+    import ctypes
+
+    from test_torch_launch_plan import BIT_WIDTHS, _rank_plans
+    from test_torch_launch_plan import RANK_ROWS as PLAN_ROWS
+    from test_torch_launch_plan import SHAPES as PLAN_SHAPES
+
+    from repro_torch.kernels.quant_matmul import build
+    from repro_torch.kernels.quant_matmul.kernel import _smem_bytes
+
+    lib = build.load_library()
+    checked = 0
+    for t, k, m, kt, groups in PLAN_SHAPES:
+        x_bytes = 2 if k else 4
+        for rows, bits, plan, sides in _rank_plans(t, k, m, kt, groups,
+                                                    x_bytes):
+            geom = []
+            for side in sides:
+                geom += ([0, 0, 1, 0] if side is None else
+                         [bits, int(side[5]), side[0], side[1]])
+            r_hi = next(s[4] for s in sides[:2] if s is not None)
+            r_lo = next((s[4] for s in sides[2:] if s is not None), 0)
+            device = lib.quant_matmul_layout_bytes(
+                x_bytes, k, m, r_hi, r_lo, (ctypes.c_int * 16)(*geom),
+                plan.c_args)
+            mirror = _smem_bytes(plan.tile_rows, x_bytes,
+                                 plan.k_chunk * plan.k_unit,
+                                 plan.m_chunk * plan.m_unit, sides)
+            assert mirror == device, (t, k, m, kt, groups, rows, bits)
+            checked += 1
+    assert checked == len(PLAN_SHAPES) * len(PLAN_ROWS) * len(BIT_WIDTHS)

@@ -81,3 +81,18 @@ def test_bridge_defaults_to_cuda(fn, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         getattr(bridge, fn)({"w": [1.0]})
+
+
+def test_mesh_over_defaults_to_cuda(monkeypatch):
+    """``mesh_over`` lays its mesh on the card unless the caller asks for the
+    CPU, as every entry point of the port does: with no GPU the default
+    raises before it touches a process group."""
+    import inspect
+
+    from repro_torch.launch.mesh import mesh_over
+
+    assert inspect.signature(mesh_over).parameters["device"].default == \
+        "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mesh_over((1, 1))

@@ -13,22 +13,27 @@ import pytest
 
 from repro_torch.kernels.quant_matmul.kernel import (CHUNK_COLS, MAX_CLUSTER,
                                                      OUT_BLOCKS, TILE_ROWS,
-                                                     _cluster_plan, _per_word)
+                                                     _cluster_plan, _per_word,
+                                                     _smem_bytes)
+
+SMEM = 232448      # an H100's opt-in shared memory per block (227 KB)
 
 
-def _side(bits, group, ptr=0):
-    """``(group, words_per_group, word_bytes, codes address mod 16)`` of a
-    side."""
-    return (group, -(-group // _per_word(bits)), 4 if bits == 3 else 1, ptr)
+def _side(bits, group, ptr=0, rows=16, binary=None):
+    """``(group, words_per_group, word_bytes, codes address mod 16, rank
+    rows, binary)`` of a side (1-bit sides binary unless told otherwise)."""
+    return (group, -(-group // _per_word(bits)), 4 if bits == 3 else 1, ptr,
+            rows, bits == 1 if binary is None else binary)
 
 
-def _plan(t, k, m, kt, groups, bits=(2, 2, 1, 1), x_bytes=2):
+def _plan(t, k, m, kt, groups, bits=(2, 2, 1, 1), x_bytes=2, rows=(16, 16),
+          smem=SMEM):
     """The plan of one call; ``groups`` ``(ah, bh, al, bl)``, None for an
     absent side (bh None: an A-only call, m = 0; ah None: a B-only call,
-    k = 0)."""
-    sides = [None if g is None else _side(b, g)
-             for b, g in zip(bits, groups)]
-    return _cluster_plan(t, k, m, kt, 0, x_bytes, 0, tuple(sides)), sides
+    k = 0); ``rows`` the high and low sides' rank rows."""
+    sides = tuple(None if g is None else _side(b, g, rows=rows[i // 2])
+                  for i, (b, g) in enumerate(zip(bits, groups)))
+    return _cluster_plan(t, k, m, kt, 0, x_bytes, 0, sides, smem), sides
 
 
 def _slices(plan, dim, axis):
@@ -38,6 +43,23 @@ def _slices(plan, dim, axis):
                    else (plan.m_unit, plan.m_units))
     return [(min(dim, b * units * unit), min(dim, (b + 1) * units * unit))
             for b in range(plan.cluster)]
+
+
+def _chunks(plan, dim, axis):
+    """``[(start, stop)]`` columns of every staged chunk, block by block, as
+    the kernel's loop ``for u in [ku0, ku1) step k_chunk`` stages them."""
+    unit, units, chunk = ((plan.k_unit, plan.k_units, plan.k_chunk)
+                          if axis == "k" else
+                          (plan.m_unit, plan.m_units, plan.m_chunk))
+    if units == 0:                       # an axis the call does not stage
+        return [(0, 0)]
+    nu = -(-dim // unit)
+    out = []
+    for b in range(plan.cluster):
+        u0, u1 = b * units, min(nu, (b + 1) * units)
+        out += [(u * unit, min(dim, min(u + chunk, u1) * unit))
+                for u in range(u0, u1, chunk)]
+    return out
 
 
 def _check_cover(slices, dim, groups):
@@ -115,33 +137,80 @@ SHAPES = [
 ]
 
 
+# Rank rows of a call: a two-sided call's high and low sides share them
+# equally (a rank-r adapter reaches the fused kernels with 2·rp rows), a
+# one-sided call (rhs, out, or no low side) holds them all on one side
+RANK_ROWS = (2, 8, 24, 32, 64, 72, 128, 256, 512)
+BIT_WIDTHS = (1, 2, 3, 4, 8)
+
+
+def _rank_plans(t, k, m, kt, groups, x_bytes=2):
+    """The plan of one call at every rank-row count and bit width, with the
+    sides as the plan saw them."""
+    two = groups[2] is not None or groups[3] is not None
+    for rows in RANK_ROWS:
+        for bits in BIT_WIDTHS:
+            hi = rows // 2 if two else rows
+            plan, sides = _plan(t, k, m, kt, groups, bits=(bits,) * 4,
+                                x_bytes=x_bytes, rows=(hi, rows - hi))
+            yield rows, bits, plan, sides
+
+
 @pytest.mark.parametrize("t,k,m,kt,groups", SHAPES)
 def test_plan_slices_cover_k_and_m_exactly_once(t, k, m, kt, groups):
-    plan, _ = _plan(t, k, m, kt, groups)
+    """At every rank-row count from 2 to 512 and every bit width: the
+    blocks' slices and their staged chunks cover K and M once in whole
+    groups, and one block's shared-memory layout fits the budget."""
     a_groups = [g for g in (groups[0], groups[2]) if g]
     b_groups = [g for g in (groups[1], groups[3]) if g]
-    assert plan.k_unit == math.lcm(*a_groups)
-    assert plan.m_unit == math.lcm(*b_groups)
-    for axis, dim, gs in (("k", k, a_groups), ("m", m, b_groups)):
-        slices = _slices(plan, dim, axis)
-        assert len(slices) == plan.cluster
-        _check_cover(slices, dim, gs)
-    # a staging chunk stays within CHUNK_COLS unless one unit is wider; an
-    # A-only plan stages no M, a B-only plan no K
-    for dim, unit, units, chunk in (
-            (k, plan.k_unit, plan.k_units, plan.k_chunk),
-            (m, plan.m_unit, plan.m_units, plan.m_chunk)):
-        if units == 0:
-            assert dim == 0 and chunk == 0 and unit == 1
-            continue
-        assert 1 <= chunk <= units
-        assert chunk * unit <= max(CHUNK_COLS, unit)
+    x_bytes = 2 if k else 4
+    for rows, bits, plan, sides in _rank_plans(t, k, m, kt, groups,
+                                                x_bytes):
+        assert plan.k_unit == math.lcm(*a_groups)
+        assert plan.m_unit == math.lcm(*b_groups)
+        for axis, dim, gs in (("k", k, a_groups), ("m", m, b_groups)):
+            slices = _slices(plan, dim, axis)
+            assert len(slices) == plan.cluster
+            _check_cover(slices, dim, gs)
+            _check_cover(_chunks(plan, dim, axis), dim, gs)
+        # a staging chunk stays within CHUNK_COLS unless one unit is wider;
+        # an A-only plan stages no M, a B-only plan no K
+        for dim, unit, units, chunk in (
+                (k, plan.k_unit, plan.k_units, plan.k_chunk),
+                (m, plan.m_unit, plan.m_units, plan.m_chunk)):
+            if units == 0:
+                assert dim == 0 and chunk == 0 and unit == 1
+                continue
+            assert 1 <= chunk <= units
+            assert chunk * unit <= max(CHUNK_COLS, unit)
+        used = _smem_bytes(plan.tile_rows, x_bytes,
+                           plan.k_chunk * plan.k_unit,
+                           plan.m_chunk * plan.m_unit, sides)
+        assert used <= SMEM, (rows, bits, used)
+        # chunks shrink only where the CHUNK_COLS chunks do not fit
+        full = _smem_bytes(
+            plan.tile_rows, x_bytes,
+            min(plan.k_units, max(1, CHUNK_COLS // plan.k_unit))
+            * plan.k_unit,
+            min(plan.m_units, max(1, CHUNK_COLS // plan.m_unit))
+            * plan.m_unit, sides)
+        if full <= SMEM:
+            assert (plan.k_chunk, plan.m_chunk) == (
+                min(plan.k_units, max(1, CHUNK_COLS // plan.k_unit)),
+                min(plan.m_units, max(1, CHUNK_COLS // plan.m_unit)))
 
 
 @pytest.mark.parametrize("t,k,m,kt,groups", SHAPES)
 def test_plan_grid_is_whole_clusters_and_tiles_cover_rows(t, k, m, kt,
                                                           groups):
     plan, _ = _plan(t, k, m, kt, groups)
+    # the grid, tiles and copies do not depend on the rank rows or bits
+    # (only the staged chunks do)
+    for rows, bits, other, _ in _rank_plans(t, k, m, kt, groups,
+                                            2 if k else 4):
+        assert (other.cluster, other.tile_rows, other.tiles, other.k_units,
+                other.m_units) == (plan.cluster, plan.tile_rows, plan.tiles,
+                                   plan.k_units, plan.m_units), (rows, bits)
     assert plan.cluster in (1, 2, 4, 8) and plan.cluster <= MAX_CLUSTER
     grid = plan.tiles * plan.cluster      # the launcher's gridDim.x
     assert grid % plan.cluster == 0 and grid >= plan.cluster
@@ -184,7 +253,7 @@ def test_plan_vector_path_only_where_group_starts_are_aligned(bits, group,
     4-byte aligned; else byte copies."""
     side = _side(bits, group, ptr)
     plan = _cluster_plan(16, 3072, 3072, 1, 0, 2, 0,
-                         (side, _side(2, 128), None, None))
+                         (side, _side(2, 128), None, None), SMEM)
     vec = plan.vec_codes[0]
     group_bytes = side[1] * side[2]
     starts = [ptr + i * group_bytes for i in range(64)]
@@ -204,14 +273,14 @@ def test_plan_x_and_y_copies(k, x_bytes, unit, want):
     """x rows are copied 16 bytes at a time where every row and K slice
     starts 16-byte aligned; y is stored as float4 where M allows."""
     plan = _cluster_plan(8, k, 200, 8, 0, x_bytes, 0,
-                         (_side(2, unit), _side(2, 8), None, None))
+                         (_side(2, unit), _side(2, 8), None, None), SMEM)
     assert plan.vec_x == want
     assert plan.vec_y == 4
     odd = _cluster_plan(8, k, 198, 8, 0, x_bytes, 0,
-                        (_side(2, unit), _side(2, 8), None, None))
+                        (_side(2, unit), _side(2, 8), None, None), SMEM)
     assert odd.vec_y == 1
     shifted = _cluster_plan(8, k, 200, 8, 0, x_bytes, 8,
-                            (_side(2, unit), _side(2, 8), None, None))
+                            (_side(2, unit), _side(2, 8), None, None), SMEM)
     assert shifted.vec_y == 1
 
 
@@ -238,10 +307,10 @@ def test_rhs_plan_fills_the_card_at_decode(kt):
 def test_a_only_plan_needs_m_0_and_no_b_sides():
     with pytest.raises(ValueError, match="A-only"):
         _cluster_plan(16, 3072, 64, 1, 0, 2, 0,
-                      (_side(2, 128), None, None, None))
+                      (_side(2, 128), None, None, None), SMEM)
     with pytest.raises(ValueError, match="A-only"):
         _cluster_plan(16, 3072, 0, 1, 0, 2, 0,
-                      (_side(2, 128), _side(2, 128), None, None))
+                      (_side(2, 128), _side(2, 128), None, None), SMEM)
 
 
 @pytest.mark.parametrize("bits", [1, 2, 3, 4, 8])
@@ -254,9 +323,9 @@ def test_a_only_plan_copies_as_the_fused_plan(bits, group, ptr):
     side = _side(bits, group, ptr)
     for kt in (None, 1, 8):
         fused = _cluster_plan(16, 3072, 3072, kt, 0, 2, 0,
-                              (side, _side(2, 128), None, None))
+                              (side, _side(2, 128), None, None), SMEM)
         rhs = _cluster_plan(16, 3072, 0, kt, 0, 2, 0,
-                            (side, None, None, None))
+                            (side, None, None, None), SMEM)
         assert rhs.vec_codes == (fused.vec_codes[0], 0, 0, 0)
         assert rhs.vec_x == fused.vec_x and rhs.vec_y == 1
         assert (rhs.k_unit, rhs.k_units, rhs.k_chunk) == (
@@ -272,14 +341,16 @@ def test_a_only_plan_copies_as_the_fused_plan(bits, group, ptr):
 def test_b_only_plan_needs_k_0_and_no_a_sides():
     b = _side(2, 128)
     with pytest.raises(ValueError, match="B-only"):
-        _cluster_plan(16, 3072, 3072, 1, 0, 4, 0, (None, b, None, None))
+        _cluster_plan(16, 3072, 3072, 1, 0, 4, 0, (None, b, None, None),
+                      SMEM)
     with pytest.raises(ValueError, match="B-only"):
         _cluster_plan(16, 0, 3072, 1, 0, 4, 0,
-                      (_side(2, 128), b, None, None))
+                      (_side(2, 128), b, None, None), SMEM)
     with pytest.raises(ValueError, match="B-only"):
-        _cluster_plan(16, 0, 3072, 1, 0, 4, 0, (None, b, _side(1, 128), None))
+        _cluster_plan(16, 0, 3072, 1, 0, 4, 0,
+                      (None, b, _side(1, 128), None), SMEM)
     with pytest.raises(ValueError, match="A or a B side"):
-        _cluster_plan(16, 0, 0, 1, 0, 4, 0, (None, None, None, None))
+        _cluster_plan(16, 0, 0, 1, 0, 4, 0, (None, None, None, None), SMEM)
 
 
 @pytest.mark.parametrize("bits,group,m,kt", [
@@ -320,9 +391,9 @@ def test_b_only_plan_copies_as_the_fused_plan(bits, group, ptr):
     side = _side(bits, group, ptr)
     for kt in (None, 1, 8):
         fused = _cluster_plan(16, 3072, 3072, kt, 0, 2, 0,
-                              (_side(2, 128), side, None, None))
+                              (_side(2, 128), side, None, None), SMEM)
         out = _cluster_plan(16, 0, 3072, kt, 0, 4, 0,
-                            (None, side, None, None))
+                            (None, side, None, None), SMEM)
         assert out.vec_codes == (0, fused.vec_codes[1], 0, 0)
         assert out.vec_y == fused.vec_y and out.vec_x == 1
         assert (out.cluster, out.m_unit, out.m_units, out.m_chunk) == (
@@ -344,7 +415,7 @@ def test_b_only_plan_float4_stores_only_where_m_allows(m, group, out_ptr):
     address divide by 4 (16 bytes)."""
     plan = _cluster_plan(8, 0, m, 8, 0, 4, out_ptr,
                          (None, _side(3 if group == 130 else 2, group),
-                          None, None))
+                          None, None), SMEM)
     want = m % 4 == 0 and group % 4 == 0 and out_ptr % 16 == 0
     assert plan.vec_y == (4 if want else 1)
 
@@ -380,3 +451,76 @@ def test_out_plan_grid_fits_one_wave(kt, t):
     _check_cover(_slices(plan, m, "m"), m, [128])
     if t == 512 and kt in (None, 8):
         assert (plan.tiles, plan.cluster) == (64, 4)
+
+
+# --------------------------------------------------------------------------
+# the shared-memory budget: the plan fits any rank one unit can hold
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("bits", BIT_WIDTHS)
+@pytest.mark.parametrize("kt", [None, 1, 8])
+def test_plan_fits_rank_rows_up_to_512_in_the_budget(bits, kt):
+    """Rank 16 to 256 (32 to 512 rows, high + low) at llama3.2-3b's four
+    shapes: the fused, A-only and B-only plans fit the H100's opt-in shared
+    memory; rank 16 keeps the CHUNK_COLS chunks it always had, and a plan
+    that had to shrink a chunk would not fit with it doubled."""
+    t = 16 * (kt or 1)
+    for k, m in ((3072, 3072), (3072, 1024), (3072, 8192), (8192, 3072)):
+        for rows in (32, 128, 256, 512):
+            for kk, mm, groups, rr, xb in (
+                    (k, m, (128,) * 4, (rows // 2, rows // 2), 2),
+                    (k, 0, (128, None, None, None), (rows, 0), 2),
+                    (0, m, (None, 128, None, None), (rows, 0), 4)):
+                plan, sides = _plan(t, kk, mm, kt, groups, bits=(bits,) * 4,
+                                    x_bytes=xb, rows=rr)
+                kc, mc = plan.k_chunk * plan.k_unit, plan.m_chunk * 128
+                assert _smem_bytes(plan.tile_rows, xb, kc,
+                                   mm and mc, sides) <= SMEM
+                if rows == 32:
+                    assert kc == min(kk, plan.k_units * 128, CHUNK_COLS)
+                if plan.k_chunk > 1 and plan.k_chunk < plan.k_units:
+                    assert _smem_bytes(plan.tile_rows, xb, 2 * kc,
+                                       mm and mc, sides) > SMEM
+
+
+@pytest.mark.parametrize("smem", [48 << 10, 100 << 10, SMEM])
+def test_plan_halves_k_then_m_chunks_to_the_budget(smem):
+    """Under a smaller budget the K chunk shrinks first, then the M chunk,
+    each down to one unit, and the layout fits the budget given."""
+    groups = (128,) * 4
+    for rows in (16, 32, 64, 128):
+        try:
+            plan, sides = _plan(512, 3072, 8192, 8, groups, bits=(8,) * 4,
+                                rows=(rows, rows), smem=smem)
+        except ValueError:           # one unit each does not fit either
+            sides = _plan(512, 3072, 8192, 8, groups, bits=(8,) * 4,
+                          rows=(rows, rows))[1]
+            assert _smem_bytes(8, 2, 128, 128, sides) > smem
+            assert rows > 16
+            continue
+        full_k = min(plan.k_units, CHUNK_COLS // 128)
+        full_m = min(plan.m_units, CHUNK_COLS // 128)
+        assert _smem_bytes(plan.tile_rows, 2, plan.k_chunk * 128,
+                           plan.m_chunk * 128, sides) <= smem
+        if plan.m_chunk < full_m:
+            assert plan.k_chunk == 1
+        assert plan.k_chunk <= full_k
+
+
+@pytest.mark.parametrize("bits", BIT_WIDTHS)
+def test_plan_raises_where_one_unit_cannot_fit(bits):
+    """A rank whose single K and M units exceed the card's shared memory
+    is refused with the bytes needed and the bytes offered."""
+    want = "needs [0-9]+ bytes.*offers 232448"
+    with pytest.raises(ValueError, match=want):
+        _plan(16, 3072, 3072, 1, (128,) * 4, bits=(bits,) * 4,
+              rows=(8192, 8192))
+    with pytest.raises(ValueError, match=want):
+        _plan(16, 3072, 0, 1, (128, None, None, None), bits=(bits,) * 4,
+              rows=(16384, 0))
+    with pytest.raises(ValueError, match=want):
+        _plan(16, 0, 3072, 1, (None, 128, None, None), bits=(bits,) * 4,
+              x_bytes=4, rows=(16384, 0))
+    # a budget below the fixed terms (h, x and y of one unit) refuses rank 8
+    with pytest.raises(ValueError, match="offers 1024"):
+        _plan(16, 3072, 3072, 8, (128,) * 4, rows=(8, 8), smem=1024)

@@ -200,7 +200,7 @@ for name in names:
     arch, shape, _, over, model_over = T.CASES[name]
     shape = tuple(shape)
     if shape not in meshes:
-        meshes[shape] = mesh_over(shape)
+        meshes[shape] = mesh_over(shape, device="cpu")
     mesh = meshes[shape]
     cfg = T.cfg_of(arch, over)
     model = build_model(cfg, mesh=mesh, **model_over)
