@@ -1,0 +1,1 @@
+"""Plain PyTorch reference of the benchmark's models; imports nothing of the program."""
