@@ -6,6 +6,10 @@ applied as ``x @ w``; LoRA factors are ``A: (r, in)``, ``B: (out, r)`` and
 the update is ``((x @ Aᵀ) @ Bᵀ) * scaling``; parameter trees are plain
 nested dicts whose layer stacks carry a leading ``(L, ...)`` axis; norm and
 rotary math runs in fp32.
+
+:func:`linear` runs each LoRA update inside a ``model.lora``
+:func:`~repro_torch.spans.profiler_range`, which costs one flag check
+while no profiler records.
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.spans import profiler_range
 
 Params = Dict[str, Any]
 
@@ -177,6 +183,14 @@ def linear(x: torch.Tensor, base: Params, lora=None,
         y = x.to(dt) @ w.to(dt)
     if lora is None:
         return y
+    with profiler_range("model.lora"):
+        return _lora_update(x, y, lora, scaling)
+
+
+def _lora_update(x: torch.Tensor, y: torch.Tensor, lora,
+                 scaling: float) -> torch.Tensor:
+    """``y`` plus the LoRA update of ``x`` for each leaf form of
+    :func:`linear`."""
     from repro_torch.core.loraquant import QuantizedLoRA
     from repro_torch.kernels.quant_matmul import (PackedLoRABatch,
                                                    PackedLoRABuckets,

@@ -70,6 +70,11 @@ share one split ``h``), a :class:`~repro_torch.kernels.PackedLoRABatch`
 stack of many adapters, or a :class:`~repro_torch.kernels.PackedLoRABuckets`
 of such stacks, one per recipe layout; a serving engine puts the per-row
 adapter index of the last two at ``lora["seg"]``.
+
+While ``torch.profiler`` records, the forward's parts are host ranges
+(:func:`~repro_torch.spans.profiler_range`): ``model.embed``, each layer's
+``model.layer`` holding its ``model.attn`` and ``model.ffn``, and
+``model.logits``; a profile's idle gaps fall under them.
 """
 
 from __future__ import annotations
@@ -96,6 +101,7 @@ from repro_torch.parallel.collectives import (all_reduce_max,
 from repro_torch.parallel.sharding import (cache_specs, live, local_block,
                                            spec_for)
 from repro_torch.parallel.tensor import TensorParallel, annotate
+from repro_torch.spans import profiler_range
 
 from . import attention as attn_mod
 from . import ffn as ffn_mod
@@ -426,14 +432,16 @@ class Model:
             if cache is not None and "cmix" in cache:
                 cache, cm_state = cache["tmix"], cache["cmix"]
             hin = apply_norm(x, sb["mixer_norm"], cfg.norm)
-            out = self._run_mixer(mk, hin, sb["mixer"], sl["mixer"],
-                                  cache=cache, **kw)
+            with profiler_range("model.attn"):
+                out = self._run_mixer(mk, hin, sb["mixer"], sl["mixer"],
+                                      cache=cache, **kw)
             if cfg.post_norm:
                 out = apply_norm(out, sb["post_mixer_norm"], cfg.norm)
             x = x + out
             fin = apply_norm(x, sb["ffn_norm"], cfg.norm)
-            out, aux_j = self._run_ffn(fk, fin, sb["ffn"], sl["ffn"],
-                                       state=cm_state)
+            with profiler_range("model.ffn"):
+                out, aux_j = self._run_ffn(fk, fin, sb["ffn"], sl["ffn"],
+                                           state=cm_state)
             if cfg.post_norm:
                 out = apply_norm(out, sb["post_ffn_norm"], cfg.norm)
             x = x + out
@@ -466,18 +474,20 @@ class Model:
             if seg is not None:
                 gl = self._attach_seg(gl, seg)
             for li in range(block.count):
-                lb, ll = _layer_slice(gb, li), _layer_slice(gl, li)
-                if specs is not None:
-                    annotate(lb, specs[0][gi])
-                    annotate(ll, specs[1][gi])
-                sc = (None if caches is None
-                      else _layer_slice(caches[gi], li))
-                if remat:
-                    x, aux = checkpoint(
-                        functools.partial(self._layer, block, **kw),
-                        x, aux, lb, ll, sc, use_reentrant=False)
-                else:
-                    x, aux = self._layer(block, x, aux, lb, ll, sc, **kw)
+                with profiler_range("model.layer"):
+                    lb, ll = _layer_slice(gb, li), _layer_slice(gl, li)
+                    if specs is not None:
+                        annotate(lb, specs[0][gi])
+                        annotate(ll, specs[1][gi])
+                    sc = (None if caches is None
+                          else _layer_slice(caches[gi], li))
+                    if remat:
+                        x, aux = checkpoint(
+                            functools.partial(self._layer, block, **kw),
+                            x, aux, lb, ll, sc, use_reentrant=False)
+                    else:
+                        x, aux = self._layer(block, x, aux, lb, ll, sc,
+                                             **kw)
         return apply_norm(x, base["final_norm"], cfg.norm), aux
 
     def _annotated(self, params):
@@ -505,29 +515,31 @@ class Model:
         """Token embeddings (musicgen: the sum over its codebooks of
         ``(B, K, T)`` tokens), qwen2-vl's ``vision_embeds`` prepended, and
         gemma's ``sqrt(d_model)`` scale, in the reference's order."""
-        cfg = self.cfg
-        self._annotate_top(base)
-        table = base["embed_tied" if cfg.tie_embeddings else "embed"]
-        tokens = batch["tokens"]
-        if cfg.n_codebooks:
-            if tokens.dim() != 3:
-                raise ValueError(
-                    f"{cfg.name} takes (B, {cfg.n_codebooks}, T) codebook "
-                    f"tokens, got shape {tuple(tokens.shape)}: the serving "
-                    f"engine hands the model (B, T) tokens, which the "
-                    f"reference cannot embed either (ROADMAP C8)")
-            x = sum(self._lookup(tokens[:, k], table["e"], k)
-                    for k in range(cfg.n_codebooks))
-        else:
-            x = self._lookup(tokens, table["e"])
-        if cfg.vision_stub and "vision_embeds" in batch:
-            x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
-        if cfg.norm == "rmsnorm_plus1":
-            # gemma-family scale; the reference multiplies by a numpy
-            # scalar, which promotes to fp32 before the cast back
-            x = x.to(torch.float32) * torch.tensor(np.sqrt(cfg.d_model),
-                                                   dtype=torch.float32)
-        return x.to(cfg.dtype)
+        with profiler_range("model.embed"):
+            cfg = self.cfg
+            self._annotate_top(base)
+            table = base["embed_tied" if cfg.tie_embeddings else "embed"]
+            tokens = batch["tokens"]
+            if cfg.n_codebooks:
+                if tokens.dim() != 3:
+                    raise ValueError(
+                        f"{cfg.name} takes (B, {cfg.n_codebooks}, T) "
+                        f"codebook tokens, got shape {tuple(tokens.shape)}: "
+                        f"the serving engine hands the model (B, T) tokens, "
+                        f"which the reference cannot embed either "
+                        f"(ROADMAP C8)")
+                x = sum(self._lookup(tokens[:, k], table["e"], k)
+                        for k in range(cfg.n_codebooks))
+            else:
+                x = self._lookup(tokens, table["e"])
+            if cfg.vision_stub and "vision_embeds" in batch:
+                x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
+            if cfg.norm == "rmsnorm_plus1":
+                # gemma-family scale; the reference multiplies by a numpy
+                # scalar, which promotes to fp32 before the cast back
+                x = x.to(torch.float32) * torch.tensor(np.sqrt(cfg.d_model),
+                                                       dtype=torch.float32)
+            return x.to(cfg.dtype)
 
     def _vocab_block(self, e):
         """``[lo, hi)`` of the vocab rows this rank holds of the table
@@ -557,20 +569,21 @@ class Model:
     def _logits(self, base, x, gather: bool = True):
         """The (soft-capped) logits; a head split over ``model`` gives the
         rank's vocab columns, gathered unless ``gather`` is False."""
-        cfg = self.cfg
-        head = base["embed_tied"] if cfg.tie_embeddings else base["head"]
-        blk = self._vocab_block(head["e"])
-        if blk is not None:
-            x = copy_to_region(x, self.tp.group)
-        if cfg.n_codebooks:                         # (B, K, T, V)
-            logits = torch.stack([unembed(x, {"e": head["e"][k]})
-                                  for k in range(cfg.n_codebooks)], dim=1)
-        else:
-            logits = unembed(x, head)
-        logits = softcap(logits, cfg.logit_softcap)
-        if blk is not None and gather:
-            logits = gather_from_region(logits, -1, self.tp.group)
-        return logits
+        with profiler_range("model.logits"):
+            cfg = self.cfg
+            head = base["embed_tied"] if cfg.tie_embeddings else base["head"]
+            blk = self._vocab_block(head["e"])
+            if blk is not None:
+                x = copy_to_region(x, self.tp.group)
+            if cfg.n_codebooks:                         # (B, K, T, V)
+                logits = torch.stack([unembed(x, {"e": head["e"][k]})
+                                      for k in range(cfg.n_codebooks)], dim=1)
+            else:
+                logits = unembed(x, head)
+            logits = softcap(logits, cfg.logit_softcap)
+            if blk is not None and gather:
+                logits = gather_from_region(logits, -1, self.tp.group)
+            return logits
 
     def _rope_streams(self, pos):
         """``(B, T)`` positions as the rotary embedding takes them: the

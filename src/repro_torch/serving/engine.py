@@ -28,7 +28,8 @@ The engine honours the reference's failure contract
 adapters (the paged memory's page check in continuous mode, the store's
 integrity screen in the static modes) and seeded fault injection. With a
 :class:`~repro_torch.serving.telemetry.Telemetry` it records request
-traces, latency histograms and kernel launches.
+traces, latency histograms and kernel launches, and its step's phases as
+raw spans (:data:`~repro_torch.spans.SPANS`).
 """
 
 from __future__ import annotations
@@ -70,7 +71,18 @@ from repro_torch.serving.faults import (
     validate_lora_tree,
 )
 from repro_torch.serving.memory import upload
-from repro_torch.serving.telemetry import Telemetry
+from repro_torch.serving.telemetry import SPANS, Telemetry
+
+# Raw spans of the continuous step (argument: the number of the decode
+# step the call makes, or the admission wave for ``engine.admit.select`` /
+# ``engine.prefill`` / ``engine.cache_copy``).
+(_STEP, _SWEEP, _ADMIT, _SELECT, _PREFILL, _CACHE_COPY, _PREP, _VIEW,
+ _LAUNCH, _SYNC, _RETIRE) = (
+    SPANS.name_id(n) for n in (
+        "engine.step", "engine.sweep", "engine.admit", "engine.admit.select",
+        "engine.prefill", "engine.cache_copy", "engine.decode.prep",
+        "engine.decode.view", "engine.decode.launch", "engine.decode.sync",
+        "engine.retire"))
 
 # Prefill token-tile rows: prompts are padded to a multiple of this so every
 # tile holds one adapter; it is the most rows one sgmv_fused block holds.
@@ -646,6 +658,7 @@ class MultiLoRAEngine:
         self.faults = faults
         self.transport = transport
         self.telemetry = telemetry
+        self._spans = telemetry.spans if telemetry is not None else None
         base = base_params["base"]
         # the embedding table: every model has one (olmo's norms have no
         # weight)
@@ -940,11 +953,12 @@ class MultiLoRAEngine:
         toks = np.stack([np.pad(np.asarray(r.prompt), (tpad - len(r.prompt), 0))
                          for r in reqs]).astype(np.int64)
         self._wave += 1
-        tel = self.telemetry
+        tel, sp = self.telemetry, self._spans
         if tel is not None:
             for req, row_idx in zip(reqs, rows):
                 tel.on_admit(req.request_id, self._wave, row_idx)
         t_pre = self.clock()
+        t = sp and sp.begin(_PREFILL)
         # fetch the tree AFTER the acquires: this group's swap-ins are in it
         packed = self.memory.serving_tree()
         pre = {"base": self.params["base"],
@@ -957,14 +971,20 @@ class MultiLoRAEngine:
         firsts = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy()
         first_logits = logits[:, -1, :].float().cpu().numpy() if keep else None
         now = self.clock()
+        if sp:
+            sp.end(_PREFILL, t, self._wave)
         if tel is not None:
+            self.memory.resolve_copy_timers()
             tel.on_prefill(self._wave, [r.request_id for r in reqs],
                            int(tpad), now - t_pre)
         # cache rows land on axis 1 of every (count, B, ...) leaf (rwkv's
         # nest a level deeper, under "tmix" / "cmix"); the group's caches
         # have this engine's capacity, so ring slots line up with the
         # persistent cache's
+        t = sp and sp.begin(_CACHE_COPY)
         _copy_rows(self._caches, grp, upload(np.asarray(rows, np.int64), dev))
+        if sp:
+            sp.end(_CACHE_COPY, t, self._wave)
         out = []
         for b, (req, row_idx) in enumerate(zip(reqs, rows)):
             req.t_first = now
@@ -1089,11 +1109,20 @@ class MultiLoRAEngine:
            its adapter's pin are released.
 
         Returns the requests that reached a terminal state in this step,
-        in completion order."""
+        in completion order. With a telemetry each phase is a raw span
+        (``engine.sweep``, ``engine.admit``, ``engine.decode.prep`` /
+        ``.launch`` / ``.sync``, ``engine.retire``) inside ``engine.step``,
+        all with the number of the decode step this call makes (a call
+        that decodes nothing shares it with the next); a call with nothing
+        to do records none."""
         finished: List[Request] = list(self._terminated)
         self._terminated = []
         if not self.pending and all(r is None for r in self._rows):
             return finished
+        sp = self._spans
+        n_step = self._step_count + 1
+        t_whole = sp and sp.begin(_STEP)
+        t = sp and sp.begin(_SWEEP)
         mgr = self.memory
         mgr.refresh()                      # reconcile store mutations
         t_step = now = self.clock()
@@ -1134,12 +1163,18 @@ class MultiLoRAEngine:
         if self._caches is None:
             self._caches = self.model.init_cache(self.max_rows, self.capacity,
                                                  device=self.device)
+        if sp:
+            sp.end(_SWEEP, t, n_step)
+            t = sp.begin(_ADMIT)
         admitted_any = False
         while self.pending:
             free = [i for i in range(self.max_rows) if self._rows[i] is None]
             if not free:
                 break
+            t_sel = sp and sp.begin(_SELECT)
             group = self._select_admissions(len(free), finished)
+            if sp:
+                sp.end(_SELECT, t_sel, self._wave + 1)
             if not group:
                 break
             admitted_any = True
@@ -1149,6 +1184,8 @@ class MultiLoRAEngine:
                                     self._admit_group(group, rows, slots)):
                 if self._row_done(row):
                     finished.append(self._retire(row_idx))
+        if sp:
+            sp.end(_ADMIT, t, n_step)
         active = [i for i in range(self.max_rows) if self._rows[i] is not None]
         if not active:
             if self.pending and not admitted_any and not finished:
@@ -1167,8 +1204,11 @@ class MultiLoRAEngine:
             else:
                 self._stalled_steps = 0
             self._prefetch_upcoming()
+            if sp:
+                sp.end(_STEP, t_whole, n_step)
             return finished
         self._stalled_steps = 0
+        t = sp and sp.begin(_PREP)
         # rows of (tokens, pos, start, seg), one upload; inactive rows:
         # start == capacity masks every cache slot, seg 0
         inp = np.zeros((4, self.max_rows), np.int64)
@@ -1186,22 +1226,35 @@ class MultiLoRAEngine:
         # swap-in or resize drops the cached tree; the strong reference in
         # _dec_src makes identity a safe key)
         if self._dec_src is not packed:
+            t_view = sp and sp.begin(_VIEW)
             self._dec_groups = retile_packed(packed, 1)["groups"]
             self._dec_src = packed
+            if sp:
+                sp.end(_VIEW, t_view, n_step)
         buf = upload(inp, self.device)
         dec = {"base": self.params["base"],
                "lora": {"groups": self._dec_groups, "seg": buf[3]}}
         # stage the next wave now: its page copies go on the stream before
         # the decode and touch only slots no active row reads
         self._prefetch_upcoming()
+        if sp:
+            sp.end(_PREP, t, n_step)
+            t = sp.begin(_LAUNCH)
         logits, self._caches = self.model.decode_step(
             dec, buf[0][:, None], self._caches, buf[1], buf[2])
+        if sp:
+            sp.end(_LAUNCH, t, n_step)
+            t = sp.begin(_SYNC)
         nxt = torch.argmax(logits[:, -1, :], dim=-1).cpu().numpy()
         kept = None
         if any(self._rows[i].logits is not None for i in active):
             kept = logits[:, -1, :].float().cpu().numpy()
+        if sp:
+            sp.end(_SYNC, t, n_step)
+            t = sp.begin(_RETIRE)
         self._step_count += 1
         if self.telemetry is not None:
+            mgr.resolve_copy_timers()
             self.telemetry.on_decode_step(
                 self._step_count, self.clock() - t_step, len(active),
                 self.max_rows, len(self.pending),
@@ -1213,6 +1266,9 @@ class MultiLoRAEngine:
                 row.logits.append(kept[i])
             if self._row_done(row):
                 finished.append(self._retire(i))
+        if sp:
+            sp.end(_RETIRE, t, n_step)
+            sp.end(_STEP, t_whole, n_step)
         return finished
 
     @property

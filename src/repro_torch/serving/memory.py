@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import time
 from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
@@ -55,6 +56,14 @@ from repro_torch.serving.faults import (
     PoisonedAdapter,
     page_arrays_finite,
 )
+from repro_torch.serving.telemetry import SPANS
+
+# raw spans (argument: the page's bytes): a swap-in on the host, and the
+# time to its last copy's end from the start of its copies (on the card
+# the stream's, enqueue gaps included, resolved after the engine's next
+# host read; on the CPU, whose copies are synchronous, the host's)
+_SWAP_IN = SPANS.name_id("memory.swap_in")
+_PAGE_COPY = SPANS.name_id("memory.page_copy")
 
 # page meta = everything that is not a packed array, the late-attached seg
 # or the per-view tile size, derived from the dataclass so a new field of
@@ -133,7 +142,9 @@ class AdapterMemoryManager:
     :class:`HostTransport` injecting ``faults``); ``faults`` also corrupts
     pages after the read, before the integrity check. With a
     ``telemetry``, every counter is mirrored into its registry
-    (``adapter_memory_<counter>_total{pool=...}``).
+    (``adapter_memory_<counter>_total{pool=...}``), each swap-in is a
+    ``memory.swap_in`` span and its copies a ``memory.page_copy`` one (on
+    the card by a pair of CUDA events, :meth:`resolve_copy_timers`).
     """
 
     def __init__(self, store, like_tree, num_slots: Optional[int] = None,
@@ -151,6 +162,9 @@ class AdapterMemoryManager:
         self.transport = (transport if transport is not None
                           else HostTransport(faults=faults))
         self.telemetry = telemetry
+        self._spans = telemetry.spans if telemetry is not None else None
+        # (start event, end event, page bytes) of page copies not yet read
+        self._copy_timers: List[Tuple[Any, Any, int]] = []
 
         self._leaf_info: Optional[List[Tuple[str, int, int]]] = None
         self._host: Dict[str, _HostPage] = {}
@@ -633,13 +647,28 @@ class AdapterMemoryManager:
         harmless only because every one of its keys is masked with a
         finite ``NEG_INF`` (``models/attention.py``) and its output is
         discarded."""
+        sp = self._spans
+        t = sp and sp.begin(_SWAP_IN)
         page = self._host_page(adapter_id)
         pool = self._pools[sig]
+        on_card = sp is not None and self.device.type == "cuda"
+        if on_card:
+            stream = torch.cuda.current_stream(self.device)
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev0.record(stream)
+        elif sp:
+            t_copy = time.perf_counter_ns()
         for path, _, fold in self._leaves():
             dst, src = pool.arrays[path], page.arrays[path]
             for f in _ARRAY_FIELDS:
                 dst[f][:, slot * fold:(slot + 1) * fold].copy_(
                     src[f], non_blocking=True)
+        if on_card:
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev1.record(stream)
+            self._copy_timers.append((ev0, ev1, page.nbytes))
+        elif sp:
+            sp.add(_PAGE_COPY, t_copy, time.perf_counter_ns(), page.nbytes)
         pool.owners[slot] = adapter_id
         self._where[adapter_id] = (sig, slot)
         self._slot_version[adapter_id] = page.version
@@ -651,6 +680,28 @@ class AdapterMemoryManager:
         self._count(sig, "swap_ins")
         self._count(sig, "swap_in_bytes", page.nbytes)
         self._tree = None
+        if sp:
+            sp.end(_SWAP_IN, t, page.nbytes)
+
+    def resolve_copy_timers(self):
+        """Log the stream time of every timed swap-in whose copies have
+        run (from the stream reaching it to the end of its last copy, the
+        gaps in which the stream waited for the host to enqueue the next
+        copy included) as a ``memory.page_copy`` record ending now, its
+        bytes the argument. The engine calls it right after a host read,
+        which has waited for the stream; a copy not yet run stays pending:
+        this never waits."""
+        if not self._copy_timers:
+            return
+        pending = []
+        for ev0, ev1, nbytes in self._copy_timers:
+            if ev1.query():
+                now = time.perf_counter_ns()
+                ns = int(ev0.elapsed_time(ev1) * 1e6)
+                self._spans.add(_PAGE_COPY, now - ns, now, nbytes)
+            else:
+                pending.append((ev0, ev1, nbytes))
+        self._copy_timers = pending
 
     # ----- engine-facing operations -----
 

@@ -17,17 +17,22 @@ into one dependency-free layer:
   registry, the trace table, the event log and the **injectable monotonic
   clock** (:class:`ManualClock` under test, ``time.perf_counter``
   otherwise) that makes every timestamp deterministic in tests.
+* :attr:`Telemetry.spans` — the process-wide raw span log
+  (:data:`repro_torch.spans.SPANS`), into which the engine's step phases
+  and the paged memory's swap-ins and page copies go while they hold a
+  ``Telemetry``. Spans never read the injectable clock and never touch
+  the event log, the registry or the exports.
 
 Every metric and event name is the reference's, so the two packages'
 exports compare series for series. One series differs in meaning:
 ``pallas_launches_total{kernel=...}`` counts every CUDA launch of a kernel
 (every plain call on the CPU), where the reference counts one per trace.
 
-Nothing here imports torch, numpy or a serving module. The serving layers
-accept ``telemetry=None`` and then skip every hook; instrumentation is
-host-side bookkeeping that changes no token and launches no kernel. The
-engine reads its clock after the step's one host synchronization, so wall
-times on the card include the device work.
+Nothing here imports torch, numpy or a serving module. The serving
+layers accept ``telemetry=None`` and then skip every hook, spans included;
+instrumentation is host-side bookkeeping that changes no token and
+launches no kernel. The engine reads its clock after the step's one host
+synchronization, so wall times on the card include the device work.
 """
 
 from __future__ import annotations
@@ -38,9 +43,12 @@ import math
 import time
 from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
+from repro_torch.spans import SPANS, Span, SpanLog
+
 __all__ = [
     "Counter", "Gauge", "Histogram", "ManualClock", "MetricsRegistry",
-    "RequestTrace", "Telemetry", "DEFAULT_LATENCY_BUCKETS", "EVENT_SCHEMA",
+    "RequestTrace", "Span", "SpanLog", "SPANS", "Telemetry",
+    "DEFAULT_LATENCY_BUCKETS", "EVENT_SCHEMA",
 ]
 
 
@@ -380,9 +388,15 @@ class Telemetry:
         self.traces: Dict[int, RequestTrace] = {}
         self.events: List[Dict[str, Any]] = []
         self._kernel_sink: Optional[Callable[[str], None]] = None
+        self._occupancy_buckets: Tuple[int, ...] = ()
 
     def now(self) -> float:
         return self.clock()
+
+    @property
+    def spans(self) -> SpanLog:
+        """The process-wide raw span log (:data:`SPANS`)."""
+        return SPANS
 
     # ----- event log -----
 
@@ -454,9 +468,10 @@ class Telemetry:
             "serving_step_seconds",
             help="scheduler step latency (sweep+admit+decode)"
         ).observe(dur_s)
+        if len(self._occupancy_buckets) != max(max_rows, 1) + 1:
+            self._occupancy_buckets = tuple(range(0, max(max_rows, 1) + 1))
         self.registry.histogram(
-            "serving_batch_occupancy",
-            buckets=tuple(range(0, max(max_rows, 1) + 1)),
+            "serving_batch_occupancy", buckets=self._occupancy_buckets,
             help="active rows per decode step").observe(active_rows)
         self.registry.gauge(
             "serving_queue_depth", help="pending requests").set(queued)
@@ -501,12 +516,17 @@ class Telemetry:
             return
         from repro_torch.kernels.quant_matmul.kernel import add_launch_sink
 
+        counters: Dict[str, Counter] = {}
+
         def sink(name: str) -> None:
-            self.registry.counter(
-                "pallas_launches_total",
-                help="kernel launches (CUDA launches on the card, plain "
-                     "calls on the CPU)",
-                kernel=name).inc()
+            c = counters.get(name)
+            if c is None:
+                c = counters[name] = self.registry.counter(
+                    "pallas_launches_total",
+                    help="kernel launches (CUDA launches on the card, plain "
+                         "calls on the CPU)",
+                    kernel=name)
+            c.inc()
 
         self._kernel_sink = sink
         add_launch_sink(sink)
