@@ -473,11 +473,21 @@ def profile_step(step):
     result and the window: host wall time (synchronized), device busy time
     (the union of the card's kernel and copy spans), the LoRA kernels' share
     and launches, the rest, and the idle share of the window. Falls back to
-    CUDA events (no split) if the profiler records no device activity."""
+    CUDA events (no split) if the profiler records no device activity.
+    Holds the LoRA kernels the card ran to the launches their wrappers
+    counted in the window (``LAUNCH_COUNTS``, which a replayed CUDA graph
+    adds to from its capture)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.kernels.quant_matmul import LAUNCH_COUNTS
+
+    def counted():
+        return sum(LAUNCH_COUNTS[k.removesuffix("_kernel")]
+                   for k in LORA_KERNELS)
+
     torch.cuda.synchronize()
+    n0 = counted()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CPU,
@@ -488,6 +498,7 @@ def profile_step(step):
         stop.record()
         torch.cuda.synchronize()
         window = (time.perf_counter() - t0) * 1e3
+    n_counted = counted() - n0
     spans, lora, n_lora, by_name = [], 0.0, 0, {}
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -505,6 +516,10 @@ def profile_step(step):
                           "time)", device_ms=None, lora_ms=None,
                    other_ms=None, idle=None, lora_launches=None, kernels=0)
         return out, res
+    if n_lora != n_counted:
+        raise AssertionError(f"the card ran {n_lora} LoRA kernels in the "
+                             f"profiled call, the wrappers counted "
+                             f"{n_counted}")
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):               # union of the spans, in µs
         if b > end:
@@ -2370,7 +2385,11 @@ def bounded_serve(label, model, params, store, vocab, device, per_forward,
             f"{m['slots']} slots, page {page} bytes; hits {m['hits']}, "
             f"misses {m['misses']}, evictions {m['evictions']}, swap-ins "
             f"{m['swap_ins']} ({m['swap_in_bytes']} bytes)")
+    runner = getattr(eng, "_graphs", None)
     res = {"resident": resident, "bounded": bounded,
+           "graphs": None if runner is None else {
+               k: getattr(runner, k)
+               for k in ("captures", "replays", "failures")},
            "groups": (r_res["groups"], r_bnd["groups"]),
            "launches": r_bnd["counts"]["sgmv_fused"], "page": page,
            "tok_s": r_bnd["tok_s"], "tok_s_resident": r_res["tok_s"],
@@ -3827,6 +3846,11 @@ def phase_ds_serve(device="cuda", preset="full"):
     res = bounded_serve("deepseek bf16", model, params, store, cfg.vocab,
                         device, ds_per_forward(cfg), keep_logits=True)
     resident, bounded = res.pop("resident"), res.pop("bounded")
+    if device == "cuda" and not res["graphs"]["replays"]:
+        # the bounded serve's prefills after its capture (each checked by
+        # run_stream) ran beside the graphs' memory pool
+        raise AssertionError(f"deepseek bounded serve: no decode forward "
+                             f"was replayed ({res['graphs']})")
     scale = max(float(abs(r.logits).max()) for r in resident)
     gap = comparable_gap(resident, bounded)
     res.update(bf16_gap=gap / scale, peak_gib=(

@@ -34,11 +34,16 @@ every plain call. The semantics differ from the JAX package's sinks, which
 run once per *trace* of a ``pallas_call`` (a jitted step replays without
 recording); here every real launch is recorded. The serving telemetry
 exports them as ``pallas_launches_total{kernel=...}``.
+
+Launches made while a CUDA graph is captured run only when it is replayed:
+:func:`recording_launches` holds them out of the counts and the sinks, and
+the graph's owner hands them back at each replay (:func:`count_launches`).
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import dataclasses
 import functools
@@ -71,6 +76,15 @@ OUT_BLOCKS = 2 * TARGET_BLOCKS  # an out call's plain blocks at most: about
 # (and every plain call): they must be cheap and must not raise.
 _LAUNCH_SINKS: list = []
 
+# The wrappers' launch names; each launches its CUDA kernel
+# ``<name>_kernel`` (``csrc/<name>.cu``).
+KERNELS = ("matmul_rhs", "matmul_out", "fused_lora", "sgmv_rhs", "sgmv_out",
+           "sgmv_fused")
+
+# While a CUDA graph is captured, the launches it records by name (none run
+# until a replay), else None.
+_RECORDING: "Optional[collections.Counter[str]]" = None
+
 
 def reset_launch_counts() -> None:
     LAUNCH_COUNTS.clear()
@@ -92,6 +106,29 @@ def remove_launch_sink(sink) -> None:
 def _notify(name: str) -> None:
     for sink in _LAUNCH_SINKS:
         sink(name)
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Within the block, kernel launches are recorded into the yielded
+    counter instead of being counted and reported to the sinks: a CUDA
+    graph's capture, whose launches run at its replays."""
+    global _RECORDING
+    outer, _RECORDING = _RECORDING, collections.Counter()
+    try:
+        yield _RECORDING
+    finally:
+        _RECORDING = outer
+
+
+def count_launches(counts) -> None:
+    """Count launches that ran outside a wrapper call (a CUDA graph's
+    replay of the launches recorded at its capture): ``counts`` maps each
+    kernel name to its number of launches."""
+    for name, n in counts.items():
+        LAUNCH_COUNTS[name] += n
+        for _ in range(n):
+            _notify(name)
 
 
 def _plain_call(name: str) -> None:
@@ -371,6 +408,9 @@ def _launch(name: str, dev: torch.device, fn, *args) -> None:
     if rc != 0:
         msg = load_library().quant_matmul_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+    if _RECORDING is not None:
+        _RECORDING[name] += 1
+        return
     LAUNCH_COUNTS[name] += 1
     _notify(name)
 

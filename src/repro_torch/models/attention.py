@@ -42,6 +42,7 @@ context. Its cache is linear, not a ring: slot index == padded index.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -59,6 +60,13 @@ Params = Dict[str, Any]
 NEG_INF = -2.3819763e38  # most-negative bf16-representable; avoids nan softmax
 BLOCKWISE_THRESHOLD = 8192   # switch to online-softmax attention above this
 KV_CHUNK = 1024
+
+
+@functools.lru_cache(maxsize=None)
+def _neg_inf(device: torch.device) -> torch.Tensor:
+    """``NEG_INF`` as an fp32 scalar on ``device``, made once per device (a
+    forward captured in a CUDA graph cannot copy from the host)."""
+    return torch.tensor(NEG_INF, dtype=torch.float32, device=device)
 
 
 def init_gqa(gen: torch.Generator, cfg, lora_rank: Optional[int], count: int):
@@ -150,7 +158,7 @@ def _sdpa_blockwise(q, k, v, offset: int, window: Optional[int],
                    device=dev)
     den = torch.zeros((b, kvh, g, t), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, kvh, g, t, dh), dtype=torch.float32, device=dev)
-    neg = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
+    neg = _neg_inf(dev)
     for ci in range(nchunks):
         lo, hi = ci * chunk, min((ci + 1) * chunk, s)
         kc = k[:, lo:hi].to(torch.float32)

@@ -14,6 +14,7 @@ while no profiler records.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
@@ -87,12 +88,27 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
                             / head_dim))
 
 
+@functools.lru_cache(maxsize=None)
+def _rope_table(head_dim: int, theta: float,
+                device: torch.device) -> torch.Tensor:
+    """:func:`rope_freqs` in fp32 on ``device``, uploaded once per
+    ``(head_dim, theta, device)``: a forward captured in a CUDA graph
+    cannot copy from the host."""
+    return torch.as_tensor(rope_freqs(head_dim, theta), dtype=torch.float32,
+                           device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _section_ids(sections: tuple, device: torch.device) -> torch.Tensor:
+    """M-RoPE's stream index of each rotary half-dim on ``device``."""
+    return torch.as_tensor(np.repeat(np.arange(len(sections)), sections),
+                           device=device)
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float = 10000.0) -> torch.Tensor:
     """Standard RoPE. ``x: (..., T, H, Dh)``, ``positions: (..., T)``."""
-    dh = x.shape[-1]
-    freqs = torch.as_tensor(rope_freqs(dh, theta), dtype=torch.float32,
-                            device=x.device)
+    freqs = _rope_table(x.shape[-1], theta, x.device)
     angles = positions.to(torch.float32)[..., None] * freqs
     angles = angles[..., None, :]            # broadcast over heads
     cos, sin = torch.cos(angles), torch.sin(angles)
@@ -109,14 +125,12 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
     stream of ``positions: (3, ..., T)`` (temporal / height / width). For
     text the three streams coincide and M-RoPE is RoPE."""
     dh = x.shape[-1]
-    freqs = torch.as_tensor(rope_freqs(dh, theta), dtype=torch.float32,
-                            device=x.device)
-    sec_ids = np.repeat(np.arange(len(sections)), sections)
-    if sec_ids.shape[0] != dh // 2:
+    if sum(sections) != dh // 2:
         raise ValueError(f"M-RoPE sections {tuple(sections)} must sum to "
                          f"Dh/2 = {dh // 2}")
-    pos = positions.to(torch.float32)[torch.as_tensor(sec_ids,
-                                                      device=x.device)]
+    freqs = _rope_table(dh, theta, x.device)
+    pos = positions.to(torch.float32)[_section_ids(tuple(sections),
+                                                   x.device)]
     angles = torch.movedim(pos, 0, -1) * freqs           # (..., T, Dh/2)
     angles = angles[..., None, :]
     cos, sin = torch.cos(angles), torch.sin(angles)

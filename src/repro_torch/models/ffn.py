@@ -389,6 +389,13 @@ def _expert_ffw(ex, lex, name, inp, scaling, buf_seg=None):
     return y + (scaling * upd).to(y.dtype)
 
 
+# Set by the decode graph runner (``models/graphs.py``) while it captures a
+# forward: called in place of :func:`_dispatch_indices`, it ends the graph
+# segment there and hands back the buffers its replay fills. Both names are
+# looked up at each call.
+_ISLAND = None
+
+
 def _dispatch(x_loc, idx_loc, e, k, cap):
     """Sort the ``(tok·k,)`` assignments by expert and scatter the kept
     ones into an ``(E, cap, d)`` buffer; returns it with the plan
@@ -397,7 +404,8 @@ def _dispatch(x_loc, idx_loc, e, k, cap):
     dev = x_loc.device
     flat_e = idx_loc.reshape(-1)                          # (tok·k,)
     src_tok = torch.arange(tok * k, device=dev) // k
-    order, sorted_e, pos_in_e, keep = _dispatch_indices(flat_e, e, cap)
+    order, sorted_e, pos_in_e, keep = (_ISLAND or _dispatch_indices)(
+        flat_e, e, cap)
     # dropped assignments land on a sentinel row, sliced off
     dest = torch.where(keep, sorted_e * cap + pos_in_e,
                        torch.full_like(sorted_e, e * cap))

@@ -197,6 +197,8 @@ class Model:
     def __post_init__(self):
         self._tp = None
         self._spec_table = None
+        # the decode graphs armed for the next decode_step call, or None
+        self._armed = None
 
     @property
     def tp(self):
@@ -711,7 +713,20 @@ class Model:
         1)``); ``pos``: ``(B,)`` padded cache index of the incoming token;
         ``start``: optional ``(B,)`` left-pad count. Rotary positions are
         ``pos - start``.
-        Returns ``(logits, caches)`` (the caches updated in place)."""
+        Returns ``(logits, caches)`` (the caches updated in place). A call
+        that a serving engine prepared (``models/graphs.py``) is replayed
+        from its CUDA graphs; the logits are then the graphs' output
+        buffer, rewritten by the next replay."""
+        graphs, self._armed = self._armed, None
+        if graphs is not None:
+            logits = graphs.replay(params, tokens, caches, pos, start)
+            if logits is not None:
+                return logits, caches
+        return self._decode(params, tokens, caches, pos, start), caches
+
+    def _decode(self, params, tokens, caches, pos, start):
+        """The logits of :meth:`decode_step`'s forward (what a decode graph
+        captures)."""
         x = self._embed(params["base"], {"tokens": tokens})
         b = x.shape[0]
         pos_b = torch.as_tensor(pos, device=x.device).to(
@@ -723,7 +738,7 @@ class Model:
         positions = self._rope_streams((pos_b - start_b)[:, None])
         h, _ = self._backbone(params, x, positions, caches, pos_b,
                               valid_start=start_b)
-        return self._logits(params["base"], h), caches
+        return self._logits(params["base"], h)
 
 
 def build_model(cfg, remat: bool = False, mesh=None, **overrides) -> Model:

@@ -56,6 +56,7 @@ from repro_torch.kernels import (
     retile_packed,
     stack_packed_adapters,
 )
+from repro_torch.models.graphs import DecodeGraphs
 from repro_torch.serving.faults import (
     AdapterValidationError,
     DeadlineExceeded,
@@ -687,6 +688,12 @@ class MultiLoRAEngine:
         self._memory = None               # paged adapter memory (lazy)
         self._dec_groups = None           # decode-retiled view of the pools
         self._dec_src = None              # the serving tree it was built from
+        self._dec_rows = None             # (host stage, device rows), lazy
+        self._dec_args = None             # the decode call's arguments
+        # the decode forward's CUDA graphs (on the card, without a mesh)
+        self._graphs = (DecodeGraphs(model, self._spans, telemetry)
+                        if DecodeGraphs.supported(model, self.device)
+                        else None)
 
     @staticmethod
     def _check_mode(mode: str):
@@ -1018,6 +1025,17 @@ class MultiLoRAEngine:
             row.req.logits = np.stack(row.logits[:len(row.req.output)])
         return self._finalize(row.req, status, error)
 
+    def _decode_rows(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The decode inputs' rows (tokens, pos, start, seg) ``(4,
+        max_rows)`` int64: a host stage to fill (pinned on the card) and the
+        persistent device tensor the forward reads, the same every step
+        (one tensor on the CPU)."""
+        if self._dec_rows is None:
+            host = torch.zeros((4, self.max_rows), dtype=torch.int64,
+                               pin_memory=self.device.type == "cuda")
+            self._dec_rows = (host, host.to(self.device))
+        return self._dec_rows
+
     def _prefetch_upcoming(self):
         """Stage the next admission wave's pages one step ahead: called
         after this step's seg ids and decode view, before the decode."""
@@ -1104,7 +1122,10 @@ class MultiLoRAEngine:
            positions and validity, per-row global slot ids as seg ids,
            inactive rows fully masked. The next wave's pages are prefetched
            after the seg ids are read and before the decode is enqueued.
-           One host synchronization: the argmax read.
+           On the card the forward is replayed from CUDA graphs captured
+           at the second step with the same inputs
+           (:class:`~repro_torch.models.graphs.DecodeGraphs`; a pool resize
+           recaptures). One host synchronization: the argmax read.
         3. **Retire** rows at ``max_new_tokens`` / ``eos_id``: the row and
            its adapter's pin are released.
 
@@ -1209,9 +1230,13 @@ class MultiLoRAEngine:
             return finished
         self._stalled_steps = 0
         t = sp and sp.begin(_PREP)
-        # rows of (tokens, pos, start, seg), one upload; inactive rows:
-        # start == capacity masks every cache slot, seg 0
-        inp = np.zeros((4, self.max_rows), np.int64)
+        # rows of (tokens, pos, start, seg), one copy into the persistent
+        # rows; inactive rows: start == capacity masks every cache slot,
+        # seg 0. The stage is free again: the last decode's host read
+        # came after its copy.
+        host, buf = self._decode_rows()
+        inp = host.numpy()
+        inp[:] = 0
         inp[2] = self.capacity
         for i in active:
             row = self._rows[i]
@@ -1229,19 +1254,30 @@ class MultiLoRAEngine:
             t_view = sp and sp.begin(_VIEW)
             self._dec_groups = retile_packed(packed, 1)["groups"]
             self._dec_src = packed
+            self._dec_args = None
             if sp:
                 sp.end(_VIEW, t_view, n_step)
-        buf = upload(inp, self.device)
-        dec = {"base": self.params["base"],
-               "lora": {"groups": self._dec_groups, "seg": buf[3]}}
+        if buf is not host:
+            buf.copy_(host, non_blocking=True)
+        if self._dec_args is None or self._dec_args[2] is not self._caches:
+            # one tuple while the view and the caches stand: the decode
+            # graphs key their inputs only when it is new
+            dec = {"base": self.params["base"],
+                   "lora": {"groups": self._dec_groups, "seg": buf[3]}}
+            self._dec_args = (dec, buf[0][:, None], self._caches, buf[1],
+                              buf[2])
+        args = self._dec_args
         # stage the next wave now: its page copies go on the stream before
         # the decode and touch only slots no active row reads
         self._prefetch_upcoming()
+        if self._graphs is not None:
+            # captured here (outside the decode call) when the inputs
+            # repeat; the decode below then replays
+            self._graphs.prepare(n_step, args)
         if sp:
             sp.end(_PREP, t, n_step)
             t = sp.begin(_LAUNCH)
-        logits, self._caches = self.model.decode_step(
-            dec, buf[0][:, None], self._caches, buf[1], buf[2])
+        logits, self._caches = self.model.decode_step(*args)
         if sp:
             sp.end(_LAUNCH, t, n_step)
             t = sp.begin(_SYNC)

@@ -190,6 +190,7 @@ class AdapterMemoryManager:
         self.poisoned: Dict[str, Optional[int]] = {}
 
         self._tree = None                  # cached serving tree (dirty=None)
+        self._luts = None                  # (pool layout, bucket lookups)
         self._seen_mutations = None
         self.hits = 0
         self.misses = 0
@@ -846,22 +847,29 @@ class AdapterMemoryManager:
         """The LoRA tree the engine feeds the model: ``like_tree`` mirrored
         with :class:`PackedLoRABatch` leaves over the slot stacks (one pool)
         or :class:`PackedLoRABuckets` leaves (one bucket per live pool,
-        lookups from global slot ids to pool-local ones). Rebuilt only after
-        a swap-in or a resize (views over the same tensors; an unchanged
-        tree keeps its identity)."""
+        lookups from global slot ids to pool-local ones, uploaded again only
+        when a pool is resized). Rebuilt only after a swap-in or a resize
+        (views over the same tensors; an unchanged tree keeps its
+        identity)."""
         self._ensure_default_pool()
         if self._tree is not None:
             return self._tree
 
         live = [p for p in self._pools.values() if p.capacity > 0]
         total = sum(p.capacity for p in self._pools.values())
-        luts = []
-        for pool in live:
-            lut = np.full((total,), -1, np.int32)
-            base = self._base(pool.sig)
-            lut[base:base + pool.capacity] = np.arange(pool.capacity,
-                                                       dtype=np.int32)
-            luts.append(upload(lut, self.device))
+        # the lookups change only with the pools' layout, so a swap-in keeps
+        # the decode graphs' tensors (models/graphs.py)
+        layout = tuple((p.sig, p.capacity) for p in self._pools.values())
+        if self._luts is None or self._luts[0] != layout:
+            luts = []
+            for pool in live:
+                lut = np.full((total,), -1, np.int32)
+                base = self._base(pool.sig)
+                lut[base:base + pool.capacity] = np.arange(pool.capacity,
+                                                           dtype=np.int32)
+                luts.append(upload(lut, self.device))
+            self._luts = (layout, luts)
+        luts = self._luts[1]
 
         def leaf_of(pool: _Pool, path: str):
             meta = self._meta_by_sig[pool.sig][path]
